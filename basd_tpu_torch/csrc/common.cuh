@@ -1,0 +1,161 @@
+// Shared device code for the port's hand-written Hopper kernels.
+//
+// One building block serves every matrix product inside the ported TPU
+// kernels (K1 fused attention half, K2 fused MLP half, K7 Newton-Schulz
+// polar): `tile_mma`, a 64x64 output tile of C = A . B with bf16 operands
+// and f32 accumulation on the tensor cores (WMMA 16x16x16, four warps of
+// 32x32 each), operands staged through shared memory in 32-deep K slices,
+// zero-filled at the ragged edges so any M, N, K is exact. The f32 tile is
+// left in shared memory for the caller's epilogue, which does the
+// reference's bf16 rounding at the same points as the Pallas kernels.
+//
+// This first version is simple on purpose: no TMA, no wgmma, no
+// multi-stage pipeline. Those belong to later tuning work.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace basd {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 64;
+constexpr int BN = 64;
+constexpr int BK = 32;
+constexpr int A_LD = BK + 8;    // A tile [BM][BK], padded rows
+constexpr int BNK_LD = BK + 8;  // B tile stored [BN][BK] (B given as N x K)
+constexpr int BKN_LD = BN + 8;  // B tile stored [BK][BN] (B given as K x N)
+constexpr int C_LD = BN + 4;    // f32 result tile [BM][BN]
+constexpr int TILE_THREADS = 128;  // four warps, 2 x 2 over the 64 x 64 tile
+
+struct TileSmem {
+  alignas(128) bf16 a[BM * A_LD];
+  alignas(128) bf16 b[BN * BNK_LD > BK * BKN_LD ? BN * BNK_LD : BK * BKN_LD];
+  alignas(128) float c[BM * C_LD];
+};
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
+__device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// True when 8-element (16-byte) vector loads are legal for a row-major
+// matrix with leading dimension `ld` starting at `p`.
+__host__ __device__ inline bool vec_ok(const void* p, int ld) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (ld % 8 == 0);
+}
+
+// Copy the rows x cols window at (r0, c0) of a row-major R x C matrix into
+// shared memory (row stride ld_s), zero-filling outside the matrix.
+// `cols` is a multiple of 8.
+__device__ __forceinline__ void load_tile(bf16* s, int ld_s, const bf16* g,
+                                          int ld_g, int R, int C, int r0,
+                                          int c0, int rows, int cols,
+                                          bool vec) {
+  const int chunks = cols / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks;
+    const int c = (i % chunks) * 8;
+    const int gr = r0 + r;
+    const int gc = c0 + c;
+    bf16* dst = s + r * ld_s + c;
+    if (vec && gr < R && gc + 8 <= C) {
+      *reinterpret_cast<uint4*>(dst) =
+          *reinterpret_cast<const uint4*>(g + (size_t)gr * ld_g + gc);
+    } else {
+      for (int j = 0; j < 8; ++j) {
+        dst[j] = (gr < R && gc + j < C) ? g[(size_t)gr * ld_g + gc + j]
+                                        : f2bf(0.f);
+      }
+    }
+  }
+}
+
+// sm.c[0:BM, 0:BN] = A[m0:m0+BM, :] . B[:, n0:n0+BN] in f32.
+// A is M x K row-major. With B_NK, B is given as N x K row-major (a weight
+// in torch's (out, in) layout, or X for X X^T); otherwise as K x N
+// row-major. Must be called by all TILE_THREADS threads of the block.
+template <bool B_NK>
+__device__ void tile_mma(TileSmem& sm, const bf16* A, int lda, bool a_vec,
+                         const bf16* B, int ldb, bool b_vec, int M, int N,
+                         int K, int m0, int n0) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32;
+  const int wn = (warp % 2) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_tile(sm.a, A_LD, A, lda, M, K, m0, k0, BM, BK, a_vec);
+    if constexpr (B_NK) {
+      load_tile(sm.b, BNK_LD, B, ldb, N, K, n0, k0, BN, BK, b_vec);
+    } else {
+      load_tile(sm.b, BKN_LD, B, ldb, K, N, k0, n0, BK, BN, b_vec);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], sm.a + (wm + 16 * i) * A_LD + kk, A_LD);
+      if constexpr (B_NK) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+            fb[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], sm.b + (wn + 16 * j) * BNK_LD + kk,
+                                 BNK_LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      } else {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            fb[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], sm.b + kk * BKN_LD + wn + 16 * j,
+                                 BKN_LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(sm.c + (wm + 16 * i) * C_LD + wn + 16 * j,
+                              acc[i][j], C_LD, wmma::mem_row_major);
+  __syncthreads();
+}
+
+}  // namespace basd
+
+#define BASD_CHECK_LAUNCH()                      \
+  do {                                           \
+    cudaError_t err_ = cudaGetLastError();       \
+    if (err_ != cudaSuccess) return (int)err_;   \
+  } while (0)

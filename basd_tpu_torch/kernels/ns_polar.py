@@ -1,0 +1,93 @@
+"""K7: hybrid Newton-Schulz polar factor.
+
+Replaces ``basd_tpu/ops/pallas/ns_polar.py:ns_polar_hybrid``
+(``_ns_kernel``): an f32 Frobenius prescale, 5 accelerated quintic steps
+(``QUINTIC_SCHEDULE``) and 2 cubic steps, bf16 operands with f32
+accumulation and every intermediate rounded to bf16. The CUDA kernel
+(``csrc/ns_polar.cu``, ``basd_ns_polar_hybrid``) runs for a CUDA tensor;
+``ns_polar_plain`` is the same function in plain PyTorch, taken for a CPU
+tensor. Forward-only: the polar factor is the nuclear-norm subgradient,
+never differentiated through.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from basd_tpu_torch.kernels import _build
+
+# the JAX package's schedule (basd_tpu/ops/pallas/ns_polar.py:34-40,
+# equal to basd_tpu/ops/linalg.py:255-261), mirrored in csrc/ns_polar.cu
+QUINTIC_SCHEDULE = (
+    (4.0848, -6.8946, 2.9270),
+    (3.9505, -6.3029, 2.6377),
+    (3.7418, -5.5913, 2.3037),
+    (2.8769, -3.1427, 1.2046),
+    (2.8366, -3.0525, 1.2012),
+)
+NUM_CUBIC = 2
+
+
+def _mm_nt(a, b):
+    """(..., m, k) . (..., n, k)^T with f32 accumulation."""
+    return torch.matmul(a.float(), b.float().transpose(-1, -2))
+
+
+def _mm_nn(a, b):
+    return torch.matmul(a.float(), b.float())
+
+
+def ns_polar_plain(x: torch.Tensor, inner_dtype: torch.dtype = torch.bfloat16,
+                   quintic: tuple = QUINTIC_SCHEDULE,
+                   num_cubic: int = NUM_CUBIC) -> torch.Tensor:
+    """(..., r, c) -> polar factor in ``inner_dtype``: f32 Frobenius
+    prescale, the ``quintic`` steps, then ``num_cubic`` cubic steps, every
+    operand and intermediate rounded to ``inner_dtype``, f32 accumulation.
+    With the defaults this is the TPU kernel's arithmetic."""
+    x = x.float()
+    norm2 = (x * x).sum(dim=(-2, -1), keepdim=True)
+    xb = (x * torch.rsqrt(norm2 + 1e-30)).to(inner_dtype)
+    for a, b, c in quintic:
+        g = _mm_nt(xb, xb).to(inner_dtype)
+        g2 = _mm_nt(g, g).to(inner_dtype)
+        h = (b * g.float() + c * g2.float()).to(inner_dtype)
+        xb = (a * xb.float() + _mm_nn(h, xb)).to(inner_dtype)
+    for _ in range(num_cubic):
+        xxt = _mm_nt(xb, xb).to(inner_dtype)
+        xb = (1.5 * xb.float() - 0.5 * _mm_nn(xxt, xb)).to(inner_dtype)
+    return xb
+
+
+def kernel_eligible(r: int, c: int) -> bool:
+    """The JAX package's gate for its polar kernel (``linalg.py:296-305``),
+    on the (rows, cols) of the wide orientation."""
+    return r % 8 == 0 and c % 128 == 0
+
+
+def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
+    """Polar factor of ``x`` (B, r, c) f32, r <= c, r % 8 == 0,
+    c % 128 == 0 (callers transpose tall inputs). Returns bf16."""
+    if x.dim() != 3:
+        raise ValueError(f"ns_polar_hybrid: expected (B, r, c), got {tuple(x.shape)}")
+    b, r, c = x.shape
+    if not (kernel_eligible(r, c) and r <= c):
+        raise ValueError(
+            f"ns_polar_hybrid: needs r <= c, r % 8 == 0, c % 128 == 0; got "
+            f"{tuple(x.shape)}"
+        )
+    if x.device.type == "cpu":
+        return ns_polar_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"ns_polar_hybrid: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("ns_polar_hybrid: x must be contiguous float32")
+    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
+                     device=x.device)
+    _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
+    ns_polar_hybrid.launches += 1
+    return out
+
+
+ns_polar_hybrid.launches = 0

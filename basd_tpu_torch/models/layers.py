@@ -1,0 +1,241 @@
+"""ViT building blocks (counterpart of ``basd_tpu/models/layers.py``).
+
+Parameters are f32 and keep timm's names and (out, in) layouts; a module's
+``dtype`` is its compute dtype (parameters are cast at use, as flax's
+``Dense(dtype=...)`` does). Numerics follow the reference: bf16 paths use
+tanh-GELU and f32 paths use erf; LayerNorm statistics are f32.
+
+Block dispatch, restated for CUDA from ``layers.py:392-562``: the frozen
+teacher's blocks (``importance_mode='cls'``, bf16, no stochastic depth)
+take K1 (``kernels.block_attn.fused_block_attn``) for the attention half
+and, when a collection buffer is given, K2
+(``kernels.block_mlp.fused_ln_mlp_collect``) for the MLP half. Every other
+block takes the plain chain.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from basd_tpu_torch.kernels.block_attn import fused_block_attn
+from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp_collect
+
+
+def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float):
+    """Per-sample stochastic depth (timm scale-by-keep): ``keep_mask`` is a
+    (B,) bool draw, ``keep = 1 - rate``."""
+    m = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                device=x.device)).to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with f32 parameters computing in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 statistics, output in ``dtype`` (flax
+    ``LayerNorm`` math: fast variance, f32 affine)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        mu2 = (xf * xf).mean(-1, keepdim=True)
+        var = torch.clamp(mu2 - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mu) * mul + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_value: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden_dim, dtype)
+        self.fc2 = Linear(hidden_dim, dim, dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        approx = "tanh" if self.compute_dtype == torch.bfloat16 else "none"
+        return self.fc2(F.gelu(self.fc1(x), approximate=approx))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention that optionally emits distillation
+    importance: ``'cls'`` = head-mean CLS-query softmax row over the patch
+    keys, (B, N-1); ``'mean'`` = head-and-query mean, (B, N)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 importance_mode: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.importance_mode = importance_mode
+        self.qkv = Linear(dim, 3 * dim, dtype)
+        self.proj = Linear(dim, dim, dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        b, n, d = x.shape
+        h = self.num_heads
+        e = d // h
+        scale = e ** -0.5
+        q, k, v = (t.reshape(b, n, h, e).transpose(1, 2)
+                   for t in self.qkv(x).split(d, dim=-1))  # (B, H, N, E)
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        importance = None
+        if self.importance_mode == "mean":
+            probs = torch.softmax(scores.float() * scale, dim=-1)
+            importance = probs.mean(dim=(1, 2))
+            out = torch.matmul(probs.to(self.compute_dtype), v)
+        else:
+            if self.importance_mode == "cls":
+                cls_probs = torch.softmax(scores[:, :, 0].float() * scale, -1)
+                importance = cls_probs[..., 1:].mean(1)
+            probs = torch.softmax((scores * scale).float(), dim=-1)
+            out = torch.matmul(probs.to(self.compute_dtype), v)
+        out = out.transpose(1, 2).reshape(b, n, d)
+        return self.proj(out), importance
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + projection as a stride-p convolution on NHWC input.
+
+    The conv weight (D, C, p, p) flattens in (c, dy, dx) order, so it is the
+    JAX package's (C*p*p, D) Dense-shaped kernel transposed."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
+                              stride=patch_size)
+        self.compute_dtype = dtype
+
+    def forward(self, x):  # (B, S, S, C) -> (B, N, D)
+        dt = self.compute_dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.proj.weight.to(dt),
+                     self.proj.bias.to(dt), stride=self.proj.stride)
+        return y.flatten(2).transpose(1, 2)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block returning (x, importance)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 importance_mode: Optional[str] = None,
+                 layerscale_init: Optional[float] = None,
+                 has_cls_token: bool = True,
+                 dtype: torch.dtype = torch.float32, norm_eps: float = 1e-6):
+        super().__init__()
+        self.num_heads = num_heads
+        self.importance_mode = importance_mode
+        self.has_cls_token = has_cls_token
+        self.compute_dtype = dtype
+        self.norm_eps = norm_eps
+        self.norm1 = LayerNorm(dim, norm_eps, dtype)
+        self.attn = Attention(dim, num_heads, importance_mode, dtype)
+        self.ls1 = (LayerScale(dim, layerscale_init)
+                    if layerscale_init is not None else None)
+        self.norm2 = LayerNorm(dim, norm_eps, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.ls2 = (LayerScale(dim, layerscale_init)
+                    if layerscale_init is not None else None)
+
+    def _teacher_kernels(self, drop) -> bool:
+        return (self.importance_mode == "cls"
+                and self.compute_dtype == torch.bfloat16 and drop is None)
+
+    @staticmethod
+    def _fold(w, b, ls):
+        """LayerScale folded into the (out, in) weight and bias, outside
+        the kernel (``layers.py:438-445``, ``528-532``)."""
+        if ls is None:
+            return w, b
+        g = ls.gamma.float()
+        return w * g[:, None], b * g
+
+    def forward(self, x, drop=None, buf: Optional[torch.Tensor] = None,
+                idx: int = 0):
+        """``drop``: None (deterministic) or ``(keep, masks)`` with masks a
+        (2, B) bool draw for the two residual branches. ``buf``: the flat
+        (L*B*N, D) collection stack that receives this block's output at
+        rows ``[idx*B*N, (idx+1)*B*N)``."""
+        bf = torch.bfloat16
+        if self._teacher_kernels(drop):
+            wp, bp = self._fold(self.attn.proj.weight, self.attn.proj.bias,
+                                self.ls1)
+            x, imp_full = fused_block_attn(
+                x.contiguous(), self.norm1.weight.float(),
+                self.norm1.bias.float(), self.attn.qkv.weight.to(bf),
+                self.attn.qkv.bias.float(), wp.to(bf), bp.float(),
+                self.num_heads, self.norm_eps,
+            )
+            importance = imp_full[:, 1:]  # strip the CLS key
+        else:
+            y, importance = self.attn(self.norm1(x))
+            if self.ls1 is not None:
+                y = self.ls1(y)
+            if drop is not None:
+                y = drop_path(y, drop[1][0], drop[0])
+            x = x + y
+
+        if buf is not None and self._teacher_kernels(drop):
+            w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
+                                self.ls2)
+            x = fused_ln_mlp_collect(
+                x, torch.ones(x.shape[0], device=x.device),
+                self.norm2.weight.float(), self.norm2.bias.float(),
+                self.mlp.fc1.weight.to(bf), self.mlp.fc1.bias.float(),
+                w2.to(bf), b2.float(), buf, idx, self.norm_eps,
+            )
+        else:
+            y = self.mlp(self.norm2(x))
+            if self.ls2 is not None:
+                y = self.ls2(y)
+            if drop is not None:
+                y = drop_path(y, drop[1][1], drop[0])
+            x = x + y
+            if buf is not None:
+                m = x.shape[0] * x.shape[1]
+                if buf.dtype != x.dtype or buf.shape[-1] != x.shape[-1]:
+                    raise ValueError(
+                        f"flat collect stack {tuple(buf.shape)}/{buf.dtype} "
+                        f"does not match block output {tuple(x.shape)}/"
+                        f"{x.dtype}"
+                    )
+                buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
+
+        if importance is None:
+            n_tok = x.shape[1] - 1 if self.has_cls_token else x.shape[1]
+            importance = torch.zeros((x.shape[0], n_tok), device=x.device)
+        return x, importance

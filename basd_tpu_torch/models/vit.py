@@ -1,0 +1,165 @@
+"""Vision Transformer with per-layer token + importance collection
+(counterpart of ``basd_tpu/models/vit.py``).
+
+A Python loop over the blocks replaces ``nn.scan``; ``torch.utils.checkpoint``
+replaces ``jax.checkpoint`` for ``remat`` (the reference's
+``set_grad_checkpointing(True)``). With ``collect``, the frozen teacher
+writes each layer's output into one flat (L*B*N, D) stack, which the caller
+may preallocate and reuse across steps (``collection_init``), and returns it
+as ``PackedTokens``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from basd_tpu_torch.models.layers import Block, LayerNorm, Linear, PatchEmbed
+from basd_tpu_torch.models.tokens import PackedTokens
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    img_size: int = 224
+    patch_size: int = 16
+    embed_dim: int = 192
+    depth: int = 12
+    num_heads: int = 3
+    mlp_ratio: float = 4.0
+    num_classes: int = 1000
+    drop_path_rate: float = 0.0
+    use_cls_token: bool = True
+    layerscale_init: Optional[float] = None
+    norm_eps: float = 1e-6
+    name: str = "vit"
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def num_tokens(self) -> int:
+        """Patch tokens, CLS excluded (the reference's ``num_tokens``)."""
+        return self.num_patches
+
+    def with_overrides(self, overrides: dict | None) -> "ViTConfig":
+        if not overrides:
+            return self
+        allowed = {"embed_dim", "depth", "num_heads", "mlp_ratio"}
+        unknown = set(overrides) - allowed
+        if unknown:
+            raise ValueError(f"unsupported arch overrides: {sorted(unknown)}")
+        return replace(self, **{k: overrides[k] for k in overrides})
+
+
+def drop_path_rates(cfg: ViTConfig) -> np.ndarray:
+    """Linearly spaced per-layer stochastic-depth rates (timm), f32."""
+    return np.linspace(0.0, cfg.drop_path_rate, cfg.depth).astype(np.float32)
+
+
+class VisionTransformer(nn.Module):
+    """Returns ``{'logits', 'tokens', 'importance' (L, B, N_patch)}``;
+    ``tokens`` is (L, B, N_patch, D), or ``PackedTokens`` with ``collect``.
+    Input images are NHWC (B, S, S, 3), the JAX package's layout."""
+
+    def __init__(self, cfg: ViTConfig, importance_mode: Optional[str] = None,
+                 remat: bool = False, collect: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.remat = remat
+        # forward-only collection (the frozen teacher); a remat'd model
+        # collects per-layer outputs instead (vit.py:137)
+        self.collect = collect and not remat
+        self.compute_dtype = dtype
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, d, dtype=dtype)
+        n = cfg.num_patches + (1 if cfg.use_cls_token else 0)
+        self.cls_token = (nn.Parameter(torch.zeros(1, 1, d))
+                          if cfg.use_cls_token else None)
+        self.pos_embed = nn.Parameter(torch.zeros(1, n, d))
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.num_heads, cfg.mlp_ratio,
+                  importance_mode=importance_mode,
+                  layerscale_init=cfg.layerscale_init,
+                  has_cls_token=cfg.use_cls_token, dtype=dtype,
+                  norm_eps=cfg.norm_eps)
+            for _ in range(cfg.depth)
+        )
+        self.norm = LayerNorm(d, cfg.norm_eps, dtype)
+        self.head = (Linear(d, cfg.num_classes, dtype)
+                     if cfg.num_classes > 0 else None)
+
+    def forward(self, x, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                drop_masks: Optional[torch.Tensor] = None,
+                collection_init: Optional[torch.Tensor] = None):
+        """``drop_masks``: optional (depth, 2, B) bool stochastic-depth
+        draws (keep = True); drawn from ``generator`` when omitted."""
+        cfg = self.cfg
+        dt = self.compute_dtype
+        b = x.shape[0]
+        x = self.patch_embed(x)
+        if self.cls_token is not None:
+            x = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), x], dim=1)
+        x = x + self.pos_embed.to(dt)
+        _, n, d = x.shape
+
+        stochastic = not deterministic and cfg.drop_path_rate > 0.0
+        rates = drop_path_rates(cfg)
+        if stochastic and drop_masks is None:
+            keeps = torch.as_tensor(1.0 - rates, device=x.device)
+            u = torch.rand((cfg.depth, 2, b), generator=generator,
+                           device=x.device)
+            drop_masks = u < keeps[:, None, None]
+
+        stack = None
+        if self.collect:
+            m = cfg.depth * b * n
+            if collection_init is not None:
+                # reused buffer: every slab is overwritten before any read
+                if (tuple(collection_init.shape) != (m, d)
+                        or collection_init.dtype != dt):
+                    raise ValueError(
+                        f"collection_init {tuple(collection_init.shape)}/"
+                        f"{collection_init.dtype} != ({m}, {d})/{dt}"
+                    )
+                stack = collection_init
+            else:
+                stack = torch.empty((m, d), dtype=dt, device=x.device)
+
+        tokens, importance, cls_rows = [], [], []
+        for i, blk in enumerate(self.blocks):
+            drop = None
+            if stochastic:
+                drop = (float(np.float32(1.0) - rates[i]), drop_masks[i])
+            if self.remat and torch.is_grad_enabled():
+                x, imp = checkpoint(blk, x, drop, use_reentrant=False)
+            else:
+                x, imp = blk(x, drop, buf=stack, idx=i)
+            importance.append(imp)
+            if self.collect:
+                if cfg.use_cls_token:
+                    cls_rows.append(x[:, 0, :])
+            else:
+                tokens.append(x[:, 1:, :] if cfg.use_cls_token else x)
+
+        if self.collect:
+            tok_out = PackedTokens(
+                flat=stack.view(cfg.depth, b * n, d),
+                cls=torch.stack(cls_rows) if cfg.use_cls_token else None,
+                batch=b, num_tokens=n, has_cls=cfg.use_cls_token,
+            )
+        else:
+            tok_out = torch.stack(tokens)
+
+        x = self.norm(x)
+        pooled = x[:, 0] if cfg.use_cls_token else x.mean(1)
+        logits = self.head(pooled) if self.head is not None else pooled
+        return {"logits": logits, "tokens": tok_out,
+                "importance": torch.stack(importance)}

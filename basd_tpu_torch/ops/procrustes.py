@@ -1,0 +1,100 @@
+"""Attention-weighted Procrustes loss, identity form (counterpart of
+``basd_tpu/ops/procrustes.py``: ``geometric_relational_loss_ident`` and
+``_ident_core``).
+
+The reference loss ``mean_B(tr(S^T S) + tr(T^T T) - 2 ||S_w^T T_w||_*)``
+over weighted-centred panels is rewritten through the weighted-centring
+identities so the (larger) teacher panel is consumed raw, and the
+nuclear norm is ``tr(P^T C)`` with P the Newton-Schulz polar factor of the
+cross-covariance C (K7 at the reference's shapes). ``_IdentCore`` carries
+the reference's closed-form backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from basd_tpu_torch.ops import linalg
+from basd_tpu_torch.ops.interp import linear_interp1d
+
+
+def _slice_mean_shift(teacher_tokens: torch.Tensor) -> torch.Tensor:
+    """Constant channel shift (batch-slice + token mean), no gradient."""
+    b_slice = min(teacher_tokens.shape[-3], 64)
+    return teacher_tokens[..., :b_slice, :, :].detach().float().mean(
+        dim=(-3, -2), keepdim=True)
+
+
+class _IdentCore(torch.autograd.Function):
+    """Identity-form Procrustes loss core with the hand-written backward
+    (``procrustes.py:199-294``). Inputs: s (..., N, D_s), t (..., N, D_t),
+    w (..., N) normalised f32 weights. Output (...,)."""
+
+    @staticmethod
+    def forward(ctx, s_in, t_in, w):
+        s = s_in.float()
+        mu_s = torch.einsum("...n,...nd->...d", w, s)
+        s_c = s - mu_s[..., None, :]
+        sw2 = w[..., None] * s_c
+        tr_s = (sw2 * s_c).sum(dim=(-1, -2))
+
+        c = _slice_mean_shift(t_in)
+        t_c = t_in.float() - c
+        rowsq = (t_c * t_c).sum(-1)
+        mu_tc = torch.einsum("...n,...nd->...d", w, t_c)
+        tr_t = (w * rowsq).sum(-1) - (mu_tc * mu_tc).sum(-1)
+
+        cross = torch.matmul(sw2.transpose(-1, -2), t_c)  # (..., D_s, D_t)
+        p = linalg.newton_schulz_polar(cross, schedule="hybrid")
+        nuclear = (p.float() * cross.float()).sum(dim=(-2, -1))
+        ctx.save_for_backward(s_in, t_in, w, c, mu_s, mu_tc, p)
+        return tr_s + tr_t - 2.0 * nuclear
+
+    @staticmethod
+    def backward(ctx, g):
+        s_in, t_in, w, c, mu_s, mu_tc, p = ctx.saved_tensors
+        s = s_in.float()
+        s_c = s - mu_s[..., None, :]
+        t_c = t_in.float() - c
+        p = p.float()
+
+        tp = torch.matmul(t_c, p.transpose(-1, -2))  # (..., N, D_s)
+        sp = torch.matmul(s_c, p)  # (..., N, D_t)
+
+        g2w = (2.0 * g[..., None]) * w
+        ds_pre = g2w[..., None] * (s_c - tp)
+        colsum = ds_pre.sum(-2)
+        ds = ds_pre - w[..., None] * colsum[..., None, :]
+        dt = g2w[..., None] * (t_c - mu_tc[..., None, :] - sp)
+
+        pmu = torch.einsum("...st,...t->...s", p, mu_tc)
+        dw = g[..., None] * (
+            (s_c * (s_c - 2.0 * tp + 2.0 * pmu[..., None, :])).sum(-1)
+            + (t_c * (t_c - 2.0 * mu_tc[..., None, :])).sum(-1)
+            + 2.0 * (mu_s * pmu).sum(-1)[..., None]
+        )
+        return ds.to(s_in.dtype), dt.to(t_in.dtype), dw.to(w.dtype)
+
+
+def geometric_relational_loss_ident(student_tokens, teacher_tokens,
+                                    importance, *,
+                                    nuclear_backend: str = "gram"):
+    """Identity-form Procrustes loss, batched over leading dims.
+
+    Args:
+        student_tokens: (..., N, D_s).
+        teacher_tokens: (..., N, D_t), token count already aligned.
+        importance: (..., N_w) unnormalised weights, resampled to N.
+
+    Returns the (...,)-shaped per-batch loss.
+    """
+    if nuclear_backend in ("svd", "eigh"):
+        raise NotImplementedError(
+            f"nuclear_backend={nuclear_backend!r} is not ported yet; the "
+            f"port runs the Newton-Schulz ('gram') path"
+        )
+    w = importance.float()
+    if w.shape[-1] != student_tokens.shape[-2]:
+        w = linear_interp1d(w, student_tokens.shape[-2], axis=-1)
+    w = w / w.sum(-1, keepdim=True)
+    return _IdentCore.apply(student_tokens, teacher_tokens, w)
