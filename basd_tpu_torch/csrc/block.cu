@@ -1,4 +1,5 @@
-// K1 and K2: the frozen teacher's two fused block halves on Hopper.
+// K1 and K2: the frozen teacher's two fused block halves on Hopper, and
+// the forwards of the student's K3 and K4.
 //
 // K1 replaces basd_tpu/ops/pallas/fused_block_attn.py:fused_block_attn
 // (_fwd_kernel):  out = x + proj(MHSA(LN1(x) W_qkv + b_qkv)), plus the
@@ -7,6 +8,11 @@
 // (_fwd_collect_kernel):  out = x + mask * fc2(gelu_tanh(fc1(LN2(x)))),
 // with `out` written a second time into layer `idx`'s slab of the flat
 // (L*B*N, D) collection stack, in place.
+// K3a replaces fused_block_attn.py:_fwd_train (_fwd_train_kernel): K1's
+// launches with a per-image DropPath multiplier in the proj epilogue and
+// the per-(image, head, query) logsumexp in f32 in place of the CLS
+// importance. K4a replaces fused_block_mlp.py:_fwd (fused_ln_mlp): K2's
+// entry point called with no collection buffer.
 //
 // What bounds them on the H100: at the teacher's shapes (B*N = 25216 rows,
 // D = 384, B=128) the products and the attention come to ~97 GFLOP per
@@ -25,86 +31,21 @@
 // launch, or 0. Nothing here allocates or synchronises; all buffers come
 // from the caller and every launch goes on the caller's stream.
 
-#include "common.cuh"
+#include "block_kernels.cuh"
 
 namespace basd {
 
-constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
-constexpr float GELU_A = 0.044715f;
-
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
-
-__global__ void layernorm_bf16_kernel(const bf16* __restrict__ x,
-                                      const float* __restrict__ scale,
-                                      const float* __restrict__ bias,
-                                      bf16* __restrict__ out, int rows, int d,
-                                      float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * d;
-  bf16* orow = out + (size_t)row * d;
-  const float inv_d = 1.f / (float)d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += bf2f(xr[i]);
-  const float mu = warp_sum(s) * inv_d;
-  float sq = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float c = bf2f(xr[i]) - mu;
-    sq += c * c;
-  }
-  const float var = warp_sum(sq) * inv_d;
-  const float rstd = rsqrtf(var + eps);
-  for (int i = lane; i < d; i += 32) {
-    orow[i] = f2bf((bf2f(xr[i]) - mu) * rstd * scale[i] + bias[i]);
-  }
-}
-
-// out[M, N] = epilogue(A[M, K] . W[N, K]^T + bias), W in torch's (out, in)
-// layout. EPI_BIAS_RESIDUAL: out = bf16(resid + bf16(acc + bias) * mask),
-// mask per block of `rows_per_mask` rows (1 when mask is null), also
-// written to out2 when it is not null.
-template <int EPI>
-__global__ void __launch_bounds__(TILE_THREADS)
-    gemm_nk_kernel(const bf16* A, const bf16* W, const float* bias,
-                   bf16* out, int M, int N, int K, bool a_vec, bool w_vec,
-                   const bf16* resid, const float* mask, int rows_per_mask,
-                   bf16* out2) {
-  __shared__ __align__(128) TileSmem sm;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  tile_mma<true>(sm, A, K, a_vec, W, K, w_vec, M, N, K, m0, n0);
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = i / BN;
-    const int c = i % BN;
-    const int gr = m0 + r;
-    const int gc = n0 + c;
-    if (gr >= M || gc >= N) continue;
-    const float y = round_bf(sm.c[r * C_LD + c] + bias[gc]);
-    const size_t o = (size_t)gr * N + gc;
-    if constexpr (EPI == EPI_BIAS) {
-      out[o] = f2bf(y);
-    } else if constexpr (EPI == EPI_BIAS_GELU) {
-      const float t = tanhf(GELU_C * (y + GELU_A * y * y * y));
-      out[o] = f2bf(0.5f * y * (1.f + t));
-    } else {
-      const float m = mask ? mask[gr / rows_per_mask] : 1.f;
-      const bf16 v = f2bf(bf2f(resid[o]) + y * m);
-      out[o] = v;
-      if (out2) out2[o] = v;
-    }
-  }
-}
-
 // One block per (image, head): scores in f32 from bf16 q, k; f32 softmax;
 // bf16 probabilities times v with f32 accumulation and deferred
-// normalisation (the TPU kernel's order). The CLS query's row, divided by
-// l * H, goes to imp_heads[b, h, :]; heads are summed later in a fixed
-// order, so no atomics.
+// normalisation (the TPU kernel's order). With LSE false (K1) the CLS
+// query's row, divided by l * H, goes to stat[b, h, :]; heads are summed
+// later in a fixed order, so no atomics. With LSE true (K3a) every query
+// row's m + log(l) goes to stat[b, h, query].
+template <bool LSE>
 __global__ void attention_heads_kernel(const bf16* __restrict__ qkv,
                                        bf16* __restrict__ out,
-                                       float* __restrict__ imp_heads, int N,
-                                       int D, int H, float scale) {
+                                       float* __restrict__ stat, int N, int D,
+                                       int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = D / H;
   const int ldk = e + 2;  // odd word stride: conflict-free key-row reads
@@ -155,10 +96,12 @@ __global__ void attention_heads_kernel(const bf16* __restrict__ qkv,
     }
     const float l = warp_sum(l_loc);
     __syncwarp();
-    if (qi == 0) {
+    if constexpr (LSE) {
+      if (lane == 0) stat[((size_t)b * H + h) * N + qi] = m + logf(l);
+    } else if (qi == 0) {
       const float den = l * (float)H;
       for (int j = lane; j < N; j += 32)
-        imp_heads[((size_t)b * H + h) * N + j] = p_row[j] / den;
+        stat[((size_t)b * H + h) * N + j] = p_row[j] / den;
     }
     for (int c2 = lane; c2 < e / 2; c2 += 32) {
       float a0 = 0.f, a1 = 0.f;
@@ -189,25 +132,32 @@ __global__ void head_sum_kernel(const float* __restrict__ imp_heads,
   imp[i] = acc;
 }
 
-template <int EPI>
-static int launch_gemm(const bf16* A, const bf16* W, const float* bias,
-                       bf16* out, int M, int N, int K, const bf16* resid,
-                       const float* mask, int rows_per_mask, bf16* out2,
-                       cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_nk_kernel<EPI><<<grid, TILE_THREADS, 0, st>>>(
-      A, W, bias, out, M, N, K, vec_ok(A, K), vec_ok(W, K), resid, mask,
-      rows_per_mask, out2);
-  BASD_CHECK_LAUNCH();
-  return 0;
-}
-
-static int launch_layernorm(const bf16* x, const float* s, const float* b,
-                            bf16* out, int rows, int d, float eps,
-                            cudaStream_t st) {
+// LN, qkv GEMM and per-(image, head) attention; the attention output
+// lands in ws_xn (the LN output is dead by then).
+template <bool LSE>
+static int attention_half(const bf16* x, const float* ln_s, const float* ln_b,
+                          const bf16* w_qkv, const float* b_qkv, bf16* ws_xn,
+                          bf16* ws_qkv, float* stat, int B, int N, int D,
+                          int H, float eps, float scale, cudaStream_t st) {
+  const int M = B * N;
+  int rc = launch_layernorm(x, ln_s, ln_b, ws_xn, nullptr, nullptr, M, D, eps,
+                            st);
+  if (rc) return rc;
+  rc = launch_gemm_nk<EPI_BIAS>(ws_xn, w_qkv, b_qkv, ws_qkv, M, 3 * D, D,
+                                nullptr, nullptr, 1, nullptr, st);
+  if (rc) return rc;
   const int threads = 256;
-  const int blocks = (int)(((size_t)rows * 32 + threads - 1) / threads);
-  layernorm_bf16_kernel<<<blocks, threads, 0, st>>>(x, s, b, out, rows, d, eps);
+  const int e = D / H;
+  const size_t smem = (size_t)N * (e + 2) * sizeof(bf16) +
+                      (size_t)N * e * sizeof(bf16) +
+                      (size_t)(threads / 32) * (N + e) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_heads_kernel<LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_heads_kernel<LSE><<<B * H, threads, smem, st>>>(ws_qkv, ws_xn,
+                                                            stat, N, D, H,
+                                                            scale);
   BASD_CHECK_LAUNCH();
   return 0;
 }
@@ -235,38 +185,41 @@ extern "C" int basd_block_attn_fwd(const void* x, const float* ln_s,
   const int M = B * N;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xn = static_cast<bf16*>(ws_xn);
-  bf16* qkv = static_cast<bf16*>(ws_qkv);
-  int rc = basd::launch_layernorm(xb, ln_s, ln_b, xn, M, D, eps, st);
+  int rc = basd::attention_half<false>(
+      xb, ln_s, ln_b, static_cast<const bf16*>(w_qkv), b_qkv, xn,
+      static_cast<bf16*>(ws_qkv), ws_imp, B, N, D, H, eps, scale, st);
   if (rc) return rc;
-  rc = basd::launch_gemm<basd::EPI_BIAS>(
-      xn, static_cast<const bf16*>(w_qkv), b_qkv, qkv, M, 3 * D, D, nullptr,
-      nullptr, 1, nullptr, st);
-  if (rc) return rc;
-
-  const int threads = 256;
-  const int e = D / H;
-  const size_t smem = (size_t)N * (e + 2) * sizeof(bf16) +
-                      (size_t)N * e * sizeof(bf16) +
-                      (size_t)(threads / 32) * (N + e) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      basd::attention_heads_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  basd::attention_heads_kernel<<<B * H, threads, smem, st>>>(qkv, xn, ws_imp,
-                                                              N, D, H, scale);
-  BASD_CHECK_LAUNCH();
   basd::head_sum_kernel<<<(M + 255) / 256, 256, 0, st>>>(ws_imp, imp, B, H, N);
   BASD_CHECK_LAUNCH();
-
-  return basd::launch_gemm<basd::EPI_BIAS_RESIDUAL>(
+  return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
       xn, static_cast<const bf16*>(w_proj), b_proj, static_cast<bf16*>(out),
       M, D, D, xb, nullptr, 1, nullptr, st);
 }
 
-// K2. x, out: (B, N, D) bf16; mask (B,) f32; w1 (F, D), w2 (D, F) bf16;
-// LN affine and biases f32; buf_rows: the (B*N, D) slab of the collection
-// stack that receives `out` as well. Workspaces: ws_xn (B*N, D) bf16,
-// ws_h (B*N, F) bf16.
+// K3a. As K1 with mask (B,) f32 applied to the proj branch and lse
+// (B, H, N) f32 written instead of the importance. Workspaces: ws_xn
+// (B*N, D) bf16, ws_qkv (B*N, 3D) bf16.
+extern "C" int basd_block_attn_train_fwd(
+    const void* x, const float* mask, const float* ln_s, const float* ln_b,
+    const void* w_qkv, const float* b_qkv, const void* w_proj,
+    const float* b_proj, void* out, float* lse, void* ws_xn, void* ws_qkv,
+    int B, int N, int D, int H, float eps, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* xn = static_cast<bf16*>(ws_xn);
+  int rc = basd::attention_half<true>(
+      xb, ln_s, ln_b, static_cast<const bf16*>(w_qkv), b_qkv, xn,
+      static_cast<bf16*>(ws_qkv), lse, B, N, D, H, eps, scale, st);
+  if (rc) return rc;
+  return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
+      xn, static_cast<const bf16*>(w_proj), b_proj, static_cast<bf16*>(out),
+      B * N, D, D, xb, mask, N, nullptr, st);
+}
+
+// K2 and K4a. x, out: (B, N, D) bf16; mask (B,) f32; w1 (F, D), w2 (D, F)
+// bf16; LN affine and biases f32; buf_rows: the (B*N, D) slab of the
+// collection stack that receives `out` as well (K2), or null (K4a).
+// Workspaces: ws_xn (B*N, D) bf16, ws_h (B*N, F) bf16.
 extern "C" int basd_block_mlp_collect_fwd(const void* x, const float* mask,
                                           const float* ln_s, const float* ln_b,
                                           const void* w1, const float* b1,
@@ -280,13 +233,14 @@ extern "C" int basd_block_mlp_collect_fwd(const void* x, const float* mask,
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xn = static_cast<bf16*>(ws_xn);
   bf16* hid = static_cast<bf16*>(ws_h);
-  int rc = basd::launch_layernorm(xb, ln_s, ln_b, xn, M, D, eps, st);
+  int rc = basd::launch_layernorm(xb, ln_s, ln_b, xn, nullptr, nullptr, M, D,
+                                  eps, st);
   if (rc) return rc;
-  rc = basd::launch_gemm<basd::EPI_BIAS_GELU>(
+  rc = basd::launch_gemm_nk<basd::EPI_BIAS_GELU>(
       xn, static_cast<const bf16*>(w1), b1, hid, M, F, D, nullptr, nullptr, 1,
       nullptr, st);
   if (rc) return rc;
-  return basd::launch_gemm<basd::EPI_BIAS_RESIDUAL>(
+  return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
       hid, static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), M, D, F,
       xb, mask, N, static_cast<bf16*>(buf_rows), st);
 }

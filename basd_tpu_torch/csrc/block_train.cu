@@ -1,0 +1,487 @@
+// K3b and K4b: the backward passes of the student's fused block halves on
+// Hopper.
+//
+// K3b replaces basd_tpu/ops/pallas/fused_block_attn.py:_bwd_train
+// (_bwd_train_kernel), the VJP of  out = x + mask * proj(MHSA(qkv(LN(x)))).
+// K4b replaces basd_tpu/ops/pallas/fused_block_mlp.py:_bwd (_bwd_kernel),
+// the VJP of  out = x + mask * fc2(gelu_tanh(fc1(LN(x)))).
+// Both recompute from the block input x (and, for attention, the forward's
+// per-row logsumexp) instead of saving activations, and round where the
+// TPU kernels round: bf16 LN output, bf16 qkv / pre-activation / hidden,
+// dy = do * mask with a bf16 copy, f32 accumulation of every product, bf16
+// operands into the weight-gradient products, the LN VJP per row in f32
+// and dx = bf16(do + dxln).
+//
+// The TPU kernels add their weight, bias and LN gradients into one f32
+// block across a sequential grid. Hopper's blocks run in no order, so here
+// every cross-row sum is two passes: per-block partials into a scratch
+// buffer (split-K slices of the weight-gradient GEMMs, 64-row tiles of the
+// GELU-gradient epilogue, row chunks of the column sums, images of the
+// attention kernel), then reduce_partials_kernel adds them in a fixed
+// order. No atomics: the result is deterministic.
+//
+// What bounds them on the H100: at the student's shapes (B*N = 25216 rows,
+// D = 192, F = 768, 3 heads, B=128) K3b is ~36 GFLOP and K4b ~45 GFLOP
+// (counted from the shapes; 0.04-0.05 ms at the bf16 tensor-core peak)
+// against ~0.1 GB of unavoidable traffic (0.03 ms at 3.35 TB/s). This
+// first version is bound by neither: the simple WMMA tiles, the
+// CUDA-core attention backward (which computes the scores twice, once per
+// query row for dq and once per key row for dk and dv, so each block keeps
+// only q, k, v and dattn of its (image, head) in shared memory) and the
+// round trips of the recomputed slabs through device memory bind it.
+//
+// Every entry returns the first non-zero cudaGetLastError() after a
+// launch, or 0. Nothing here allocates or synchronises.
+
+#include "block_kernels.cuh"
+
+namespace basd {
+
+// dot of two bf16 rows in f32, products added in order with explicit
+// fused multiply-adds: both phases of the attention backward call it, so
+// every recomputed score is bit-identical between them.
+__device__ __forceinline__ float dot_bf(const bf16* a, const bf16* b, int e) {
+  float acc = 0.f;
+  for (int c = 0; c < e; c += 2) {
+    const float2 av =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + c));
+    const float2 bv =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + c));
+    acc = __fmaf_rn(av.x, bv.x, acc);
+    acc = __fmaf_rn(av.y, bv.y, acc);
+  }
+  return acc;
+}
+
+// dy = do * mask[row / N] (f32) -> dyb (bf16); part[chunk, c] = sum of dy
+// over the chunk's rows, in order. One thread per column.
+__global__ void dy_kernel(const bf16* __restrict__ dout,
+                          const float* __restrict__ mask,
+                          bf16* __restrict__ dyb, float* __restrict__ part,
+                          int M, int N, int D, int row_chunk) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * row_chunk;
+  const int r1 = min(M, r0 + row_chunk);
+  float acc = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t o = (size_t)r * D + c;
+    const float dy = bf2f(dout[o]) * mask[r / N];
+    dyb[o] = f2bf(dy);
+    acc += dy;
+  }
+  part[(size_t)blockIdx.y * D + c] = acc;
+}
+
+// LN VJP, one warp per row: g = dxn * scale,
+// dx = bf16(do + rstd * (g - mean(g) - xhat * mean(g * xhat))).
+__global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x,
+                                   const bf16* __restrict__ dout,
+                                   const float* __restrict__ dxn,
+                                   const float* __restrict__ scale,
+                                   const float* __restrict__ mu,
+                                   const float* __restrict__ rstd,
+                                   bf16* __restrict__ dx, int rows, int d) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const size_t base = (size_t)row * d;
+  const float m = mu[row];
+  const float rs = rstd[row];
+  const float inv_d = 1.f / (float)d;
+  float sg = 0.f, sgx = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    const float xhat = (bf2f(x[base + i]) - m) * rs;
+    const float g = dxn[base + i] * scale[i];
+    sg += g;
+    sgx += g * xhat;
+  }
+  const float mg = warp_sum(sg) * inv_d;
+  const float mgx = warp_sum(sgx) * inv_d;
+  for (int i = lane; i < d; i += 32) {
+    const float xhat = (bf2f(x[base + i]) - m) * rs;
+    const float g = dxn[base + i] * scale[i];
+    const float dxln = rs * (g - mg - xhat * mgx);
+    dx[base + i] = f2bf(bf2f(dout[base + i]) + dxln);
+  }
+}
+
+// LN parameter partials over a row chunk, one thread per column:
+// part_s[chunk, c] = sum dxn * xhat, part_b[chunk, c] = sum dxn.
+__global__ void ln_param_partials_kernel(const bf16* __restrict__ x,
+                                         const float* __restrict__ dxn,
+                                         const float* __restrict__ mu,
+                                         const float* __restrict__ rstd,
+                                         float* __restrict__ part_s,
+                                         float* __restrict__ part_b, int M,
+                                         int D, int row_chunk) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * row_chunk;
+  const int r1 = min(M, r0 + row_chunk);
+  float as = 0.f, ab = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t o = (size_t)r * D + c;
+    const float xhat = (bf2f(x[o]) - mu[r]) * rstd[r];
+    as += dxn[o] * xhat;
+    ab += dxn[o];
+  }
+  part_s[(size_t)blockIdx.y * D + c] = as;
+  part_b[(size_t)blockIdx.y * D + c] = ab;
+}
+
+// Attention backward of one (image, head) per block, from the recomputed
+// bf16 qkv slab, the forward's lse (B, H, N) and dattn = dy W_proj (f32):
+//   p = exp(s - lse), pb = bf16(p), o = pb v (f32) -> attn (bf16),
+//   delta = sum(dattn * o), dp = bf16(dattn) v^T,
+//   ds = bf16(p (dp - delta) scale),
+//   dq = ds k, dk = ds^T q, dv = pb^T bf16(dattn)  -> dqkv (bf16),
+// and the image's column sums of the f32 dq, dk, dv into part[b, 3D].
+// Phase A walks query rows (one warp each) for attn, delta and dq; phase B
+// walks key rows and recomputes the scores for dk and dv.
+__global__ void attention_bwd_kernel(const bf16* __restrict__ qkv,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ dattn,
+                                     bf16* __restrict__ attn,
+                                     bf16* __restrict__ dqkv,
+                                     float* __restrict__ part, int N, int D,
+                                     int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = D / H;
+  const int ldk = e + 2;  // odd word stride: conflict-free row reads
+  const int nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + N * ldk;
+  bf16* vs = ks + N * ldk;
+  bf16* das = vs + N * ldk;
+  float* lse_s = reinterpret_cast<float*>(das + N * ldk);
+  float* delta_s = lse_s + N;
+  float* rows_s = delta_s + N;          // two rows of N per warp
+  float* colp = rows_s + 2 * nwarps * N;  // 3e column sums per warp
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const size_t ld3 = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * N * ld3;
+  const float* dbase = dattn + (size_t)b * N * D;
+  for (int i = threadIdx.x; i < N * e; i += blockDim.x) {
+    const int n = i / e;
+    const int c = i % e;
+    qs[n * ldk + c] = base[n * ld3 + h * e + c];
+    ks[n * ldk + c] = base[n * ld3 + D + h * e + c];
+    vs[n * ldk + c] = base[n * ld3 + 2 * D + h * e + c];
+    das[n * ldk + c] = f2bf(dbase[(size_t)n * D + h * e + c]);
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x)
+    lse_s[i] = lse[((size_t)b * H + h) * N + i];
+  for (int i = threadIdx.x; i < nwarps * 3 * e; i += blockDim.x) colp[i] = 0.f;
+  __syncthreads();
+
+  float* row_a = rows_s + warp * 2 * N;
+  float* row_b = row_a + N;
+  float* cp = colp + warp * 3 * e;
+
+  // phase A: query rows
+  for (int i = warp; i < N; i += nwarps) {
+    const bf16* qi = qs + i * ldk;
+    const bf16* dai = das + i * ldk;
+    const float lse_i = lse_s[i];
+    for (int j = lane; j < N; j += 32) {
+      const float s = __fmul_rn(dot_bf(qi, ks + j * ldk, e), scale);
+      row_a[j] = expf(__fsub_rn(s, lse_i));
+      row_b[j] = dot_bf(dai, vs + j * ldk, e);
+    }
+    __syncwarp();
+    const size_t orow = ((size_t)b * N + i) * D + h * e;
+    float dpart = 0.f;
+    for (int c2 = lane; c2 < e / 2; c2 += 32) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int j = 0; j < N; ++j) {
+        const float pb = round_bf(row_a[j]);
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vs + j * ldk + 2 * c2));
+        a0 += pb * v.x;
+        a1 += pb * v.y;
+      }
+      attn[orow + 2 * c2] = f2bf(a0);
+      attn[orow + 2 * c2 + 1] = f2bf(a1);
+      dpart += dbase[(size_t)i * D + h * e + 2 * c2] * a0 +
+               dbase[(size_t)i * D + h * e + 2 * c2 + 1] * a1;
+    }
+    const float delta = warp_sum(dpart);
+    if (lane == 0) delta_s[i] = delta;
+    __syncwarp();  // every lane has read row_a before it becomes ds
+    for (int j = lane; j < N; j += 32) {
+      row_a[j] = round_bf(
+          __fmul_rn(__fmul_rn(row_a[j], __fsub_rn(row_b[j], delta)), scale));
+    }
+    __syncwarp();
+    const size_t qrow = ((size_t)b * N + i) * ld3 + h * e;
+    for (int c2 = lane; c2 < e / 2; c2 += 32) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int j = 0; j < N; ++j) {
+        const float ds = row_a[j];
+        const float2 k = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ks + j * ldk + 2 * c2));
+        a0 += ds * k.x;
+        a1 += ds * k.y;
+      }
+      dqkv[qrow + 2 * c2] = f2bf(a0);
+      dqkv[qrow + 2 * c2 + 1] = f2bf(a1);
+      cp[2 * c2] += a0;
+      cp[2 * c2 + 1] += a1;
+    }
+    __syncwarp();
+  }
+  __syncthreads();  // delta_s complete
+
+  // phase B: key rows
+  for (int j = warp; j < N; j += nwarps) {
+    const bf16* kj = ks + j * ldk;
+    const bf16* vj = vs + j * ldk;
+    for (int i = lane; i < N; i += 32) {
+      const float s = __fmul_rn(dot_bf(qs + i * ldk, kj, e), scale);
+      const float p = expf(__fsub_rn(s, lse_s[i]));
+      const float dp = dot_bf(das + i * ldk, vj, e);
+      row_a[i] = round_bf(p);
+      row_b[i] = round_bf(
+          __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_s[i])), scale));
+    }
+    __syncwarp();
+    const size_t krow = ((size_t)b * N + j) * ld3 + h * e;
+    for (int c2 = lane; c2 < e / 2; c2 += 32) {
+      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+      for (int i = 0; i < N; ++i) {
+        const float ds = row_b[i];
+        const float pb = row_a[i];
+        const float2 q = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(qs + i * ldk + 2 * c2));
+        const float2 da = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(das + i * ldk + 2 * c2));
+        k0 += ds * q.x;
+        k1 += ds * q.y;
+        v0 += pb * da.x;
+        v1 += pb * da.y;
+      }
+      dqkv[krow + D + 2 * c2] = f2bf(k0);
+      dqkv[krow + D + 2 * c2 + 1] = f2bf(k1);
+      dqkv[krow + 2 * D + 2 * c2] = f2bf(v0);
+      dqkv[krow + 2 * D + 2 * c2 + 1] = f2bf(v1);
+      cp[e + 2 * c2] += k0;
+      cp[e + 2 * c2 + 1] += k1;
+      cp[2 * e + 2 * c2] += v0;
+      cp[2 * e + 2 * c2 + 1] += v1;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // this image's column sums, warps added in order
+  for (int t = threadIdx.x; t < 3 * e; t += blockDim.x) {
+    float acc = 0.f;
+    for (int w = 0; w < nwarps; ++w) acc += colp[w * 3 * e + t];
+    const int which = t / e;  // 0 q, 1 k, 2 v
+    part[(size_t)b * ld3 + which * D + h * e + t % e] = acc;
+  }
+}
+
+static int launch_dy(const bf16* dout, const float* mask, bf16* dyb,
+                     float* part, int M, int N, int D, int row_chunk,
+                     cudaStream_t st) {
+  dim3 grid((D + 127) / 128, (M + row_chunk - 1) / row_chunk);
+  dy_kernel<<<grid, 128, 0, st>>>(dout, mask, dyb, part, M, N, D, row_chunk);
+  BASD_CHECK_LAUNCH();
+  return 0;
+}
+
+// LN VJP rows into dx, then the scale/bias sums into dln_s, dln_b.
+static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
+                       const float* ln_s, const float* mu, const float* rstd,
+                       bf16* dx, float* dln_s, float* dln_b, float* part,
+                       int M, int D, int row_chunk, cudaStream_t st) {
+  const int threads = 256;
+  const int blocks = (int)(((size_t)M * 32 + threads - 1) / threads);
+  ln_bwd_rows_kernel<<<blocks, threads, 0, st>>>(x, dout, dxn, ln_s, mu, rstd,
+                                                 dx, M, D);
+  BASD_CHECK_LAUNCH();
+  const int chunks = (M + row_chunk - 1) / row_chunk;
+  dim3 grid((D + 127) / 128, chunks);
+  ln_param_partials_kernel<<<grid, 128, 0, st>>>(
+      x, dxn, mu, rstd, part, part + (size_t)chunks * D, M, D, row_chunk);
+  BASD_CHECK_LAUNCH();
+  int rc = launch_reduce(part, dln_s, chunks, D, st);
+  if (rc) return rc;
+  return launch_reduce(part + (size_t)chunks * D, dln_b, chunks, D, st);
+}
+
+// dW (m x n) = A^T B summed over `rows` rows, A (rows x m), B (rows x n):
+// split-K partials into part, then their fixed-order sum.
+static int weight_grad(const bf16* A, int m, const bf16* B, int n, int rows,
+                       int k_chunk, float* part, float* dw, cudaStream_t st) {
+  Gemm g{};
+  g.A = A;
+  g.lda = m;
+  g.B = B;
+  g.ldb = n;
+  g.M = m;
+  g.N = n;
+  g.K = rows;
+  g.outf = part;
+  int rc = launch_gemm<true, false, EPI_PARTIAL>(g, k_chunk, st);
+  if (rc) return rc;
+  return launch_reduce(part, dw, (rows + k_chunk - 1) / k_chunk, m * n, st);
+}
+
+// outf (rows x n) = A (rows x k) . W (k x n) in f32, W in torch's (out, in)
+// layout read as K x N: the input gradient of a forward x W^T.
+static int input_grad(const bf16* A, const bf16* W, int rows, int k, int n,
+                      float* outf, cudaStream_t st) {
+  Gemm g{};
+  g.A = A;
+  g.lda = k;
+  g.B = W;
+  g.ldb = n;
+  g.M = rows;
+  g.N = n;
+  g.K = k;
+  g.outf = outf;
+  return launch_gemm<false, false, EPI_F32>(g, k, st);
+}
+
+}  // namespace basd
+
+using basd::bf16;
+
+// K3b. x, dout, dx: (B, N, D) bf16; mask (B,) f32; lse (B, H, N) f32;
+// w_qkv (3D, D), w_proj (D, D) bf16; LN affine and b_qkv f32. Outputs in
+// f32: dw_qkv (3D, D), db_qkv (3D), dw_proj (D, D), db_proj, dln_s, dln_b
+// (D). Workspaces: ws_xn, ws_dyb, ws_attn (B*N, D) bf16; ws_qkv, ws_dqkv
+// (B*N, 3D) bf16; ws_stats (2 B*N) f32; ws_f32 (B*N, D) f32; ws_part f32
+// of max(splits * 3D * D, B * 3D, 2 * row chunks * D) elements.
+extern "C" int basd_block_attn_train_bwd(
+    const void* x, const float* mask, const void* dout, const float* lse,
+    const float* ln_s, const float* ln_b, const void* w_qkv,
+    const float* b_qkv, const void* w_proj, void* dx, float* dw_qkv,
+    float* db_qkv, float* dw_proj, float* db_proj, float* dln_s, float* dln_b,
+    void* ws_xn, float* ws_stats, void* ws_qkv, void* ws_dyb, float* ws_f32,
+    void* ws_attn, void* ws_dqkv, float* ws_part, int B, int N, int D, int H,
+    int k_chunk, int row_chunk, float eps, float scale, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  const bf16* wq = static_cast<const bf16*>(w_qkv);
+  const bf16* wp = static_cast<const bf16*>(w_proj);
+  bf16* xn = static_cast<bf16*>(ws_xn);
+  bf16* qkv = static_cast<bf16*>(ws_qkv);
+  bf16* dyb = static_cast<bf16*>(ws_dyb);
+  bf16* attn = static_cast<bf16*>(ws_attn);
+  bf16* dqkv = static_cast<bf16*>(ws_dqkv);
+  float* mu = ws_stats;
+  float* rstd = ws_stats + M;
+
+  int rc = launch_layernorm(xb, ln_s, ln_b, xn, mu, rstd, M, D, eps, st);
+  if (rc) return rc;
+  rc = launch_gemm_nk<EPI_BIAS>(xn, wq, b_qkv, qkv, M, 3 * D, D, nullptr,
+                                nullptr, 1, nullptr, st);
+  if (rc) return rc;
+  rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db_proj, (M + row_chunk - 1) / row_chunk, D, st);
+  if (rc) return rc;
+  rc = input_grad(dyb, wp, M, D, D, ws_f32, st);  // dattn
+  if (rc) return rc;
+
+  const int threads = 256;
+  const int e = D / H;
+  const size_t smem = (size_t)4 * N * (e + 2) * sizeof(bf16) +
+                      (size_t)2 * N * sizeof(float) +
+                      (size_t)(threads / 32) * (2 * N + 3 * e) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_kernel<<<B * H, threads, smem, st>>>(qkv, lse, ws_f32, attn,
+                                                     dqkv, ws_part, N, D, H,
+                                                     scale);
+  BASD_CHECK_LAUNCH();
+  rc = launch_reduce(ws_part, db_qkv, B, 3 * D, st);
+  if (rc) return rc;
+
+  rc = weight_grad(dyb, D, attn, D, M, k_chunk, ws_part, dw_proj, st);
+  if (rc) return rc;
+  rc = weight_grad(dqkv, 3 * D, xn, D, M, k_chunk, ws_part, dw_qkv, st);
+  if (rc) return rc;
+  rc = input_grad(dqkv, wq, M, 3 * D, D, ws_f32, st);  // dxn
+  if (rc) return rc;
+  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<bf16*>(dx),
+                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
+}
+
+// K4b. x, dout, dx: (B, N, D) bf16; mask (B,) f32; w1 (F, D), w2 (D, F)
+// bf16; LN affine and b1 f32. Outputs in f32: dw1 (F, D), db1 (F),
+// dw2 (D, F), db2, dln_s, dln_b (D). Workspaces: ws_xn, ws_dyb (B*N, D)
+// bf16; ws_pre, ws_h, ws_dpre (B*N, F) bf16; ws_stats (2 B*N) f32; ws_f32
+// (B*N, D) f32; ws_part f32 of max(splits * F * D, row tiles * F,
+// 2 * row chunks * D) elements.
+extern "C" int basd_block_mlp_bwd(
+    const void* x, const float* mask, const void* dout, const float* ln_s,
+    const float* ln_b, const void* w1, const float* b1, const void* w2,
+    void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
+    float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
+    void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
+    int D, int F, int k_chunk, int row_chunk, float eps, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  const bf16* w1b = static_cast<const bf16*>(w1);
+  const bf16* w2b = static_cast<const bf16*>(w2);
+  bf16* xn = static_cast<bf16*>(ws_xn);
+  bf16* pre = static_cast<bf16*>(ws_pre);
+  bf16* hid = static_cast<bf16*>(ws_h);
+  bf16* dyb = static_cast<bf16*>(ws_dyb);
+  bf16* dpre = static_cast<bf16*>(ws_dpre);
+  float* mu = ws_stats;
+  float* rstd = ws_stats + M;
+
+  int rc = launch_layernorm(xb, ln_s, ln_b, xn, mu, rstd, M, D, eps, st);
+  if (rc) return rc;
+  rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xn, w1b, b1, pre, M, F, D, nullptr,
+                                         nullptr, 1, hid, st);
+  if (rc) return rc;
+  rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
+  if (rc) return rc;
+  rc = weight_grad(dyb, D, hid, F, M, k_chunk, ws_part, dw2, st);
+  if (rc) return rc;
+
+  // dpre = (dyb W2) * gelu'(pre), its bf16 copy and per-tile column sums
+  Gemm g{};
+  g.A = dyb;
+  g.lda = D;
+  g.B = w2b;
+  g.ldb = F;
+  g.M = M;
+  g.N = F;
+  g.K = D;
+  g.out = dpre;
+  g.aux = pre;
+  g.outf = ws_part;
+  rc = launch_gemm<false, false, EPI_DGELU>(g, D, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
+  if (rc) return rc;
+
+  rc = weight_grad(dpre, F, xn, D, M, k_chunk, ws_part, dw1, st);
+  if (rc) return rc;
+  rc = input_grad(dpre, w1b, M, F, D, ws_f32, st);  // dxn
+  if (rc) return rc;
+  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<bf16*>(dx),
+                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
+}

@@ -1,13 +1,16 @@
 // Shared device code for the port's hand-written Hopper kernels.
 //
 // One building block serves every matrix product inside the ported TPU
-// kernels (K1 fused attention half, K2 fused MLP half, K7 Newton-Schulz
-// polar): `tile_mma`, a 64x64 output tile of C = A . B with bf16 operands
-// and f32 accumulation on the tensor cores (WMMA 16x16x16, four warps of
-// 32x32 each), operands staged through shared memory in 32-deep K slices,
-// zero-filled at the ragged edges so any M, N, K is exact. The f32 tile is
-// left in shared memory for the caller's epilogue, which does the
-// reference's bf16 rounding at the same points as the Pallas kernels.
+// kernels (K1/K3 attention halves, K2/K4 MLP halves and their backward,
+// K7 Newton-Schulz polar): `tile_mma_k`, a 64x64 output tile of
+// C = A . B over a range of the contraction with bf16 operands and f32
+// accumulation on the tensor cores (WMMA 16x16x16, four warps of 32x32
+// each), operands staged through shared memory in 32-deep K slices,
+// zero-filled at the ragged edges so any M, N, K is exact. A is given as
+// M x K or, for the weight gradients (X^T dY), as K x M; B as N x K (a
+// weight in torch's (out, in) layout) or K x N. The f32 tile is left in
+// shared memory for the caller's epilogue, which does the reference's
+// bf16 rounding at the same points as the Pallas kernels.
 //
 // This first version is simple on purpose: no TMA, no wgmma, no
 // multi-stage pipeline. Those belong to later tuning work.
@@ -18,6 +21,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace basd {
 
 using bf16 = __nv_bfloat16;
@@ -26,13 +31,14 @@ constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 32;
 constexpr int A_LD = BK + 8;    // A tile [BM][BK], padded rows
+constexpr int AKM_LD = BM + 8;  // A tile stored [BK][BM] (A given as K x M)
 constexpr int BNK_LD = BK + 8;  // B tile stored [BN][BK] (B given as N x K)
 constexpr int BKN_LD = BN + 8;  // B tile stored [BK][BN] (B given as K x N)
 constexpr int C_LD = BN + 4;    // f32 result tile [BM][BN]
 constexpr int TILE_THREADS = 128;  // four warps, 2 x 2 over the 64 x 64 tile
 
 struct TileSmem {
-  alignas(128) bf16 a[BM * A_LD];
+  alignas(128) bf16 a[BM * A_LD > BK * AKM_LD ? BM * A_LD : BK * AKM_LD];
   alignas(128) bf16 b[BN * BNK_LD > BK * BKN_LD ? BN * BNK_LD : BK * BKN_LD];
   alignas(128) float c[BM * C_LD];
 };
@@ -83,15 +89,19 @@ __device__ __forceinline__ void load_tile(bf16* s, int ld_s, const bf16* g,
   }
 }
 
-// sm.c[0:BM, 0:BN] = A[m0:m0+BM, :] . B[:, n0:n0+BN] in f32.
-// A is M x K row-major. With B_NK, B is given as N x K row-major (a weight
-// in torch's (out, in) layout, or X for X X^T); otherwise as K x N
-// row-major. Must be called by all TILE_THREADS threads of the block.
-template <bool B_NK>
-__device__ void tile_mma(TileSmem& sm, const bf16* A, int lda, bool a_vec,
-                         const bf16* B, int ldb, bool b_vec, int M, int N,
-                         int K, int m0, int n0) {
+// sm.c[0:BM, 0:BN] = sum over k in [k_begin, k_end) of
+// A[m0:m0+BM, k] B[k, n0:n0+BN] in f32 (k_begin a multiple of BK).
+// With A_KM, A is given as K x M row-major (the tile is A^T's); otherwise
+// M x K. With B_NK, B is given as N x K row-major (a weight in torch's
+// (out, in) layout, or X for X X^T); otherwise as K x N row-major.
+// Must be called by all TILE_THREADS threads of the block.
+template <bool A_KM, bool B_NK>
+__device__ void tile_mma_k(TileSmem& sm, const bf16* A, int lda, bool a_vec,
+                           const bf16* B, int ldb, bool b_vec, int M, int N,
+                           int k_begin, int k_end, int m0, int n0) {
   using namespace nvcuda;
+  using ALayout = std::conditional_t<A_KM, wmma::col_major, wmma::row_major>;
+  using BLayout = std::conditional_t<B_NK, wmma::col_major, wmma::row_major>;
   const int warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 32;
@@ -101,45 +111,47 @@ __device__ void tile_mma(TileSmem& sm, const bf16* A, int lda, bool a_vec,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(sm.a, A_LD, A, lda, M, K, m0, k0, BM, BK, a_vec);
-    if constexpr (B_NK) {
-      load_tile(sm.b, BNK_LD, B, ldb, N, K, n0, k0, BN, BK, b_vec);
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    if constexpr (A_KM) {
+      load_tile(sm.a, AKM_LD, A, lda, k_end, M, k0, m0, BK, BM, a_vec);
     } else {
-      load_tile(sm.b, BKN_LD, B, ldb, K, N, k0, n0, BK, BN, b_vec);
+      load_tile(sm.a, A_LD, A, lda, M, k_end, m0, k0, BM, BK, a_vec);
+    }
+    if constexpr (B_NK) {
+      load_tile(sm.b, BNK_LD, B, ldb, N, k_end, n0, k0, BN, BK, b_vec);
+    } else {
+      load_tile(sm.b, BKN_LD, B, ldb, k_end, N, k0, n0, BK, BN, b_vec);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sm.a + (wm + 16 * i) * A_LD + kk, A_LD);
-      if constexpr (B_NK) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-            fb[2];
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (A_KM) {
+          wmma::load_matrix_sync(fa[i], sm.a + kk * AKM_LD + wm + 16 * i,
+                                 AKM_LD);
+        } else {
+          wmma::load_matrix_sync(fa[i], sm.a + (wm + 16 * i) * A_LD + kk,
+                                 A_LD);
+        }
+      }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (B_NK) {
           wmma::load_matrix_sync(fb[j], sm.b + (wn + 16 * j) * BNK_LD + kk,
                                  BNK_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
+        } else {
           wmma::load_matrix_sync(fb[j], sm.b + kk * BKN_LD + wn + 16 * j,
                                  BKN_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -150,6 +162,15 @@ __device__ void tile_mma(TileSmem& sm, const bf16* A, int lda, bool a_vec,
       wmma::store_matrix_sync(sm.c + (wm + 16 * i) * C_LD + wn + 16 * j,
                               acc[i][j], C_LD, wmma::mem_row_major);
   __syncthreads();
+}
+
+// The whole contraction with A given as M x K.
+template <bool B_NK>
+__device__ void tile_mma(TileSmem& sm, const bf16* A, int lda, bool a_vec,
+                         const bf16* B, int ldb, bool b_vec, int M, int N,
+                         int K, int m0, int n0) {
+  tile_mma_k<false, B_NK>(sm, A, lda, a_vec, B, ldb, b_vec, M, N, 0, K, m0,
+                          n0);
 }
 
 }  // namespace basd

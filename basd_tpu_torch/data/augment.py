@@ -13,7 +13,9 @@ device:
 Each random draw is separate from its application: ``draw_train_views`` /
 ``draw_mixup`` draw from an explicit ``torch.Generator``; the application
 functions take the draws, so tests can inject the JAX package's. The TAW
-geometric ops use the plain per-line shift form (``augment.py:295-391``).
+geometric ops are per-line integer shifts (``augment.py:295-391``), applied
+by K9 (``kernels.geom_shift.geom_shift3``): the kernel on a CUDA tensor,
+its plain three-pass gather chain on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from basd_tpu_torch.kernels.geom_shift import geom_shift3
 
 _NUM_BINS = 31
 _NUM_OPS = 14
@@ -220,41 +224,18 @@ def _gray(img: torch.Tensor) -> torch.Tensor:
     return 0.299 * r + 0.587 * g + 0.114 * b
 
 
-def _shift_rows(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """out[g, y, j] = x[g, y, j - r[g, y]], zero fill. x: (G, H, W, C)."""
-    g, h, w, c = x.shape
-    j = torch.arange(w, device=x.device)
-    src = j[None, None, :] - r[:, :, None]  # (G, H, W)
-    valid = (src >= 0) & (src < w)
-    idx = src.clamp(0, w - 1)[..., None].expand(g, h, w, c)
-    out = torch.gather(x, 2, idx)
-    return torch.where(valid[..., None], out, torch.zeros_like(out))
-
-
-def _shift_cols(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """out[g, i, x] = x_in[g, i - r[g, x], x], zero fill."""
-    g, h, w, c = x.shape
-    i = torch.arange(h, device=x.device)
-    src = i[None, :, None] - r[:, None, :]  # (G, H, W)
-    valid = (src >= 0) & (src < h)
-    idx = src.clamp(0, h - 1)[..., None].expand(g, h, w, c)
-    out = torch.gather(x, 1, idx)
-    return torch.where(valid[..., None], out, torch.zeros_like(out))
-
-
-def geom_three_pass(x: torch.Tensor, op: torch.Tensor, mag: torch.Tensor):
-    """The five geometric TAW ops (1 ShearX, 2 ShearY, 3 TranslateX,
-    4 TranslateY, 5 Rotate) as per-line integer shifts: rows, cols, rows;
-    rotation by the 3-shear decomposition with a 180-degree pre-flip for
-    |angle| > 90. x: (G, H, W, C); op, mag: (G,)."""
-    g, h, w, c = x.shape
-    dev = x.device
+def geom_shifts(op: torch.Tensor, mag: torch.Tensor, h: int, w: int):
+    """Per-line integer shifts of the five geometric TAW ops (1 ShearX,
+    2 ShearY, 3 TranslateX, 4 TranslateY, 5 Rotate): rows r1 (G, H), cols
+    r2 (G, W), rows r3 (G, H); rotation by the 3-shear decomposition, with
+    ``big`` (G,) marking the |angle| > 90 images that take a 180-degree
+    pre-flip. op, mag: (G,). Returns (big, r1, r2, r3)."""
+    dev = mag.device
     ys = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) * 0.5
     xs = torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) * 0.5
     rad = mag * (math.pi / 180.0)
     big = (op == 5) & (mag.abs() > 90.0)
     rad_eff = torch.where(big, rad - torch.sign(mag) * math.pi, rad)
-    flipped = torch.where(big[:, None, None, None], x.flip(1, 2), x)
     a_rot = -torch.tan(rad_eff / 2.0)
     b_rot = torch.sin(rad_eff)
     zero = torch.zeros_like(mag)
@@ -267,9 +248,16 @@ def geom_three_pass(x: torch.Tensor, op: torch.Tensor, mag: torch.Tensor):
     r2 = -torch.round(coef2[:, None] * xs[None, :] - t2[:, None]).long()
     coef3 = torch.where(is_rot, a_rot, zero)
     r3 = -torch.round(coef3[:, None] * ys[None, :]).long()
-    out = _shift_rows(flipped, r1)
-    out = _shift_cols(out, r2)
-    return _shift_rows(out, r3)
+    return big, r1, r2, r3
+
+
+def geom_three_pass(x: torch.Tensor, op: torch.Tensor, mag: torch.Tensor):
+    """The five geometric TAW ops as per-line integer shifts (rows, cols,
+    rows; ``geom_shifts``) applied by K9 after the big-rotation pre-flip.
+    x: (G, H, W, C); op, mag: (G,)."""
+    big, r1, r2, r3 = geom_shifts(op, mag, x.shape[1], x.shape[2])
+    flipped = torch.where(big[:, None, None, None], x.flip(1, 2), x)
+    return geom_shift3(flipped, r1, r2, r3)
 
 
 def _sharpness(xs: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

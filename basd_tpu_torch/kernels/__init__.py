@@ -6,23 +6,50 @@ attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
 replaces and its source.
 """
 
-from basd_tpu_torch.kernels.block_attn import fused_block_attn
-from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp_collect
+from basd_tpu_torch.kernels.block_attn import (
+    fused_block_attn,
+    fused_block_attn_train_bwd,
+    fused_block_attn_train_fwd,
+)
+from basd_tpu_torch.kernels.block_mlp import (
+    fused_ln_mlp_bwd,
+    fused_ln_mlp_collect,
+    fused_ln_mlp_fwd,
+)
+from basd_tpu_torch.kernels.geom_shift import geom_shift3
+from basd_tpu_torch.kernels.layernorm import layernorm_bwd, layernorm_fwd
 from basd_tpu_torch.kernels.mix_stack import mix_stack_dw, mix_stack_fwd
 from basd_tpu_torch.kernels.ns_polar import ns_polar_hybrid
 
+_PALLAS = "basd_tpu/ops/pallas/"
+_CSRC = "basd_tpu_torch/csrc/"
+
 # (name, route, source in the repo, TPU kernel replaced, wrapper)
 KERNELS = (
-    ("K1 fused_block_attn", "cuda", "basd_tpu_torch/csrc/block.cu",
-     "basd_tpu/ops/pallas/fused_block_attn.py:156", fused_block_attn),
-    ("K2 fused_ln_mlp_collect", "cuda", "basd_tpu_torch/csrc/block.cu",
-     "basd_tpu/ops/pallas/fused_block_mlp.py:345", fused_ln_mlp_collect),
+    ("K1 fused_block_attn", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_attn.py:156", fused_block_attn),
+    ("K2 fused_ln_mlp_collect", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_mlp.py:345", fused_ln_mlp_collect),
+    ("K3a fused_block_attn_train fwd", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_attn.py:390", fused_block_attn_train_fwd),
+    ("K3b fused_block_attn_train bwd", "cuda", _CSRC + "block_train.cu",
+     _PALLAS + "fused_block_attn.py:433", fused_block_attn_train_bwd),
+    ("K4a fused_ln_mlp fwd", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_mlp.py:170", fused_ln_mlp_fwd),
+    ("K4b fused_ln_mlp bwd", "cuda", _CSRC + "block_train.cu",
+     _PALLAS + "fused_block_mlp.py:202", fused_ln_mlp_bwd),
+    ("K5a fused_layernorm fwd", "triton", "basd_tpu_torch/kernels/layernorm.py",
+     _PALLAS + "layernorm.py:105", layernorm_fwd),
+    ("K5b fused_layernorm bwd", "triton", "basd_tpu_torch/kernels/layernorm.py",
+     _PALLAS + "layernorm.py:136", layernorm_bwd),
     ("K6a mix_stack fwd", "triton", "basd_tpu_torch/kernels/mix_stack.py",
-     "basd_tpu/ops/pallas/mix_stack.py:67", mix_stack_fwd),
+     _PALLAS + "mix_stack.py:67", mix_stack_fwd),
     ("K6b mix_stack dw", "triton", "basd_tpu_torch/kernels/mix_stack.py",
-     "basd_tpu/ops/pallas/mix_stack.py:142", mix_stack_dw),
-    ("K7 ns_polar_hybrid", "cuda", "basd_tpu_torch/csrc/ns_polar.cu",
-     "basd_tpu/ops/pallas/ns_polar.py:106", ns_polar_hybrid),
+     _PALLAS + "mix_stack.py:142", mix_stack_dw),
+    ("K7 ns_polar_hybrid", "cuda", _CSRC + "ns_polar.cu",
+     _PALLAS + "ns_polar.py:106", ns_polar_hybrid),
+    ("K9 geom_shift3", "triton", "basd_tpu_torch/kernels/geom_shift.py",
+     _PALLAS + "geom_shift.py:103", geom_shift3),
 )
 
 

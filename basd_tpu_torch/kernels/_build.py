@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-loaded with ``ctypes``. The library is built at first use into
+All ``csrc/*.cu`` sources compile with ``nvcc``, one process per source
+started together, and link into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. The library is built at first use into
 ``build/basd_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. ``nvcc``'s output (including ``-Xptxas -v`` register and spill
@@ -22,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "basd_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,15 @@ _SIGNATURES = {
     ),
     "basd_block_mlp_collect_fwd": (
         [_P] * 12 + [_I, _I, _I, _I, _F, _P]
+    ),
+    "basd_block_attn_train_fwd": (
+        [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P]
+    ),
+    "basd_block_attn_train_bwd": (
+        [_P] * 24 + [_I] * 6 + [_F, _F, _P]
+    ),
+    "basd_block_mlp_bwd": (
+        [_P] * 23 + [_I] * 6 + [_F, _P]
     ),
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -66,23 +76,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbasd_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands concurrently; log their output, raise on failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: exit code {proc.returncode}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the library if no build of the current sources exists."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+    tag = f"{target.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    nvcc = _nvcc()
+    log: list[str] = []
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objects)], log)
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objects)]], log)
+    finally:
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, target)
     return target
 

@@ -1,18 +1,32 @@
-"""K1: the frozen teacher's fused attention half.
+"""K1 and K3: the fused attention halves of the teacher and the student.
 
-Replaces ``basd_tpu/ops/pallas/fused_block_attn.py:fused_block_attn``
+K1 replaces ``basd_tpu/ops/pallas/fused_block_attn.py:fused_block_attn``
 (``_fwd_kernel``)::
 
     out = x + proj(MHSA(LN1(x) W_qkv + b_qkv))  (+ head-mean CLS-row importance)
 
-The CUDA kernel (``csrc/block.cu``, ``basd_block_attn_fwd``) runs for a
-CUDA tensor; ``block_attn_plain`` is the same function in plain PyTorch,
-taken for a CPU tensor. Both round where the TPU kernel rounds: f32 LN
-statistics, bf16 LN output, qkv accumulated in f32 and rounded to bf16,
-per-head f32 softmax with bf16 probabilities into P.V and deferred
-normalisation, proj accumulated in f32 and rounded to bf16, residual added
-in f32 and rounded once. Weights are in torch's (out, in) layout.
-Forward-only: the teacher is frozen.
+forward-only: the teacher is frozen. K3 replaces
+``fused_block_attn_train``, the student's differentiable sibling with a
+per-image stochastic-depth multiplier::
+
+    out = x + mask * proj(MHSA(LN1(x) W_qkv + b_qkv))
+
+K3a (``_fwd_train``) also returns the per-(image, head, query)
+logsumexp; K3b (``_bwd_train``) recomputes the block from x and lse and
+returns dx and the f32 gradients of every parameter, summed over the
+batch. ``FusedBlockAttnTrain`` wraps them as a ``torch.autograd.Function``
+that saves only x, mask, the parameters and lse.
+
+The CUDA kernels (``csrc/block.cu``: ``basd_block_attn_fwd``,
+``basd_block_attn_train_fwd``; ``csrc/block_train.cu``:
+``basd_block_attn_train_bwd``) run for CUDA tensors; the ``*_plain``
+functions are the same arithmetic in plain PyTorch, taken for CPU
+tensors. All round where the TPU kernels round: f32 LN statistics, bf16 LN
+output, qkv accumulated in f32 and rounded to bf16, per-head f32 softmax
+with bf16 probabilities into P.V and deferred normalisation, proj
+accumulated in f32 and rounded to bf16, residual (times the mask) added in
+f32 and rounded once; the backward's rounding points are listed at
+``block_attn_train_plain_bwd``. Weights are in torch's (out, in) layout.
 """
 
 from __future__ import annotations
@@ -20,8 +34,15 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
+from basd_tpu_torch.kernels.layernorm import (
+    layernorm_plain_fwd,
+    ln_stats_plain,
+    ln_vjp_rows,
+)
 
 _SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared-memory limit
+_ROW_CHUNK = 256  # rows per partial of the backward's column sums
+_TARGET_BLOCKS = 528  # split-K target: four blocks per SM of an H100
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -29,37 +50,107 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float().t())
 
 
-def ln_bf16_plain(x, scale, bias, eps):
-    """Two-pass f32 LayerNorm statistics, output rounded to x.dtype."""
+def _heads(t, num_heads):
+    """(B, N, H*E) -> (B, H, N, E)."""
+    b, n, d = t.shape
+    return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    """(B, H, N, E) -> (B, N, H*E)."""
+    b, h, n, e = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * e)
+
+
+def _attention_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, num_heads, eps):
+    """LN, qkv and per-head softmax attention with deferred normalisation:
+    returns (attn (B, N, D) in x.dtype, unnormalised p, row max m, row
+    sum l), the last three f32 (B, H, N, N | 1)."""
     d = x.shape[-1]
-    xf = x.float()
-    mu = xf.sum(-1, keepdim=True) * (1.0 / d)
-    xc = xf - mu
-    var = (xc * xc).sum(-1, keepdim=True) * (1.0 / d)
-    return ((xc * torch.rsqrt(var + eps)) * scale + bias).to(x.dtype)
-
-
-def block_attn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
-                     num_heads: int, eps: float = 1e-6):
-    b, n, d = x.shape
-    e = d // num_heads
-    scale = float(e) ** -0.5
-    xnb = ln_bf16_plain(x, ln_scale, ln_bias, eps)
+    scale = float(d // num_heads) ** -0.5
+    xnb = layernorm_plain_fwd(x, ln_scale, ln_bias, eps)[0]
     qkv = (_mm(xnb, w_qkv) + b_qkv).to(x.dtype)
-    q, k, v = (t.reshape(b, n, num_heads, e).transpose(1, 2)
-               for t in qkv.split(d, dim=-1))  # (B, H, N, E)
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(d, dim=-1))
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.matmul(p.to(x.dtype).float(), v.float()) / l
-    attn = o.to(x.dtype).transpose(1, 2).reshape(b, n, d)
+    return _merge_heads(o.to(x.dtype)), p, m, l
+
+
+def block_attn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+                     num_heads: int, eps: float = 1e-6):
+    attn, p, _, l = _attention_plain(x, ln_scale, ln_bias, w_qkv, b_qkv,
+                                     num_heads, eps)
     row0 = p[:, :, 0, :] / (l[:, :, 0] * num_heads)  # (B, H, N)
     imp = row0[:, 0]
     for i in range(1, num_heads):
         imp = imp + row0[:, i]
     y = (_mm(attn, w_proj) + b_proj).to(x.dtype).float()
     return (x.float() + y).to(x.dtype), imp
+
+
+def block_attn_train_plain_fwd(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                               w_proj, b_proj, num_heads: int,
+                               eps: float = 1e-6):
+    """Returns (out (B, N, D) in x.dtype, lse (B, H, N) f32)."""
+    attn, _, m, l = _attention_plain(x, ln_scale, ln_bias, w_qkv, b_qkv,
+                                     num_heads, eps)
+    y = (_mm(attn, w_proj) + b_proj).to(x.dtype).float()
+    out = (x.float() + y * mask.float().reshape(-1, 1, 1)).to(x.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def block_attn_train_plain_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
+                               b_qkv, w_proj, num_heads: int,
+                               eps: float = 1e-6):
+    """Recompute backward of K3 (``fused_block_attn.py:238-346``).
+
+    Returns (dx in x.dtype, dw_qkv (3D, D), db_qkv, dw_proj (D, D), db_proj,
+    dln_scale, dln_bias), the gradients f32. Rounding points: bf16 LN
+    output and qkv; dy = do * mask with a bf16 copy; dattn = dy W_proj in
+    f32, bf16 per head slice; p = exp(s - lse) f32, pb bf16;
+    delta = sum(dattn * o) f32; ds = bf16(p (dp - delta) scale); dq, dk,
+    dv f32, their bf16 copy into dW_qkv and dxn; the LN VJP per row f32;
+    dx = bf16(do + dxln).
+    """
+    dt = x.dtype
+    d = x.shape[-1]
+    scale = float(d // num_heads) ** -0.5
+    xhat, _, rstd = ln_stats_plain(x, eps)
+    xnb = (xhat * ln_scale.float() + ln_bias.float()).to(dt)
+    qkv = (_mm(xnb, w_qkv) + b_qkv).to(dt)
+    q, k, v = (_heads(t, num_heads).float() for t in qkv.split(d, dim=-1))
+
+    dof = dout.float()
+    dy = dof * mask.float().reshape(-1, 1, 1)
+    dyb = dy.to(dt)
+    da_f = _heads(torch.matmul(dyb.float(), w_proj.float()), num_heads)
+    da_b = da_f.to(dt).float()
+
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    pb = p.to(dt).float()
+    o = torch.matmul(pb, v)
+    attn = _merge_heads(o.to(dt))
+    delta = (da_f * o).sum(-1, keepdim=True)
+    dv = torch.matmul(pb.transpose(-1, -2), da_b)
+    dp = torch.matmul(da_b, v.transpose(-1, -2))
+    dsc = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(dsc, k)
+    dk = torch.matmul(dsc.transpose(-1, -2), q)
+    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], -1)
+    dqkvb = dqkv.to(dt).float()
+
+    sum_bn = (0, 1)
+    dw_proj = torch.einsum("bno,bni->oi", dyb.float(), attn.float())
+    dw_qkv = torch.einsum("bnj,bni->ji", dqkvb, xnb.float())
+    dxn = torch.matmul(dqkvb, w_qkv.float())
+    dxln = ln_vjp_rows(dxn, xhat, rstd, ln_scale)
+    dx = (dof + dxln).to(dt)
+    return (dx, dw_qkv, dqkv.sum(sum_bn), dw_proj, dy.sum(sum_bn),
+            (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
 
 
 def _check(name, t, dtype, shape):
@@ -70,6 +161,44 @@ def _check(name, t, dtype, shape):
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_attn(name, x, num_heads, params):
+    """Shape, type and device checks of the CUDA path;
+    ``params``: (name, tensor, dtype, shape) of every other input."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    b, n, d = x.shape
+    if d % num_heads or (d // num_heads) % 2 or d % 8:
+        raise ValueError(
+            f"{name}: D={d} with {num_heads} heads needs an even head width "
+            f"and D % 8 == 0"
+        )
+    _check("x", x, torch.bfloat16, (b, n, d))
+    for pname, t, dtype, shape in params:
+        _check(pname, t, dtype, shape)
+        if t.device != x.device:
+            raise ValueError(f"{name}: all inputs must be on x's device")
+
+
+def _attn_params(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj):
+    b, _, d = x.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    params = [("ln_scale", ln_scale, f32, (d,)), ("ln_bias", ln_bias, f32, (d,)),
+              ("w_qkv", w_qkv, bf, (3 * d, d)), ("b_qkv", b_qkv, f32, (3 * d,)),
+              ("w_proj", w_proj, bf, (d, d))]
+    if mask is not None:
+        params.append(("mask", mask, f32, (b,)))
+    if b_proj is not None:
+        params.append(("b_proj", b_proj, f32, (d,)))
+    return params
+
+
+def _check_smem(name, smem, n, e):
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: N={n}, head width {e} needs {smem} bytes "
+                         f"of shared memory per block, more than "
+                         f"{_SMEM_PER_BLOCK}")
 
 
 def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
@@ -83,32 +212,15 @@ def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     if x.device.type == "cpu":
         return block_attn_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
                                 b_proj, num_heads, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block_attn: unsupported device {x.device}")
+    _check_attn("fused_block_attn", x, num_heads,
+                _attn_params(x, None, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                             b_proj))
     b, n, d = x.shape
-    if d % num_heads or (d // num_heads) % 2 or d % 8:
-        raise ValueError(
-            f"fused_block_attn: D={d} with {num_heads} heads needs an even "
-            f"head width and D % 8 == 0"
-        )
     e = d // num_heads
     # one (image, head) block keeps K, V and a score row per warp on chip
-    smem = n * (e + 2) * 2 + n * e * 2 + 8 * (n + e) * 4
-    if smem > _SMEM_PER_BLOCK:
-        raise ValueError(
-            f"fused_block_attn: N={n}, head width {e} needs {smem} bytes of "
-            f"shared memory per block, more than {_SMEM_PER_BLOCK}"
-        )
+    _check_smem("fused_block_attn", n * (e + 2) * 2 + n * e * 2
+                + 8 * (n + e) * 4, n, e)
     bf, f32 = torch.bfloat16, torch.float32
-    _check("x", x, bf, (b, n, d))
-    _check("w_qkv", w_qkv, bf, (3 * d, d))
-    _check("w_proj", w_proj, bf, (d, d))
-    for name, t, size in (("ln_scale", ln_scale, d), ("ln_bias", ln_bias, d),
-                          ("b_qkv", b_qkv, 3 * d), ("b_proj", b_proj, d)):
-        _check(name, t, f32, (size,))
-    for t in (ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj):
-        if t.device != x.device:
-            raise ValueError("fused_block_attn: all inputs must be on x's device")
     out = torch.empty_like(x)
     imp = torch.empty((b, n), dtype=f32, device=x.device)
     ws_xn = torch.empty((b * n, d), dtype=bf, device=x.device)
@@ -126,4 +238,140 @@ def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     return out, imp
 
 
+def split_k_chunk(rows: int, tiles: int) -> int:
+    """Contraction rows per split-K slice of a weight-gradient GEMM with
+    ``tiles`` 64x64 output tiles: enough slices for about four blocks per
+    SM, each a multiple of the 32-row K step."""
+    splits = max(1, min(-(-rows // 32), -(-_TARGET_BLOCKS // tiles)))
+    per_split = -(-rows // splits)
+    return -(-per_split // 32) * 32
+
+
+def fused_block_attn_train_fwd(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                               w_proj, b_proj, num_heads: int,
+                               eps: float = 1e-6):
+    """K3a: ``(out (B, N, D) bf16, lse (B, H, N) f32)``.
+
+    x: (B, N, D) bf16; mask: (B,) f32 stochastic-depth multipliers;
+    ln_scale, ln_bias, b_qkv, b_proj: f32; w_qkv: (3D, D), w_proj: (D, D)
+    bf16.
+    """
+    if x.device.type == "cpu":
+        return block_attn_train_plain_fwd(x, mask, ln_scale, ln_bias, w_qkv,
+                                          b_qkv, w_proj, b_proj, num_heads,
+                                          eps)
+    _check_attn("fused_block_attn_train_fwd", x, num_heads,
+                _attn_params(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                             b_proj))
+    b, n, d = x.shape
+    e = d // num_heads
+    _check_smem("fused_block_attn_train_fwd", n * (e + 2) * 2 + n * e * 2
+                + 8 * (n + e) * 4, n, e)
+    bf = torch.bfloat16
+    out = torch.empty_like(x)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=x.device)
+    ws_xn = torch.empty((b * n, d), dtype=bf, device=x.device)
+    ws_qkv = torch.empty((b * n, 3 * d), dtype=bf, device=x.device)
+    _build.call(
+        "basd_block_attn_train_fwd",
+        x.data_ptr(), mask.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+        b_proj.data_ptr(), out.data_ptr(), lse.data_ptr(), ws_xn.data_ptr(),
+        ws_qkv.data_ptr(), b, n, d, num_heads, float(eps), float(e) ** -0.5,
+        _build.stream_ptr(x.device),
+    )
+    fused_block_attn_train_fwd.launches += 1
+    return out, lse
+
+
+def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
+                               b_qkv, w_proj, num_heads: int,
+                               eps: float = 1e-6):
+    """K3b: ``(dx bf16, dw_qkv, db_qkv, dw_proj, db_proj, dln_scale,
+    dln_bias)``, the gradients f32 and summed over the batch."""
+    if x.device.type == "cpu":
+        return block_attn_train_plain_bwd(x, mask, dout, lse, ln_scale,
+                                          ln_bias, w_qkv, b_qkv, w_proj,
+                                          num_heads, eps)
+    b, n, d = x.shape
+    h = num_heads
+    f32, bf = torch.float32, torch.bfloat16
+    _check_attn("fused_block_attn_train_bwd", x, h,
+                _attn_params(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                             None)
+                + [("dout", dout, bf, (b, n, d)), ("lse", lse, f32, (b, h, n))])
+    e = d // h
+    # q, k, v and dattn of one (image, head), two score rows per warp
+    _check_smem("fused_block_attn_train_bwd", 4 * n * (e + 2) * 2 + 2 * n * 4
+                + 8 * (2 * n + 3 * e) * 4, n, e)
+    m = b * n
+    dev = x.device
+    k_chunk = split_k_chunk(m, -(-3 * d // 64) * -(-d // 64))
+    splits = -(-m // k_chunk)
+    chunks = -(-m // _ROW_CHUNK)
+    dx = torch.empty_like(x)
+    dw_qkv = torch.empty((3 * d, d), dtype=f32, device=dev)
+    db_qkv = torch.empty((3 * d,), dtype=f32, device=dev)
+    dw_proj = torch.empty((d, d), dtype=f32, device=dev)
+    db_proj, dln_s, dln_b = (torch.empty((d,), dtype=f32, device=dev)
+                             for _ in range(3))
+    ws_xn, ws_dyb, ws_attn = (torch.empty((m, d), dtype=bf, device=dev)
+                              for _ in range(3))
+    ws_qkv, ws_dqkv = (torch.empty((m, 3 * d), dtype=bf, device=dev)
+                       for _ in range(2))
+    ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
+    ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
+    ws_part = torch.empty((max(splits * 3 * d * d, b * 3 * d, 2 * chunks * d),),
+                          dtype=f32, device=dev)
+    _build.call(
+        "basd_block_attn_train_bwd",
+        x.data_ptr(), mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(),
+        b_qkv.data_ptr(), w_proj.data_ptr(), dx.data_ptr(), dw_qkv.data_ptr(),
+        db_qkv.data_ptr(), dw_proj.data_ptr(), db_proj.data_ptr(),
+        dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
+        ws_stats.data_ptr(), ws_qkv.data_ptr(), ws_dyb.data_ptr(),
+        ws_f32.data_ptr(), ws_attn.data_ptr(), ws_dqkv.data_ptr(),
+        ws_part.data_ptr(), b, n, d, h, k_chunk, _ROW_CHUNK, float(eps),
+        float(e) ** -0.5, _build.stream_ptr(dev),
+    )
+    fused_block_attn_train_bwd.launches += 1
+    return dx, dw_qkv, db_qkv, dw_proj, db_proj, dln_s, dln_b
+
+
 fused_block_attn.launches = 0
+fused_block_attn_train_fwd.launches = 0
+fused_block_attn_train_bwd.launches = 0
+
+
+class FusedBlockAttnTrain(torch.autograd.Function):
+    """K3a forward, K3b backward; the mask is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+                num_heads, eps):
+        out, lse = fused_block_attn_train_fwd(x, mask, ln_scale, ln_bias,
+                                              w_qkv, b_qkv, w_proj, b_proj,
+                                              num_heads, eps)
+        ctx.save_for_backward(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                              w_proj, b_proj, lse)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, mask, ln_s, ln_b, w_qkv, b_qkv, w_proj, b_proj, lse = ctx.saved_tensors
+        dx, dwq, dbq, dwp, dbp, dls, dlb = fused_block_attn_train_bwd(
+            x, mask, dout.to(x.dtype).contiguous(), lse, ln_s, ln_b, w_qkv,
+            b_qkv, w_proj, ctx.num_heads, ctx.eps)
+        return (dx, None, dls.to(ln_s.dtype), dlb.to(ln_b.dtype),
+                dwq.to(w_qkv.dtype), dbq.to(b_qkv.dtype), dwp.to(w_proj.dtype),
+                dbp.to(b_proj.dtype), None, None)
+
+
+def fused_block_attn_train(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                           b_proj, num_heads: int, eps: float = 1e-6):
+    """``x + mask * proj(MHSA(qkv(LN(x))))``, differentiable (K3a/K3b)."""
+    return FusedBlockAttnTrain.apply(x.contiguous(), mask, ln_scale, ln_bias,
+                                     w_qkv, b_qkv, w_proj, b_proj, num_heads,
+                                     eps)

@@ -1,18 +1,26 @@
-"""K2: the frozen teacher's fused MLP half, collecting into the layer stack.
+"""K2 and K4: the fused MLP halves of the teacher and the student.
 
-Replaces ``basd_tpu/ops/pallas/fused_block_mlp.py:fused_ln_mlp_collect``
+K2 replaces ``basd_tpu/ops/pallas/fused_block_mlp.py:fused_ln_mlp_collect``
 (``_fwd_collect_kernel``)::
 
     out = x + mask * fc2(gelu_tanh(fc1(LN2(x))))
     buf[idx*B*N:(idx+1)*B*N] = out          (in place)
 
 The in-place write of the caller's flat (L*B*N, D) collection buffer takes
-the place of the TPU kernel's ``input_output_aliases``. The CUDA kernel
-(``csrc/block.cu``, ``basd_block_mlp_collect_fwd``) runs for a CUDA tensor;
-``block_mlp_plain`` is the same function in plain PyTorch, taken for a CPU
-tensor. Rounding follows the TPU kernel: LN output, fc1 output and GELU
-output rounded to bf16, GELU in f32, fc2 output rounded to bf16, mask and
-residual in f32, rounded once. Weights are in torch's (out, in) layout.
+the place of the TPU kernel's ``input_output_aliases``. K4 replaces
+``fused_ln_mlp``, the same function without the buffer and with a VJP: K4a
+(``_fwd``) is K2's entry point called with no buffer, K4b (``_bwd``)
+recomputes from x and returns dx and the f32 gradients of every parameter,
+summed over the batch. ``FusedLnMlp`` wraps them as a
+``torch.autograd.Function`` that saves only x, mask and the parameters.
+
+The CUDA kernels (``csrc/block.cu``: ``basd_block_mlp_collect_fwd``;
+``csrc/block_train.cu``: ``basd_block_mlp_bwd``) run for CUDA tensors; the
+``*_plain`` functions are the same arithmetic in plain PyTorch, taken for
+CPU tensors. Rounding follows the TPU kernels: LN output, fc1 output and
+GELU output rounded to bf16, GELU in f32, fc2 output rounded to bf16, mask
+and residual in f32, rounded once; the backward's rounding points are
+listed at ``block_mlp_plain_bwd``. Weights are in torch's (out, in) layout.
 """
 
 from __future__ import annotations
@@ -20,7 +28,17 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
-from basd_tpu_torch.kernels.block_attn import _check, _mm, ln_bf16_plain
+from basd_tpu_torch.kernels.block_attn import (
+    _ROW_CHUNK,
+    _check,
+    _mm,
+    split_k_chunk,
+)
+from basd_tpu_torch.kernels.layernorm import (
+    layernorm_plain_fwd,
+    ln_stats_plain,
+    ln_vjp_rows,
+)
 
 _GELU_C = 0.7978845608028654  # sqrt(2/pi)
 _GELU_A = 0.044715
@@ -32,15 +50,93 @@ def gelu_tanh(p: torch.Tensor) -> torch.Tensor:
     return 0.5 * p * (1.0 + t)
 
 
+def gelu_tanh_grad(p: torch.Tensor) -> torch.Tensor:
+    """d/dp of ``gelu_tanh`` (``fused_mlp.py:_gelu_tanh_grad``)."""
+    t = torch.tanh(_GELU_C * (p + _GELU_A * p * p * p))
+    return 0.5 * (1.0 + t) + 0.5 * p * (1.0 - t * t) * _GELU_C * (
+        1.0 + 3.0 * _GELU_A * p * p)
+
+
 def block_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                     eps: float = 1e-6):
     b, n, d = x.shape
-    xnb = ln_bf16_plain(x, ln_scale, ln_bias, eps)
+    xnb = layernorm_plain_fwd(x, ln_scale, ln_bias, eps)[0]
     pre = (_mm(xnb, w1) + b1).to(x.dtype).float()
     h = gelu_tanh(pre).to(x.dtype)
     y = (_mm(h, w2) + b2).to(x.dtype).float()
     m = mask.float().reshape(b, 1, 1)
     return (x.float() + y * m).to(x.dtype)
+
+
+def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
+                        eps: float = 1e-6):
+    """Recompute backward of K4 (``fused_block_mlp.py:95-135``).
+
+    Returns (dx in x.dtype, dw1 (F, D), db1, dw2 (D, F), db2, dln_scale,
+    dln_bias), the gradients f32. Rounding points: bf16 LN output,
+    pre-activation and hidden; dy = do * mask with a bf16 copy;
+    dh = dyb W2 f32; dpre = dh gelu'(preb) f32 with a bf16 copy into dW1
+    and dxn; dW2 from bf16 hidden and dy; the LN VJP per row f32;
+    dx = bf16(do + dxln).
+    """
+    dt = x.dtype
+    xhat, _, rstd = ln_stats_plain(x, eps)
+    xnb = (xhat * ln_scale.float() + ln_bias.float()).to(dt)
+    pre = (_mm(xnb, w1) + b1).to(dt).float()
+    hb = gelu_tanh(pre).to(dt)
+
+    dof = dout.float()
+    dy = dof * mask.float().reshape(-1, 1, 1)
+    dyb = dy.to(dt).float()
+    dh = torch.matmul(dyb, w2.float())
+    dpre = dh * gelu_tanh_grad(pre)
+    dpreb = dpre.to(dt).float()
+    sum_bn = (0, 1)
+    dw2 = torch.einsum("bnd,bnf->df", dyb, hb.float())
+    dw1 = torch.einsum("bnf,bnd->fd", dpreb, xnb.float())
+    dxn = torch.matmul(dpreb, w1.float())
+    dxln = ln_vjp_rows(dxn, xhat, rstd, ln_scale)
+    dx = (dof + dxln).to(dt)
+    return (dx, dw1, dpre.sum(sum_bn), dw2, dy.sum(sum_bn),
+            (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
+
+
+def _check_mlp(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
+    """Shape, type and device checks of the CUDA path; ``extra``: further
+    (name, tensor, dtype, shape) inputs."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    b, n, d = x.shape
+    f = w1.shape[0]
+    if d % 8 or f % 8:
+        raise ValueError(f"{name}: D={d}, F={f} must be % 8")
+    bf, f32 = torch.bfloat16, torch.float32
+    params = [("x", x, bf, (b, n, d)), ("mask", mask, f32, (b,)),
+              ("ln_scale", ln_scale, f32, (d,)), ("ln_bias", ln_bias, f32, (d,)),
+              ("w1", w1, bf, (f, d)), ("b1", b1, f32, (f,)),
+              ("w2", w2, bf, (d, f)), *extra]
+    if b2 is not None:
+        params.append(("b2", b2, f32, (d,)))
+    for pname, t, dtype, shape in params:
+        _check(pname, t, dtype, shape)
+        if t.device != x.device:
+            raise ValueError(f"{name}: all inputs must be on x's device")
+
+
+def _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows, eps):
+    b, n, d = x.shape
+    f = w1.shape[0]
+    out = torch.empty_like(x)
+    ws_xn = torch.empty((b * n, d), dtype=torch.bfloat16, device=x.device)
+    ws_h = torch.empty((b * n, f), dtype=torch.bfloat16, device=x.device)
+    _build.call(
+        "basd_block_mlp_collect_fwd",
+        x.data_ptr(), mask.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), buf_rows, ws_xn.data_ptr(),
+        ws_h.data_ptr(), b, n, d, f, float(eps), _build.stream_ptr(x.device),
+    )
+    return out
 
 
 def fused_ln_mlp_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -66,38 +162,105 @@ def fused_ln_mlp_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
         out = block_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
         buf[idx * m_rows:(idx + 1) * m_rows] = out.reshape(m_rows, d)
         return out
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ln_mlp_collect: unsupported device {x.device}")
-    f = w1.shape[0]
-    if d % 8 or f % 8:
-        raise ValueError(f"fused_ln_mlp_collect: D={d}, F={f} must be % 8")
-    bf, f32 = torch.bfloat16, torch.float32
-    _check("x", x, bf, (b, n, d))
-    _check("mask", mask, f32, (b,))
-    _check("w1", w1, bf, (f, d))
-    _check("w2", w2, bf, (d, f))
-    _check("buf", buf, bf, tuple(buf.shape))
-    for name, t, size in (("ln_scale", ln_scale, d), ("ln_bias", ln_bias, d),
-                          ("b1", b1, f), ("b2", b2, d)):
-        _check(name, t, f32, (size,))
-    for t in (mask, ln_scale, ln_bias, w1, b1, w2, b2, buf):
-        if t.device != x.device:
-            raise ValueError(
-                "fused_ln_mlp_collect: all inputs must be on x's device"
-            )
-    out = torch.empty_like(x)
-    ws_xn = torch.empty((m_rows, d), dtype=bf, device=x.device)
-    ws_h = torch.empty((m_rows, f), dtype=bf, device=x.device)
+    _check_mlp("fused_ln_mlp_collect", x, mask, ln_scale, ln_bias, w1, b1, w2,
+               b2, ("buf", buf, torch.bfloat16, tuple(buf.shape)))
     buf_rows = buf.data_ptr() + idx * m_rows * d * buf.element_size()
-    _build.call(
-        "basd_block_mlp_collect_fwd",
-        x.data_ptr(), mask.data_ptr(), ln_scale.data_ptr(),
-        ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), buf_rows, ws_xn.data_ptr(),
-        ws_h.data_ptr(), b, n, d, f, float(eps), _build.stream_ptr(x.device),
-    )
+    out = _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows,
+                        eps)
     fused_ln_mlp_collect.launches += 1
     return out
 
 
+def fused_ln_mlp_fwd(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                     eps: float = 1e-6):
+    """K4a: ``x + mask * fc2(gelu_tanh(fc1(LN(x))))`` (B, N, D) in x.dtype.
+
+    x: bf16; mask: (B,) f32 stochastic-depth multipliers; w1: (F, D),
+    w2: (D, F) bf16; LN affine and biases f32.
+    """
+    if x.device.type == "cpu":
+        return block_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    _check_mlp("fused_ln_mlp_fwd", x, mask, ln_scale, ln_bias, w1, b1, w2, b2)
+    out = _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, None, eps)
+    fused_ln_mlp_fwd.launches += 1
+    return out
+
+
+def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
+                     eps: float = 1e-6):
+    """K4b: ``(dx bf16, dw1, db1, dw2, db2, dln_scale, dln_bias)``, the
+    gradients f32 and summed over the batch."""
+    if x.device.type == "cpu":
+        return block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1,
+                                   w2, eps)
+    b, n, d = x.shape
+    f = w1.shape[0]
+    f32, bf = torch.float32, torch.bfloat16
+    _check_mlp("fused_ln_mlp_bwd", x, mask, ln_scale, ln_bias, w1, b1, w2,
+               None, ("dout", dout, bf, (b, n, d)))
+    m = b * n
+    dev = x.device
+    k_chunk = split_k_chunk(m, -(-f // 64) * -(-d // 64))
+    splits = -(-m // k_chunk)
+    chunks = -(-m // _ROW_CHUNK)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((f, d), dtype=f32, device=dev)
+    db1 = torch.empty((f,), dtype=f32, device=dev)
+    dw2 = torch.empty((d, f), dtype=f32, device=dev)
+    db2, dln_s, dln_b = (torch.empty((d,), dtype=f32, device=dev)
+                         for _ in range(3))
+    ws_xn, ws_dyb = (torch.empty((m, d), dtype=bf, device=dev)
+                     for _ in range(2))
+    ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=bf, device=dev)
+                             for _ in range(3))
+    ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
+    ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
+    ws_part = torch.empty(
+        (max(splits * f * d, -(-m // 64) * f, 2 * chunks * d),), dtype=f32,
+        device=dev)
+    _build.call(
+        "basd_block_mlp_bwd",
+        x.data_ptr(), mask.data_ptr(), dout.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+        db2.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
+        ws_stats.data_ptr(), ws_pre.data_ptr(), ws_h.data_ptr(),
+        ws_dyb.data_ptr(), ws_dpre.data_ptr(), ws_f32.data_ptr(),
+        ws_part.data_ptr(), b, n, d, f, k_chunk, _ROW_CHUNK, float(eps),
+        _build.stream_ptr(dev),
+    )
+    fused_ln_mlp_bwd.launches += 1
+    return dx, dw1, db1, dw2, db2, dln_s, dln_b
+
+
 fused_ln_mlp_collect.launches = 0
+fused_ln_mlp_fwd.launches = 0
+fused_ln_mlp_bwd.launches = 0
+
+
+class FusedLnMlp(torch.autograd.Function):
+    """K4a forward, K4b backward; the mask is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+        out = fused_ln_mlp_fwd(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        ctx.save_for_backward(x, mask, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, mask, ln_s, ln_b, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2, dls, dlb = fused_ln_mlp_bwd(
+            x, mask, dout.to(x.dtype).contiguous(), ln_s, ln_b, w1, b1, w2,
+            ctx.eps)
+        return (dx, None, dls.to(ln_s.dtype), dlb.to(ln_b.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), None)
+
+
+def fused_ln_mlp(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                 eps: float = 1e-6):
+    """``x + mask * fc2(gelu_tanh(fc1(LN(x))))``, differentiable (K4a/K4b)."""
+    return FusedLnMlp.apply(x.contiguous(), mask, ln_scale, ln_bias, w1, b1,
+                            w2, b2, eps)

@@ -5,12 +5,21 @@ Parameters are f32 and keep timm's names and (out, in) layouts; a module's
 ``Dense(dtype=...)`` does). Numerics follow the reference: bf16 paths use
 tanh-GELU and f32 paths use erf; LayerNorm statistics are f32.
 
-Block dispatch, restated for CUDA from ``layers.py:392-562``: the frozen
-teacher's blocks (``importance_mode='cls'``, bf16, no stochastic depth)
-take K1 (``kernels.block_attn.fused_block_attn``) for the attention half
-and, when a collection buffer is given, K2
-(``kernels.block_mlp.fused_ln_mlp_collect``) for the MLP half. Every other
-block takes the plain chain.
+Block dispatch, restated for CUDA from ``layers.py:392-562``: where the
+JAX package asks ``jax.default_backend() == "tpu"``, the port asks whether
+the activations lie on a CUDA device. With ``attention_impl='auto'`` a
+bf16 block on CUDA takes, for its attention half, K1
+(``kernels.block_attn.fused_block_attn``) when it is the frozen teacher's
+(``importance_mode='cls'``, no stochastic depth) and K3
+(``fused_block_attn_train``) when it is the student's
+(``importance_mode=None``); with ``mlp_impl='auto'`` it takes, for its MLP
+half, K2 (``kernels.block_mlp.fused_ln_mlp_collect``) when a collection
+buffer is given and K4 (``fused_ln_mlp``) otherwise. Off CUDA, ``auto``
+takes the module chain, as the JAX package does off the TPU. An explicit
+``fused_block`` / ``fused_block_train`` / ``fused_ln`` forces the kernel
+path (on a CPU tensor, its plain version); ``module`` forces the module
+chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). ``flash``
+and ``fused`` (K10, K11) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,8 +30,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from basd_tpu_torch.kernels.block_attn import fused_block_attn
-from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp_collect
+from basd_tpu_torch.kernels.block_attn import (
+    fused_block_attn,
+    fused_block_attn_train,
+)
+from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp, fused_ln_mlp_collect
+from basd_tpu_torch.kernels.layernorm import fused_layernorm
+
+_UNPORTED_IMPLS = {"flash": "K10 flash_attention", "fused": "K11 fused_mlp"}
 
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float):
@@ -47,8 +62,10 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with f32 statistics, output in ``dtype`` (flax
-    ``LayerNorm`` math: fast variance, f32 affine)."""
+    """LayerNorm with f32 statistics, output in ``dtype`` (the JAX
+    package's ``FusedLayerNorm`` with its default ``impl='auto'``): K5
+    (``kernels.layernorm.fused_layernorm``, two-pass variance) for a 3-D
+    input on CUDA, flax's math (fast variance, f32 affine) otherwise."""
 
     def __init__(self, dim: int, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
@@ -59,6 +76,10 @@ class LayerNorm(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if x.is_cuda and x.dim() == 3:
+            return fused_layernorm(x.to(self.compute_dtype), self.weight.float(),
+                                   self.bias.float(), self.eps
+                                   ).to(self.compute_dtype)
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         mu2 = (xf * xf).mean(-1, keepdim=True)
@@ -155,13 +176,20 @@ class Block(nn.Module):
                  importance_mode: Optional[str] = None,
                  layerscale_init: Optional[float] = None,
                  has_cls_token: bool = True,
-                 dtype: torch.dtype = torch.float32, norm_eps: float = 1e-6):
+                 dtype: torch.dtype = torch.float32, norm_eps: float = 1e-6,
+                 attention_impl: str = "auto", mlp_impl: str = "auto"):
         super().__init__()
+        for impl in (attention_impl, mlp_impl):
+            if impl in _UNPORTED_IMPLS:
+                raise NotImplementedError(
+                    f"impl {impl!r} ({_UNPORTED_IMPLS[impl]}) is not ported yet")
         self.num_heads = num_heads
         self.importance_mode = importance_mode
         self.has_cls_token = has_cls_token
         self.compute_dtype = dtype
         self.norm_eps = norm_eps
+        self.attention_impl = attention_impl
+        self.mlp_impl = mlp_impl
         self.norm1 = LayerNorm(dim, norm_eps, dtype)
         self.attn = Attention(dim, num_heads, importance_mode, dtype)
         self.ls1 = (LayerScale(dim, layerscale_init)
@@ -171,9 +199,30 @@ class Block(nn.Module):
         self.ls2 = (LayerScale(dim, layerscale_init)
                     if layerscale_init is not None else None)
 
-    def _teacher_kernels(self, drop) -> bool:
-        return (self.importance_mode == "cls"
-                and self.compute_dtype == torch.bfloat16 and drop is None)
+    def _attn_path(self, x, drop) -> str:
+        """``layers.py:392-429``: 'fused_block' (K1), 'fused_block_train'
+        (K3) or the module chain."""
+        impl = self.attention_impl
+        bf16_3d = self.compute_dtype == torch.bfloat16 and x.dim() == 3
+        fusable = self.importance_mode == "cls" and bf16_3d and drop is None
+        if impl == "auto" and fusable and x.is_cuda:
+            impl = "fused_block"
+        if impl == "fused_block" and not fusable:
+            impl = "auto"
+        fusable_train = self.importance_mode is None and bf16_3d
+        if impl == "auto" and fusable_train and x.is_cuda:
+            impl = "fused_block_train"
+        if impl == "fused_block_train" and not fusable_train:
+            impl = "auto"
+        return impl
+
+    def _mlp_path(self, x) -> str:
+        """``layers.py:503-517``: 'fused_ln' (K2 / K4) or the module chain."""
+        impl = self.mlp_impl
+        if impl == "auto":
+            impl = ("fused_ln" if x.is_cuda and x.dim() == 3
+                    and self.compute_dtype == torch.bfloat16 else "module")
+        return impl
 
     @staticmethod
     def _fold(w, b, ls):
@@ -184,6 +233,17 @@ class Block(nn.Module):
         g = ls.gamma.float()
         return w * g[:, None], b * g
 
+    @staticmethod
+    def _mask(drop, branch: int, b: int, device) -> torch.Tensor:
+        """The (B,) f32 stochastic-depth multiplier the kernels take:
+        ``where(keep_mask, 1/keep, 0)``, keep in f32 (``layers.py:130-137``);
+        ones when deterministic."""
+        if drop is None:
+            return torch.ones(b, device=device)
+        keep = torch.tensor(drop[0], dtype=torch.float32, device=device)
+        return torch.where(drop[1][branch], 1.0 / keep,
+                           torch.zeros((), device=device))
+
     def forward(self, x, drop=None, buf: Optional[torch.Tensor] = None,
                 idx: int = 0):
         """``drop``: None (deterministic) or ``(keep, masks)`` with masks a
@@ -191,16 +251,20 @@ class Block(nn.Module):
         (L*B*N, D) collection stack that receives this block's output at
         rows ``[idx*B*N, (idx+1)*B*N)``."""
         bf = torch.bfloat16
-        if self._teacher_kernels(drop):
+        attn_path = self._attn_path(x, drop)
+        importance = None
+        if attn_path in ("fused_block", "fused_block_train"):
             wp, bp = self._fold(self.attn.proj.weight, self.attn.proj.bias,
                                 self.ls1)
-            x, imp_full = fused_block_attn(
-                x.contiguous(), self.norm1.weight.float(),
-                self.norm1.bias.float(), self.attn.qkv.weight.to(bf),
-                self.attn.qkv.bias.float(), wp.to(bf), bp.float(),
-                self.num_heads, self.norm_eps,
-            )
-            importance = imp_full[:, 1:]  # strip the CLS key
+            args = (self.norm1.weight.float(), self.norm1.bias.float(),
+                    self.attn.qkv.weight.to(bf), self.attn.qkv.bias.float(),
+                    wp.to(bf), bp.float(), self.num_heads, self.norm_eps)
+            if attn_path == "fused_block":
+                x, imp_full = fused_block_attn(x.contiguous(), *args)
+                importance = imp_full[:, 1:]  # strip the CLS key
+            else:
+                x = fused_block_attn_train(
+                    x, self._mask(drop, 0, x.shape[0], x.device), *args)
         else:
             y, importance = self.attn(self.norm1(x))
             if self.ls1 is not None:
@@ -209,15 +273,18 @@ class Block(nn.Module):
                 y = drop_path(y, drop[1][0], drop[0])
             x = x + y
 
-        if buf is not None and self._teacher_kernels(drop):
+        if self._mlp_path(x) == "fused_ln":
             w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
                                 self.ls2)
-            x = fused_ln_mlp_collect(
-                x, torch.ones(x.shape[0], device=x.device),
-                self.norm2.weight.float(), self.norm2.bias.float(),
-                self.mlp.fc1.weight.to(bf), self.mlp.fc1.bias.float(),
-                w2.to(bf), b2.float(), buf, idx, self.norm_eps,
-            )
+            args = (self._mask(drop, 1, x.shape[0], x.device),
+                    self.norm2.weight.float(), self.norm2.bias.float(),
+                    self.mlp.fc1.weight.to(bf), self.mlp.fc1.bias.float(),
+                    w2.to(bf), b2.float())
+            if buf is not None:
+                x = fused_ln_mlp_collect(x.contiguous(), *args, buf, idx,
+                                         self.norm_eps)
+            else:
+                x = fused_ln_mlp(x, *args, self.norm_eps)
         else:
             y = self.mlp(self.norm2(x))
             if self.ls2 is not None:

@@ -94,10 +94,14 @@ def create_model(
     remat: bool = False,
     collect: bool = False,
     dtype: torch.dtype = torch.float32,
+    attention_impl: str = "auto",
+    mlp_impl: str = "auto",
 ) -> ModelBundle:
     """Build a ViT by preset name, or an unlisted one from explicit arch
     kwargs {embed_dim, depth, num_heads, [mlp_ratio, patch_size,
-    layerscale_init]}. Parameters are uninitialised; see ``init_model``."""
+    layerscale_init]}. Parameters are uninitialised; see ``init_model``.
+    ``attention_impl`` / ``mlp_impl`` select the blocks' kernel dispatch
+    (``layers.Block``; the ``tpu.*_impl`` config keys)."""
     if name in _VIT_PRESETS:
         preset = dict(_VIT_PRESETS[name])
         cfg = ViTConfig(
@@ -128,7 +132,9 @@ def create_model(
             **ov,
         )
     module = VisionTransformer(cfg, importance_mode=importance_mode,
-                               remat=remat, collect=collect, dtype=dtype)
+                               remat=remat, collect=collect, dtype=dtype,
+                               attention_impl=attention_impl,
+                               mlp_impl=mlp_impl)
     return ModelBundle(name, module, cfg, _vit_info(cfg))
 
 
@@ -197,15 +203,17 @@ def load_teacher(
     checkpoint_path: str | None = None,
     dtype: torch.dtype = torch.bfloat16,
     arch_overrides: dict | None = None,
+    attention_impl: str = "auto",
 ) -> ModelBundle:
     """The frozen teacher (reference ``load_teacher``): importance 'cls',
     per-layer tokens collected into the flat stack, eval mode, no grads.
     ``checkpoint_path``: a timm-layout state-dict ``.pth``; otherwise the
-    teacher is randomly initialised from ``seed``."""
+    teacher is randomly initialised from ``seed``. ``attention_impl``:
+    ``tpu.teacher_attention_impl``."""
     bundle = create_model(
         model_name, img_size=img_size, num_classes=0,
         arch_overrides=arch_overrides, importance_mode="cls", collect=True,
-        dtype=dtype,
+        dtype=dtype, attention_impl=attention_impl,
     )
     init_model(bundle, seed)
     if checkpoint_path:

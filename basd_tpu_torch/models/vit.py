@@ -3,10 +3,13 @@
 
 A Python loop over the blocks replaces ``nn.scan``; ``torch.utils.checkpoint``
 replaces ``jax.checkpoint`` for ``remat`` (the reference's
-``set_grad_checkpointing(True)``). With ``collect``, the frozen teacher
-writes each layer's output into one flat (L*B*N, D) stack, which the caller
-may preallocate and reuse across steps (``collection_init``), and returns it
-as ``PackedTokens``.
+``set_grad_checkpointing(True)``), so a remat'd block's kernels run twice
+per training step, as under the JAX package's ``nn.remat``. With
+``collect``, the frozen teacher writes each layer's output into one flat
+(L*B*N, D) stack, which the caller may preallocate and reuse across steps
+(``collection_init``), and returns it as ``PackedTokens``.
+``attention_impl``/``mlp_impl`` select every block's kernel dispatch
+(``layers.Block``); the final norm is ``layers.LayerNorm`` (K5 on CUDA).
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, cfg: ViTConfig, importance_mode: Optional[str] = None,
                  remat: bool = False, collect: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "auto", mlp_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
@@ -88,7 +92,8 @@ class VisionTransformer(nn.Module):
                   importance_mode=importance_mode,
                   layerscale_init=cfg.layerscale_init,
                   has_cls_token=cfg.use_cls_token, dtype=dtype,
-                  norm_eps=cfg.norm_eps)
+                  norm_eps=cfg.norm_eps, attention_impl=attention_impl,
+                  mlp_impl=mlp_impl)
             for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, cfg.norm_eps, dtype)

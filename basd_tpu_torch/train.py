@@ -6,7 +6,10 @@ Same hydra-style overrides as ``basd-train``::
 
 compose -> ``load_teacher`` -> calibration (MP intrinsic dimension of the
 teacher's last layer) and ``derive_student_arch`` -> student ->
-``Trainer.train``. Runs on one CUDA device by default and raises when
+``Trainer.train``. ``tpu.teacher_attention_impl``,
+``tpu.student_attention_impl`` and ``tpu.student_mlp_impl`` select the
+blocks' kernel dispatch, as in the JAX package (``auto``: the fused
+kernels on CUDA; ``module``: the plain chain). Runs on one CUDA device by default and raises when
 none is present; ``main(argv, device="cpu")`` runs on the CPU.
 """
 
@@ -18,8 +21,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from basd_tpu.config import compose, register_resolvers, save_config
-from basd_tpu.data.sources import source_from_config, stats_from_config
+from basd_tpu_torch.config import compose, register_resolvers, save_config
+from basd_tpu_torch.data.sources import source_from_config, stats_from_config
 from basd_tpu_torch.data.augment import make_eval_view
 from basd_tpu_torch.models import (
     create_model,
@@ -72,6 +75,7 @@ def main(argv: list[str] | None = None,
             teacher_arch.to_dict() if hasattr(teacher_arch, "to_dict")
             else dict(teacher_arch) if teacher_arch else None
         ),
+        attention_impl=config.tpu.get("teacher_attention_impl", "auto"),
     )
 
     # calibration: intrinsic-dim student auto-sizing (reference
@@ -104,6 +108,8 @@ def main(argv: list[str] | None = None,
         drop_path_rate=config.model.drop_path_rate,
         arch_overrides=arch_overrides, importance_mode=None,
         remat=bool(config.tpu.get("remat", True)), dtype=compute_dtype,
+        attention_impl=config.tpu.get("student_attention_impl", "auto"),
+        mlp_impl=config.tpu.get("student_mlp_impl", "auto"),
     )
     init_model(student, config.run.seed, fan_in_init=True)
     s_info = probe(student)

@@ -6,7 +6,7 @@ One distillation step:
     uint8 canvas -> dual views + MixUp/CutMix (draws from an explicit
     generator) -> frozen bf16 teacher forward (K1/K2, per-layer tokens into
     one reused flat collect buffer, CLS importance) -> student forward and
-    backward -> BASD loss (selector with the K6 layer mix; identity-form
+    backward (K3/K4 per block, K5 final norm) -> BASD loss (selector with the K6 layer mix; identity-form
     Procrustes with the K7 polar factor; CE; UW-SO) -> schedule-free AdamW.
 
 The step is split in two: ``make_views`` (draws and views) and
@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from basd_tpu.data.pipeline import prefetch
+from basd_tpu_torch.data.pipeline import prefetch
 from basd_tpu_torch.data import augment as aug
 from basd_tpu_torch.evaluation import metrics as metrics_mod
 from basd_tpu_torch.losses import BASDLossConfig, basd_loss, init_basd_loss

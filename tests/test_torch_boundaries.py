@@ -1,8 +1,10 @@
-"""Boundaries of the PyTorch port: it never imports jax, and on CPU tensors
-every kernel wrapper returns its plain result without launching."""
+"""Boundaries of the PyTorch port: it never imports jax or the JAX package
+``basd_tpu``, and on CPU tensors every kernel wrapper returns its plain
+result without launching."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from basd_tpu_torch.kernels import KERNELS
+
 PKG = Path(__file__).resolve().parent.parent / "basd_tpu_torch"
+SMOKE = PKG.parent / "chip_smoke.py"
+_FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|basd_tpu)(\.|\s|$)")
 
 
 def test_port_import_leaves_jax_out():
@@ -19,7 +25,12 @@ def test_port_import_leaves_jax_out():
         "import sys\n"
         "import basd_tpu_torch, basd_tpu_torch.train\n"
         "import basd_tpu_torch.kernels, basd_tpu_torch.models.port\n"
+        "import basd_tpu_torch.data.cache, basd_tpu_torch.data.native\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules\n"
+        "             if m == 'basd_tpu' or m.startswith('basd_tpu.'))\n"
+        "assert not ref, ref\n"
         "assert 'triton' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -29,15 +40,22 @@ def test_port_import_leaves_jax_out():
 
 def test_no_jax_import_in_port_sources():
     offenders = [
-        str(p) for p in PKG.rglob("*.py")
-        if any(line.strip().startswith(("import jax", "from jax"))
-               for line in p.read_text().splitlines())
+        f"{p}:{i}" for p in [*PKG.rglob("*.py"), SMOKE]
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if _FORBIDDEN_IMPORT.match(line)
     ]
     assert offenders == []
 
 
 def _wrapper_cases():
-    from basd_tpu_torch.kernels import block_attn, block_mlp, mix_stack, ns_polar
+    from basd_tpu_torch.kernels import (
+        block_attn,
+        block_mlp,
+        geom_shift,
+        layernorm,
+        mix_stack,
+        ns_polar,
+    )
 
     rng = np.random.default_rng(3)
 
@@ -48,35 +66,66 @@ def _wrapper_cases():
     b, n, d, h, f = 2, 9, 32, 4, 128
     bf = torch.bfloat16
     x = t(b, n, d, dtype=bf)
+    dout = t(b, n, d, dtype=bf)
     ln = (t(d) * 0.1 + 1.0, t(d) * 0.1)
     attn = (t(3 * d, d, dtype=bf, scale=0.2), t(3 * d), t(d, d, dtype=bf, scale=0.2), t(d))
     mlp = (t(f, d, dtype=bf, scale=0.2), t(f), t(d, f, dtype=bf, scale=0.2), t(d))
     ones = torch.ones(b)
+    mask = torch.tensor([1.25, 0.0])
+    lse = block_attn.block_attn_train_plain_fwd(x, mask, *ln, *attn, h)[1]
+    mu, rstd = layernorm.layernorm_plain_fwd(x, *ln)[1:]
     w, stack, g = t(4, 3, dtype=bf), t(3, b * n, d, dtype=bf), t(4, b * n, d, dtype=bf)
     polar_in = t(3, 8, 128)
     buf = torch.zeros(3 * b * n, d, dtype=bf)
-    return [
-        ("K1", block_attn.fused_block_attn, (x, *ln, *attn, h),
-         lambda: block_attn.block_attn_plain(x, *ln, *attn, h)),
-        ("K2", block_mlp.fused_ln_mlp_collect, (x, ones, *ln, *mlp, buf, 1),
-         lambda: block_mlp.block_mlp_plain(x, ones, *ln, *mlp)),
-        ("K6a", mix_stack.mix_stack_fwd, (w, stack),
-         lambda: mix_stack.mix_fwd_plain(w, stack)),
-        ("K6b", mix_stack.mix_stack_dw, (g, stack),
-         lambda: mix_stack.mix_dw_plain(g, stack)),
-        ("K7", ns_polar.ns_polar_hybrid, (polar_in,),
-         lambda: ns_polar.ns_polar_plain(polar_in)),
-    ]
+    imgs = torch.from_numpy(rng.integers(0, 256, (3, 8, 10, 3), dtype=np.uint8))
+    r_h = torch.from_numpy(rng.integers(-3, 4, (3, 8)))
+    r_w = torch.from_numpy(rng.integers(-3, 4, (3, 10)))
+    k3b = (x, mask, dout, lse, *ln, *attn[:3], h)
+    k4b = (x, mask, dout, *ln, *mlp[:3])
+    return {
+        "K1 fused_block_attn": (
+            (x, *ln, *attn, h),
+            lambda: block_attn.block_attn_plain(x, *ln, *attn, h)),
+        "K2 fused_ln_mlp_collect": (
+            (x, ones, *ln, *mlp, buf, 1),
+            lambda: block_mlp.block_mlp_plain(x, ones, *ln, *mlp)),
+        "K3a fused_block_attn_train fwd": (
+            (x, mask, *ln, *attn, h),
+            lambda: block_attn.block_attn_train_plain_fwd(x, mask, *ln, *attn, h)),
+        "K3b fused_block_attn_train bwd": (
+            k3b, lambda: block_attn.block_attn_train_plain_bwd(*k3b)),
+        "K4a fused_ln_mlp fwd": (
+            (x, mask, *ln, *mlp),
+            lambda: block_mlp.block_mlp_plain(x, mask, *ln, *mlp)),
+        "K4b fused_ln_mlp bwd": (
+            k4b, lambda: block_mlp.block_mlp_plain_bwd(*k4b)),
+        "K5a fused_layernorm fwd": (
+            (x, *ln), lambda: layernorm.layernorm_plain_fwd(x, *ln)),
+        "K5b fused_layernorm bwd": (
+            (x, ln[0], mu, rstd, dout),
+            lambda: layernorm.layernorm_plain_bwd(x, ln[0], mu, rstd, dout)),
+        "K6a mix_stack fwd": (
+            (w, stack), lambda: mix_stack.mix_fwd_plain(w, stack)),
+        "K6b mix_stack dw": (
+            (g, stack), lambda: mix_stack.mix_dw_plain(g, stack)),
+        "K7 ns_polar_hybrid": (
+            (polar_in,), lambda: ns_polar.ns_polar_plain(polar_in)),
+        "K9 geom_shift3": (
+            (imgs, r_h, r_w, r_h.flip(0)),
+            lambda: geom_shift.geom_shift3_plain(imgs, r_h, r_w, r_h.flip(0))),
+    }
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(len(KERNELS)))
 def test_wrapper_on_cpu_is_plain_and_uncounted(case):
-    name, wrapper, args, plain = _wrapper_cases()[case]
+    name, *_, wrapper = KERNELS[case]
+    args, plain = _wrapper_cases()[name]
     before = wrapper.launches
     out = wrapper(*args)
     ref = plain()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
+    assert len(outs) == len(refs), name
     for a, b in zip(outs, refs):
         assert torch.equal(a, b), name
     assert wrapper.launches == before == 0, name

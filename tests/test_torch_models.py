@@ -96,7 +96,8 @@ def test_bf16_teacher_matches_jax_fused_teacher():
     params = _jax_params(jm, xj)
     ref = jm.apply(params, xj)
     model = _port(cfg_kw, params, importance_mode="cls", collect=True,
-                  dtype=torch.bfloat16)
+                  dtype=torch.bfloat16, attention_impl="fused_block",
+                  mlp_impl="fused_ln")
     buf = torch.full((4 * 8 * 17, 64), 9.0, dtype=torch.bfloat16)
     with torch.no_grad():
         out = model(torch.from_numpy(_f32(xj)).to(torch.bfloat16),
