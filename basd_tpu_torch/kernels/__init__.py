@@ -17,6 +17,7 @@ from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_fwd,
 )
 from basd_tpu_torch.kernels.geom_shift import geom_shift3
+from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
 from basd_tpu_torch.kernels.layernorm import layernorm_bwd, layernorm_fwd
 from basd_tpu_torch.kernels.mix_stack import mix_stack_dw, mix_stack_fwd
 from basd_tpu_torch.kernels.ns_polar import ns_polar_hybrid
@@ -48,6 +49,8 @@ KERNELS = (
      _PALLAS + "mix_stack.py:142", mix_stack_dw),
     ("K7 ns_polar_hybrid", "cuda", _CSRC + "ns_polar.cu",
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid),
+    ("K8 jacobi_eigh", "cuda", _CSRC + "jacobi_eigh.cu",
+     _PALLAS + "jacobi_eigh.py:215", jacobi_eigh),
     ("K9 geom_shift3", "triton", "basd_tpu_torch/kernels/geom_shift.py",
      _PALLAS + "geom_shift.py:103", geom_shift3),
 )

@@ -48,6 +48,7 @@ _SIGNATURES = {
         [_P] * 23 + [_I] * 6 + [_F, _P]
     ),
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
+    "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 _LIBRARY: list[ctypes.CDLL] = []

@@ -1,6 +1,6 @@
 """Combined BASD loss: CE + mean per-extraction-point Procrustes, UW-SO
-balanced (counterpart of ``basd_tpu/losses/combined.py``, gram / ident
-path, packed and dense branches)."""
+balanced (counterpart of ``basd_tpu/losses/combined.py``: every spectral
+backend and relational impl, packed and dense branches)."""
 
 from __future__ import annotations
 
@@ -17,7 +17,10 @@ from basd_tpu_torch.losses.selector import (
 from basd_tpu_torch.models.tokens import PackedTokens
 from basd_tpu_torch.ops.interp import align_token_count, linear_interp1d
 from basd_tpu_torch.ops.losses import cross_entropy, uwso_combine, uwso_weights
-from basd_tpu_torch.ops.procrustes import geometric_relational_loss_ident
+from basd_tpu_torch.ops.procrustes import (
+    geometric_relational_loss,
+    geometric_relational_loss_ident,
+)
 
 
 def extraction_layers(student_depth: int, num_points: int) -> list[int]:
@@ -58,11 +61,6 @@ class BASDLossConfig:
 
 def init_basd_loss(generator: torch.Generator, cfg: BASDLossConfig):
     """(params, buffers) of the loss: the selector state."""
-    if cfg.backend != "gram" or cfg.relational_impl != "ident":
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} relational_impl={cfg.relational_impl!r}:"
-            f" only the gram / ident path is ported"
-        )
     return init_selector(generator, cfg.selector_config)
 
 
@@ -80,8 +78,13 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
     Returns ``(loss, aux)``.
     """
     ce = cross_entropy(student_logits, targets, cfg.label_smoothing)
-    if (isinstance(teacher_tokens, PackedTokens)
-            and not packed_gram_eligible(teacher_tokens, cfg.selector_config)):
+    # the packed collection rides the hot path only under the fused Gram
+    # selector (the predicate select_and_mix gates on) AND the identity-form
+    # relational loss, which zero-weights the mixed CLS row; otherwise it
+    # is densified first (reference combined.py:110-123)
+    if isinstance(teacher_tokens, PackedTokens) and not (
+            packed_gram_eligible(teacher_tokens, cfg.selector_config)
+            and cfg.relational_impl == "ident"):
         teacher_tokens = teacher_tokens.to_dense()
     packed = isinstance(teacher_tokens, PackedTokens)
 
@@ -118,9 +121,17 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
                   + (cfg.num_student_tokens, -1))
         s_pan, w_pan = student_intermediates, mixed_importance
 
-    geo_per_point = geometric_relational_loss_ident(
-        s_pan, t_pan, w_pan, nuclear_backend=cfg.backend
-    ).mean(-1)
+    if cfg.backend in ("gram", "jacobi") and cfg.relational_impl == "ident":
+        geo_per_point = geometric_relational_loss_ident(
+            s_pan, t_pan, w_pan, nuclear_backend=cfg.backend
+        ).mean(-1)
+    else:
+        # the reference-shaped composition, one extraction point at a time
+        # (the reference's jax.vmap over P)
+        geo_per_point = torch.stack([
+            geometric_relational_loss(s, t, w, nuclear_backend=cfg.backend)
+            for s, t, w in zip(s_pan, t_pan, w_pan)
+        ])
     geo = geo_per_point.mean()
     vals = torch.stack([ce, geo])
     loss = uwso_combine(vals)

@@ -1,15 +1,19 @@
-"""Spectrally adaptive Grassmannian layer selector, gram backend
-(counterpart of ``basd_tpu/losses/selector.py``).
+"""Spectrally adaptive Grassmannian layer selector (counterpart of
+``basd_tpu/losses/selector.py``).
 
 State: the frozen random-orthogonal projections ``proj_s`` (D_s, D_s) and
 ``proj_t`` (D_s, D_t) and one learnable log-temperature per extraction
-point. Per step: centred Grams of the projected teacher layers (no grad)
-and student points (differentiable), formed in token space and shifted by
-a stop-gradient channel mean; ONE stacked (L+P, D_s, D_s) eigh; MP ranks
-from the teacher spectra by a rank-one secular update; masked principal
-angles; softmax(-d^2 / tau) mixing weights; the weighted layer mix of the
-teacher tokens (K6) and importance. Below M = D_s rows the reference's
-parity branch runs instead (projected panels, per-panel eigh).
+point. Per step on the fused path (backends 'gram' and 'jacobi', M >= D_s):
+centred Grams of the projected teacher layers (no grad) and student points
+(differentiable), formed in token space and shifted by a stop-gradient
+channel mean; ONE stacked (L+P, D_s, D_s) eigh (``torch.linalg.eigh`` for
+every backend, as the reference keeps it on XLA); MP ranks from the teacher
+spectra by a rank-one secular update; masked principal angles, whose
+(P*L, r_cap, r_cap) Gram eigenvalues go to K8 under 'jacobi';
+softmax(-d^2 / tau) mixing weights; the weighted layer mix of the teacher
+tokens (K6) and importance. The 'svd' backend, and any backend below
+M = D_s rows, take the reference's parity branch instead (projected
+panels, per-panel decompositions).
 """
 
 from __future__ import annotations
@@ -105,7 +109,7 @@ def _centered_gram_flat(flat: torch.Tensor, cls, proj: torch.Tensor, m: int):
 
 def packed_gram_eligible(tokens, cfg: SelectorConfig) -> bool:
     """THE predicate for the packed fast path (shared with
-    ``losses.combined``): packed tokens, gram backend, M >= D_s."""
+    ``losses.combined``): packed tokens, gram/jacobi backend, M >= D_s."""
     return (
         isinstance(tokens, PackedTokens)
         and cfg.backend in ("gram", "jacobi")
@@ -127,10 +131,6 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
     includes the mixed CLS row at n=0 —, mixed_importance (P, B, N_patch),
     aux)``.
     """
-    if cfg.backend != "gram":
-        raise NotImplementedError(
-            f"spectral_backend={cfg.backend!r} is not ported yet (gram only)"
-        )
     proj_s, proj_t = buffers["proj_s"], buffers["proj_t"]
     d_s = cfg.student_dim
     packed = packed_gram_eligible(teacher_tokens, cfg)
@@ -151,10 +151,13 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
     t_imp = teacher_importance.detach()
     r_cap = min(cfg.max_rank or d_s, d_s)
 
-    if m_t >= d_s:
+    if cfg.backend in ("gram", "jacobi") and m_t >= d_s:
         # fused path: ONE stacked eigh covers the teacher subspaces (no
         # grad) and the student bases; MP ranks from the teacher spectra
-        # by a rank-one secular update (Z^T Z = Gram_c + M mu mu^T)
+        # by a rank-one secular update (Z^T Z = Gram_c + M mu mu^T). The
+        # stacked (L+P, D_s, D_s) eigh stays on torch.linalg.eigh for every
+        # backend (reference selector.py:333-338); 'jacobi' takes K8 only
+        # for the principal-angle batch below.
         if packed:
             gram_tc, mu_t = _centered_gram_flat(t_flat_all, t_cls, proj_t, m_t)
         else:
@@ -163,7 +166,7 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
         gram_sc, _ = _centered_gram(student_tokens, proj_s, m_s)
 
         stacked = torch.cat([gram_tc.detach(), gram_sc], dim=0)
-        w_all, v_all = safe_eigh(stacked)  # ascending
+        w_all, v_all = safe_eigh(stacked, "xla")  # ascending
 
         w_t_asc = w_all[:L].detach()
         c_t = torch.einsum("lds,ld->ls", v_all[:L].detach(), mu_t)
@@ -178,23 +181,26 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
         svals_t = _safe_sqrt(w_all[:L].flip(-1))[:, :r_cap]
         basis_s = v_all[L:].flip(-1)[:, :, :r_cap]
     else:
-        # tiny M < D_s: materialise the projected panels, as the
-        # reference does (layer_selector.py:51-56)
+        # parity path ('svd', or tiny M < D_s): materialise the projected
+        # panels, as the reference does (layer_selector.py:51-56)
         z_t = torch.matmul(t_tokens.reshape(L, -1, t_tokens.shape[-1]).float(),
                            proj_t.t())
         z_s = torch.matmul(student_tokens.reshape(P, -1,
                                                   student_tokens.shape[-1]).float(),
                            proj_s.t())
-        ref_ranks = torch.clamp(marchenko_pastur_rank(z_t), max=d_s - 1)
+        rank_impl = "jacobi" if cfg.backend == "jacobi" else "xla"
+        ref_ranks = torch.clamp(marchenko_pastur_rank(z_t, impl=rank_impl),
+                                max=d_s - 1)
         ranks = torch.clamp(ref_ranks, max=r_cap)
-        basis_t, svals_t = grassmann_subspace(z_t)
+        basis_t, svals_t = grassmann_subspace(z_t, backend=cfg.backend)
         basis_t = basis_t.detach()[:, :, :r_cap]
         svals_t = svals_t.detach()[:, :r_cap]
-        basis_s = grassmann_subspace(z_s)[0][:, :, :r_cap]
+        basis_s = grassmann_subspace(z_s, backend=cfg.backend)[0][:, :, :r_cap]
     masks = rank_mask(ranks, r_cap)
 
     d_sq = spectral_grassmann_distance_sq(
-        basis_s[:, None], basis_t[None, :], svals_t[None, :], masks[None, :]
+        basis_s[:, None], basis_t[None, :], svals_t[None, :], masks[None, :],
+        backend=cfg.backend,
     )  # (P, L)
     tau = temperatures(params)
     weights = torch.softmax(-d_sq / tau[:, None], dim=-1)

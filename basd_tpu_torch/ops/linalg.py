@@ -5,7 +5,9 @@ reference: singular values via the smaller Gram's eigenvalues, subspaces
 via Gram eigenvectors, the nuclear-norm subgradient via a Newton-Schulz
 polar factor. ``safe_eigh`` and ``eigvalsh_only`` are
 ``torch.autograd.Function``s with the reference's degeneracy-safe
-backwards.
+backwards; their forward is ``torch.linalg.eigh`` or, with
+``impl="jacobi"``, K8 (``kernels/jacobi_eigh.py``). ``backend="svd"`` keeps
+``torch.linalg.svd`` as the parity path.
 
 Precision policy (the reference's ``HI``): spectral-path f32 products run
 at full f32. PyTorch's CPU matmul is full f32; on the card
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import ns_polar as _ns
+from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
 
 _SAFE_EIG_FLOOR = 1e-30
 _EIGH_GRAD_CLAMP = 1e-6
@@ -42,24 +45,40 @@ def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, safe, torch.zeros_like(x))
 
 
+# K8 runs 6 sweeps, as the reference's ``_eigh_impl`` (``linalg.py:94-100``):
+# the BASD matrices are PSD Grams with decaying or [0, 1]-clustered spectra
+JACOBI_SWEEPS = 6
+
+
+def _eigh_impl(a: torch.Tensor, impl: str):
+    """Forward eigh dispatch: ``torch.linalg.eigh`` ('xla', the reference's
+    QDWH custom call) or K8's parallel Jacobi ('jacobi')."""
+    if impl == "jacobi":
+        n = a.shape[-1]
+        w, v = jacobi_eigh(a.reshape(-1, n, n).float().contiguous(),
+                           sweeps=JACOBI_SWEEPS)
+        return w.reshape(a.shape[:-1]), v.reshape(a.shape)
+    return torch.linalg.eigh(_sym(a))
+
+
 class _EigvalshOnly(torch.autograd.Function):
     """Ascending eigenvalues with the vector-based backward
     ``dA = V diag(dw) V^T`` (no gap denominators)."""
 
     @staticmethod
-    def forward(ctx, a):
-        w, v = torch.linalg.eigh(_sym(a))
+    def forward(ctx, a, impl):
+        w, v = _eigh_impl(a, impl)
         ctx.save_for_backward(v)
         return w
 
     @staticmethod
     def backward(ctx, dw):
         (v,) = ctx.saved_tensors
-        return torch.matmul(v * dw[..., None, :], v.transpose(-1, -2))
+        return torch.matmul(v * dw[..., None, :], v.transpose(-1, -2)), None
 
 
-def eigvalsh_only(a: torch.Tensor) -> torch.Tensor:
-    return _EigvalshOnly.apply(a)
+def eigvalsh_only(a: torch.Tensor, impl: str = "xla") -> torch.Tensor:
+    return _EigvalshOnly.apply(a, impl)
 
 
 class _SafeEigh(torch.autograd.Function):
@@ -67,8 +86,8 @@ class _SafeEigh(torch.autograd.Function):
     1/(lambda_j - lambda_i) factors at degeneracies."""
 
     @staticmethod
-    def forward(ctx, a):
-        w, v = torch.linalg.eigh(_sym(a))
+    def forward(ctx, a, impl):
+        w, v = _eigh_impl(a, impl)
         ctx.save_for_backward(w, v)
         return w, v
 
@@ -83,32 +102,50 @@ class _SafeEigh(torch.autograd.Function):
         vt_dv = torch.matmul(v.transpose(-1, -2), dv)
         inner = f * vt_dv + eye * dw[..., None, :]
         da = torch.matmul(torch.matmul(v, inner), v.transpose(-1, -2))
-        return (da + da.transpose(-1, -2)) / 2.0
+        return (da + da.transpose(-1, -2)) / 2.0, None
 
 
-def safe_eigh(a: torch.Tensor):
-    return _SafeEigh.apply(a)
+def safe_eigh(a: torch.Tensor, impl: str = "xla"):
+    return _SafeEigh.apply(a, impl)
 
 
-def safe_eigh_desc(a: torch.Tensor):
-    vals, vecs = safe_eigh(a)
+def safe_eigh_desc(a: torch.Tensor, impl: str = "xla"):
+    vals, vecs = safe_eigh(a, impl)
     return vals.flip(-1), vecs.flip(-1)
 
 
-def singular_values_gram(m: torch.Tensor) -> torch.Tensor:
+def singular_values_gram(m: torch.Tensor, impl: str = "xla") -> torch.Tensor:
     """Descending singular values of ``m`` (..., r, c) via the smaller
     Gram (differentiable, degeneracy-stable backward)."""
     r, c = m.shape[-2], m.shape[-1]
     mt = m.transpose(-1, -2)
     gram = torch.matmul(m, mt) if r <= c else torch.matmul(mt, m)
-    return _safe_sqrt(eigvalsh_only(gram).flip(-1))
+    return _safe_sqrt(eigvalsh_only(gram, impl).flip(-1))
 
 
-def right_singular_vectors(x: torch.Tensor):
+def singular_values(m: torch.Tensor, backend: str = "gram") -> torch.Tensor:
+    """Descending singular values by backend: the Gram eigenvalues ('gram'
+    by ``torch.linalg.eigh``, 'jacobi' by K8) or ``torch.linalg.svdvals``
+    ('svd', the parity backend)."""
+    if backend == "gram":
+        return singular_values_gram(m)
+    if backend == "jacobi":
+        return singular_values_gram(m, impl="jacobi")
+    if backend == "svd":
+        return torch.linalg.svdvals(m)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def right_singular_vectors(x: torch.Tensor, backend: str = "gram"):
     """Descending singular values and right singular vectors of ``x``
-    (..., m, n) from the eigendecomposition of the (n, n) Gram ``x^T x``
-    (columns of ``v`` up to sign)."""
-    vals, vecs = safe_eigh_desc(torch.matmul(x.transpose(-1, -2), x))
+    (..., m, n): from the eigendecomposition of the (n, n) Gram ``x^T x``,
+    or ``torch.linalg.svd`` for 'svd' (``v = Vh^T``); columns of ``v`` up
+    to sign."""
+    if backend == "svd":
+        _, s, vh = torch.linalg.svd(x, full_matrices=False)
+        return s, vh.transpose(-1, -2)
+    impl = "jacobi" if backend == "jacobi" else "xla"
+    vals, vecs = safe_eigh_desc(torch.matmul(x.transpose(-1, -2), x), impl)
     return _safe_sqrt(vals), vecs
 
 
@@ -179,6 +216,34 @@ class _NuclearNorm(torch.autograd.Function):
 def nuclear_norm(m: torch.Tensor) -> torch.Tensor:
     """Nuclear norm of ``m`` (..., r, c) -> (...)."""
     return _NuclearNorm.apply(m)
+
+
+def nuclear_norm_ref(m: torch.Tensor) -> torch.Tensor:
+    """Parity backend: the nuclear norm from ``torch.linalg.svdvals``
+    (its SVD backward)."""
+    return torch.linalg.svdvals(m).sum(-1)
+
+
+class _NuclearNormNS(torch.autograd.Function):
+    """``||M||_* = tr(P^T M)`` with P the Newton-Schulz polar factor of M,
+    first-order insensitive to errors in P; the one polar factor serves the
+    value and, as the subgradient, the backward."""
+
+    @staticmethod
+    def forward(ctx, m):
+        p = newton_schulz_polar(m, schedule="hybrid")
+        ctx.save_for_backward(p)
+        return (p.float() * m.float()).sum(dim=(-2, -1))
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return g[..., None, None] * p
+
+
+def nuclear_norm_ns(m: torch.Tensor) -> torch.Tensor:
+    """Nuclear norm via the polar factor alone (no eigendecomposition)."""
+    return _NuclearNormNS.apply(m)
 
 
 def orthogonal_matrix(generator: torch.Generator, rows: int, cols: int,

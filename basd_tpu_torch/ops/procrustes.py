@@ -1,13 +1,15 @@
-"""Attention-weighted Procrustes loss, identity form (counterpart of
-``basd_tpu/ops/procrustes.py``: ``geometric_relational_loss_ident`` and
-``_ident_core``).
+"""Attention-weighted Procrustes loss (counterpart of
+``basd_tpu/ops/procrustes.py``).
 
-The reference loss ``mean_B(tr(S^T S) + tr(T^T T) - 2 ||S_w^T T_w||_*)``
-over weighted-centred panels is rewritten through the weighted-centring
-identities so the (larger) teacher panel is consumed raw, and the
-nuclear norm is ``tr(P^T C)`` with P the Newton-Schulz polar factor of the
-cross-covariance C (K7 at the reference's shapes). ``_IdentCore`` carries
-the reference's closed-form backward.
+``geometric_relational_loss`` is the composed form, the reference's own
+shape: ``mean_B(tr(S^T S) + tr(T^T T) - 2 ||S_w^T T_w||_*)`` over
+weighted-centred, ``sqrt(w)``-scaled panels. ``geometric_relational_loss_ident``
+rewrites it through the weighted-centring identities so the (larger)
+teacher panel is consumed raw; on its fast path the nuclear norm is
+``tr(P^T C)`` with P the Newton-Schulz polar factor of the cross-covariance
+C (K7 at the reference's shapes) and ``_IdentCore`` carries the reference's
+closed-form backward. ``nuclear_backend`` 'svd' takes ``torch.linalg.svdvals``
+(the parity path), 'eigh' the Gram eigenvalues with the polar backward.
 """
 
 from __future__ import annotations
@@ -76,6 +78,48 @@ class _IdentCore(torch.autograd.Function):
         return ds.to(s_in.dtype), dt.to(t_in.dtype), dw.to(w.dtype)
 
 
+def _nuclear(cross: torch.Tensor, nuclear_backend: str) -> torch.Tensor:
+    if nuclear_backend == "svd":
+        return linalg.nuclear_norm_ref(cross)
+    if nuclear_backend == "eigh":
+        return linalg.nuclear_norm(cross)
+    return linalg.nuclear_norm_ns(cross)
+
+
+def _normalised_weights(importance: torch.Tensor, n: int) -> torch.Tensor:
+    w = importance.float()
+    if w.shape[-1] != n:
+        w = linear_interp1d(w, n, axis=-1)
+    return w / w.sum(-1, keepdim=True)
+
+
+def geometric_relational_loss(student_tokens, teacher_tokens, importance, *,
+                              nuclear_backend: str = "gram"):
+    """Composed-form Procrustes loss (``procrustes.py:44-101``).
+
+    Args:
+        student_tokens: (B, N_s, D_s).
+        teacher_tokens: (B, N_s, D_t), token count already aligned.
+        importance: (B, N_w) reduced attention importance, resampled to N_s.
+
+    Returns the scalar loss (mean over the batch). ``nuclear_backend``:
+    'svd' (parity), 'eigh' (Gram eigenvalues), otherwise the Newton-Schulz
+    trace form.
+    """
+    s = student_tokens.float()
+    t = teacher_tokens.float()
+    w = _normalised_weights(importance, s.shape[1])
+    mu_s = torch.einsum("bn,bnd->bd", w, s)[:, None, :]
+    mu_t = torch.einsum("bn,bnd->bd", w, t)[:, None, :]
+    w_sqrt = torch.sqrt(w)[..., None]
+    s_w = w_sqrt * (s - mu_s)
+    t_w = w_sqrt * (t - mu_t)
+    tr_s = (s_w * s_w).sum(dim=(1, 2))
+    tr_t = (t_w * t_w).sum(dim=(1, 2))
+    cross = torch.matmul(s_w.transpose(-1, -2), t_w)  # (B, D_s, D_t)
+    return (tr_s + tr_t - 2.0 * _nuclear(cross, nuclear_backend)).mean()
+
+
 def geometric_relational_loss_ident(student_tokens, teacher_tokens,
                                     importance, *,
                                     nuclear_backend: str = "gram"):
@@ -88,13 +132,21 @@ def geometric_relational_loss_ident(student_tokens, teacher_tokens,
 
     Returns the (...,)-shaped per-batch loss.
     """
-    if nuclear_backend in ("svd", "eigh"):
-        raise NotImplementedError(
-            f"nuclear_backend={nuclear_backend!r} is not ported yet; the "
-            f"port runs the Newton-Schulz ('gram') path"
-        )
-    w = importance.float()
-    if w.shape[-1] != student_tokens.shape[-2]:
-        w = linear_interp1d(w, student_tokens.shape[-2], axis=-1)
-    w = w / w.sum(-1, keepdim=True)
-    return _IdentCore.apply(student_tokens, teacher_tokens, w)
+    w = _normalised_weights(importance, student_tokens.shape[-2])
+    if nuclear_backend not in ("svd", "eigh"):
+        return _IdentCore.apply(student_tokens, teacher_tokens, w)
+
+    # 'svd' / 'eigh': the same identities by plain autograd; the teacher
+    # side shifted by the stop-gradient slice mean (cross and tr_t are
+    # invariant to any constant channel shift of t)
+    s = student_tokens.float()
+    mu_s = torch.einsum("...n,...nd->...d", w, s)
+    s_c = s - mu_s[..., None, :]
+    sw2 = w[..., None] * s_c
+    tr_s = (sw2 * s_c).sum(dim=(-1, -2))
+    t_c = teacher_tokens.float() - _slice_mean_shift(teacher_tokens)
+    rowsq = (t_c * t_c).sum(-1)
+    mu_tc = torch.einsum("...n,...nd->...d", w, t_c)
+    tr_t = (w * rowsq).sum(-1) - (mu_tc * mu_tc).sum(-1)
+    cross = torch.matmul(sw2.transpose(-1, -2), t_c)
+    return tr_s + tr_t - 2.0 * _nuclear(cross, nuclear_backend)

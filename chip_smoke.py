@@ -10,29 +10,42 @@ the script exits non-zero without printing a result:
    and convolution precision, and the build of every CUDA kernel from
    ``basd_tpu_torch/csrc`` (one nvcc process per source, run together);
 2. kernels: each hand-written kernel of the train step (teacher K1, K2;
-   student K3a/b, K4a/b, K5a/b; K6 forward and dw; K7; K9 on a B=128 view
-   batch) against its plain PyTorch version on the same inputs on the
-   card, at the shapes the train step gives it (B=128); kernel, plain
-   version and, where one PyTorch call computes the same function, that
-   call (``library_ms``) timed with CUDA events (median of several runs);
-   each kernel's bound (bytes over 3.35 TB/s or operations over the peak
-   rate of their type, whichever is larger) from this run's shapes;
+   student K3a/b, K4a/b, K5a/b; K6 forward and dw; K7; K8 on the
+   principal-angle batch; K9 on a B=128 view batch) against its plain
+   PyTorch version on the same inputs on the card, at the shapes the train
+   step gives it (B=128); kernel, plain version and, where one PyTorch call
+   computes the same function, that call (``library_ms``) timed with CUDA
+   events (median of several runs); each kernel's bound (bytes over 3.35
+   TB/s or operations over the peak rate of their type, whichever is
+   larger) from this run's shapes; K8 also at (48, 192, 192), the
+   principal-angle batch without a rank cap, on a line of its own, and at
+   n = 256, where A leaves shared memory;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
-   synthetic ImageNet-100, default ``tpu.*_impl=auto``; every kernel's
-   launch counter must be > 0 after it (K1-K4 a multiple of 12), and the
-   step losses finite;
+   synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
+   backend: every kernel but K8 must launch (K1-K4 a multiple of 12 times),
+   K8 never, and the step losses must be finite;
+3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
+   basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
+   per step (the principal-angle eigenvalues, (48, 96, 96)), finite
+   losses; the MP ranks and rank-cap hits are printed (the teacher is
+   random, so nothing is asserted on them);
 4. check and timing: the kernel teacher forward against the plain one (on
    the CPU) and the kernel student against the module-chain student (on
    the card, ``tpu.student_*_impl=module``, whose blocks must not launch
-   K3/K4) at full width on a small batch, then per-stage CUDA-event times
-   of further train steps;
-5. with ``--profile`` only: ``torch.profiler`` over 3 more steps, for the
-   device-busy share, device activities per step and the top device ops.
+   K3/K4) at full width on a small batch; ``basd_loss`` on one B=8 batch
+   of real tokens under (gram, ident), (jacobi, ident), (gram, composed)
+   and (svd, composed) at ``max_rank=96``: equal ranks, principal-angle
+   distances and losses within the stated tolerances of svd's, finite
+   gradients; then per-stage CUDA-event times of further train steps of
+   both trainers;
+5. with ``--profile`` only: ``torch.profiler`` over 3 more steps of each
+   trainer, for the device-busy share, device activities per step and the
+   top device ops.
 
-The last three lines of standard output are the kernels' JSON, the
-card's name and power limit, and the contract line
-``{"ok": true, "device": {...}}``.
+The last three lines of standard output are the kernels' JSON (each
+kernel's launches from the train run that takes it), the card's name and
+power limit, and the contract line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -57,6 +70,8 @@ TRAIN_ARGS = [
     "training.num_epochs=1", "+data.limit_train_batches=3",
     "+data.limit_eval_batches=1",
 ]
+# the JAX package's benchmarked configuration (bench.py:111-118)
+JACOBI_ARGS = ["basd.spectral_backend=jacobi", "basd.max_rank=96"]
 # the tracer's own buffer activity, which the profiler lists as device time
 PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
@@ -312,6 +327,19 @@ def kernel_phase(torch, device):
            lambda: ns_polar.ns_polar_plain(mats), nbytes(mats, out), flops,
            PEAK_BF16)
 
+    # K8 on the principal-angle batch of the jacobi path at max_rank=96
+    # (P*L = 48 Grams of 96 x 96), and without a cap (192 x 192)
+    # (3e-4 absolute after 6 sweeps: tests/test_jacobi.py:96-118). At 192,
+    # 6 sweeps do not converge: kernel and plain version alike end ~6e-4
+    # from eigh there (this phase prints it), so 2e-3 there, and the
+    # kernel is held to 3e-4 after 10 sweeps instead
+    results["K8 jacobi_eigh"] = k8_check(torch, device, g, num_p * num_l, ds,
+                                         96, 3e-4)
+    k8_192 = k8_check(torch, device, g, num_p * num_l, 2 * ds, 192, 2e-3)
+    print("kernel K8 jacobi_eigh at (48, 192, 192): "
+          + " ".join(f"{k}={v}" for k, v in k8_192.items()))
+    k8_large(torch, device, g)
+
     # K9 on a B=128 batch of 224 px RandomResizedCrop views of a synthetic
     # canvas, with geometric TAW draws: op 1-5 and signed magnitude bins
     canvas = torch.randint(0, 256, (b, 256, 256, 3), generator=g,
@@ -336,6 +364,104 @@ def kernel_phase(torch, device):
     for name, rec in results.items():
         print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in rec.items()))
     return results
+
+
+def principal_angle_grams(torch, device, g, bsz: int, d: int, r: int):
+    """(bsz, r, r) Grams ``G_m^T G_m`` of masked cross-basis matrices of
+    random orthonormal (d, r) bases, masked ranks 85-92 of 96 scaled to r:
+    the selector's principal-angle structure (``tests/test_jacobi.py``)."""
+    us = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
+                                     dtype=torch.float64))[0]
+    ut = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
+                                     dtype=torch.float64))[0]
+    k = torch.randint(85 * r // 96, 93 * r // 96, (bsz,), generator=g,
+                      device=device)
+    mask = (torch.arange(r, device=device)[None] < k[:, None]).double()
+    gm = mask[:, :, None] * (us.transpose(1, 2) @ ut) * mask[:, None, :]
+    return (gm.transpose(1, 2) @ gm).float().contiguous()
+
+
+def separated_dots(torch, w, v, v_ref, err: float):
+    """|<v_i, v_ref_i>| over the eigenvalues of ``w`` more than 30 ``err``
+    from their neighbours, where an eigenvalue error of ``err`` turns an
+    eigenvector by at most ~1/30."""
+    gaps = w.diff(dim=-1)
+    inf = torch.full_like(w[:, :1], math.inf)
+    gap = torch.minimum(torch.cat([inf, gaps], -1), torch.cat([gaps, inf], -1))
+    return (v * v_ref).sum(1).abs()[gap > 30 * err]
+
+
+def k8_check(torch, device, g, bsz: int, d: int, r: int, tol: float) -> dict:
+    """K8 and its plain version against ``torch.linalg.eigh`` on a
+    principal-angle batch: eigenvalues within ``tol`` absolute (the
+    spectra lie in [0, 1]), so kernel and plain within 2 tol of each other;
+    V orthogonal to 1e-4 and V diag(w) V^T within 2 tol of A; eigenvectors
+    up to sign against the plain version's where the eigenvalues are
+    separated (``separated_dots``). Where 6 sweeps do not converge (``tol``
+    above 3e-4), the kernel at 10 sweeps is held to 3e-4 and its
+    eigenvectors to eigh's instead. Returns the record with kernel, plain
+    and library times and the bound (6 (r-1) rounds of ~9 r^2 f32
+    operations a matrix)."""
+    from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh, jacobi_eigh_plain
+    from basd_tpu_torch.ops.linalg import JACOBI_SWEEPS as sweeps
+
+    a = principal_angle_grams(torch, device, g, bsz, d, r)
+    w, v = jacobi_eigh(a, sweeps)
+    wp, vp = jacobi_eigh_plain(a, sweeps)
+    wl, vl = torch.linalg.eigh(a)
+    torch.cuda.synchronize()
+    where = f"K8 ({bsz}, {r}, {r})"
+    lib_err, plain_lib_err = max_err(w, wl), max_err(wp, wl)
+    check(lib_err <= tol, f"{where} eigenvalues vs torch.linalg.eigh: {lib_err}")
+    check(plain_lib_err <= tol, f"{where} plain eigenvalues vs eigh: {plain_lib_err}")
+    err = max_err(w, wp)
+    check(err <= 2 * tol, f"{where} eigenvalues vs plain: {err}")
+    eye = torch.eye(r, device=device, dtype=torch.float64)
+    orth = max_err(v.double().transpose(1, 2) @ v.double(), eye)
+    check(orth <= 1e-4, f"{where} V^T V - I: {orth}")
+    rec = max_err((v.double() * w.double()[:, None, :]) @ v.double().transpose(1, 2), a)
+    check(rec <= 2 * tol, f"{where} reconstruction {rec}")
+    if tol <= 3e-4:
+        dots = separated_dots(torch, wp, v, vp, max(err, plain_lib_err))
+        vs = "plain"
+    else:
+        w10, v10 = jacobi_eigh(a, 10)
+        err10 = max_err(w10, wl)
+        check(err10 <= 3e-4, f"{where}, 10 sweeps: eigenvalues vs eigh {err10}")
+        print(f"{where}, 10 sweeps: eigenvalues vs torch.linalg.eigh {err10}")
+        dots = separated_dots(torch, wl, v10, vl, err10)
+        vs = "eigh (10 sweeps)"
+    check(dots.numel() > 0 and dots.min().item() >= 1 - 1e-3,
+          f"{where} eigenvectors vs {vs}")
+    print(f"{where}: eigenvalues vs torch.linalg.eigh {lib_err} (plain "
+          f"{plain_lib_err}), vs plain {err}, V^T V - I {orth}, reconstruction "
+          f"{rec}, {dots.numel()} separated eigenvectors vs {vs} min |dot| "
+          f"{dots.min().item()}")
+    bound_ms, bound_by = bound(nbytes(a, w, v), bsz * sweeps * (r - 1) * 9 * r * r,
+                               PEAK_F32)
+    return dict(max_abs_err=err, ms=time_ms(torch, lambda: jacobi_eigh(a, sweeps)),
+                plain_ms=time_ms(torch, lambda: jacobi_eigh_plain(a, sweeps), 3),
+                library_ms=time_ms(torch, lambda: torch.linalg.eigh(a)),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k8_large(torch, device, g, bsz: int = 2, n: int = 256):
+    """K8 where A no longer fits a block's shared memory (n > 240: a
+    student wider than 240 without a rank cap) and lives in a workspace:
+    10 sweeps within 3e-4 of ``torch.linalg.eigh`` on a random symmetric
+    batch scaled to unit spectral radius, V orthogonal to 3e-4 (2,550
+    rounds of rotations; the plain version on the CPU reaches 6e-5)."""
+    from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
+
+    x = torch.randn(bsz, n, n, generator=g, device=device)
+    a = (x + x.transpose(1, 2)) / (2 * math.sqrt(2 * n))
+    w, v = jacobi_eigh(a.contiguous(), 10)
+    err = max_err(w, torch.linalg.eigvalsh(a))
+    eye = torch.eye(n, device=device, dtype=torch.float64)
+    orth = max_err(v.double().transpose(1, 2) @ v.double(), eye)
+    print(f"K8 ({bsz}, {n}, {n}), A in global memory, 10 sweeps: eigenvalues "
+          f"vs torch.linalg.eigh {err}, V^T V - I {orth}")
+    check(err <= 3e-4 and orth <= 3e-4, f"K8 ({bsz}, {n}, {n}): {err}, {orth}")
 
 
 def teacher_check(torch, trainer, device):
@@ -420,6 +546,80 @@ def student_check(torch, trainer, device):
           f"student logits err {err}")
     check(worst <= 0.1, f"student grad err {worst} of the leaf max")
     kernel_student.zero_grad(set_to_none=True)
+
+
+def train_run(torch, device, kernels, root: str, label: str, extra: list):
+    """``train.main`` for 3 steps in ``root/label``: the trainer, the
+    kernels' launch counts of the run, and its epoch record; the step
+    losses must be finite."""
+    from basd_tpu_torch import train
+
+    out_dir = Path(root) / label
+    kernels.reset_launch_counts()
+    trainer = train.main(TRAIN_ARGS + extra + [f"run.output_dir={out_dir}"],
+                         device=device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    metrics = out_dir / trainer.config.run.name / "metrics.jsonl"
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    print(f"launches {label} {counts}")
+    losses = [r["loss"] for r in records if r["kind"] == "step"]
+    print(f"step losses {label} {losses}")
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses),
+          f"expected 3 finite step losses, got {losses}")
+    return trainer, counts, [r for r in records if r["kind"] == "epoch"][-1]
+
+
+def backend_agreement(torch, trainer, bsz: int = 8):
+    """``basd_loss`` on one batch of real tokens (the trained teacher and
+    student, B=8, so B*N_patch >= D_s and the packed path is eligible)
+    under (gram, ident), (jacobi, ident), (gram, composed) and (svd,
+    composed), each at max_rank=96: equal ranks, principal-angle distances
+    within rtol 5e-3 / atol 1e-3 of svd's (tests/test_jacobi.py:89-93),
+    losses within 1e-2 relative of svd's (ident and composed are the same
+    function; the backends' distances move the mixing weights, and so the
+    loss, by the tolerance above), every gradient finite."""
+    import dataclasses
+
+    from basd_tpu_torch.losses import basd_loss
+
+    images, labels = train_batches(trainer, 1, seed=3)[0]
+    with torch.no_grad():
+        views = trainer.make_views(images[:bsz], labels[:bsz])
+        t_tokens, t_imp = trainer.teacher_forward(views.clean)
+        out = trainer.student.module(views.mixed.to(torch.bfloat16),
+                                     deterministic=True)
+    s_int = torch.stack([out["tokens"][i] for i in trainer.token_layers]).float()
+    temps = trainer.opt_state.x["basd.log_temperatures"]
+    results = {}
+    for backend, impl in (("svd", "composed"), ("gram", "ident"),
+                          ("jacobi", "ident"), ("gram", "composed")):
+        cfg = dataclasses.replace(trainer.loss_cfg, backend=backend,
+                                  relational_impl=impl, max_rank=96)
+        leaves = [s_int.clone().requires_grad_(True),
+                  out["logits"].float().clone().requires_grad_(True),
+                  temps.clone().requires_grad_(True)]
+        loss, aux = basd_loss({"log_temperatures": leaves[2]}, trainer.sel_buffers,
+                              leaves[1], views.targets, leaves[0], t_tokens, t_imp,
+                              cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        check(all(bool(gr.isfinite().all()) for gr in grads),
+              f"({backend}, {impl}): non-finite gradient")
+        results[(backend, impl)] = (loss.item(), aux["ranks"].cpu(),
+                                    aux["distances_sq"].detach())
+        print(f"backend ({backend}, {impl}): loss {loss.item()} ranks "
+              f"{aux['ranks'].tolist()} rank_cap_hits {int(aux['rank_cap_hits'])}")
+    ref_loss, ref_ranks, ref_d = results[("svd", "composed")]
+    for key, (loss, ranks, d_sq) in results.items():
+        check(torch.equal(ranks, ref_ranks), f"{key}: ranks {ranks} vs svd {ref_ranks}")
+        d_err = (d_sq - ref_d).abs().max().item()
+        check(bool(((d_sq - ref_d).abs() <= 1e-3 + 5e-3 * ref_d.abs()).all()),
+              f"{key}: distances_sq off svd's by {d_err}")
+        check(abs(loss - ref_loss) <= 1e-2 * abs(ref_loss),
+              f"{key}: loss {loss} vs svd {ref_loss}")
+        print(f"backend {key} vs (svd, composed): distances_sq max_abs_err {d_err} "
+              f"loss rel err {abs(loss - ref_loss) / abs(ref_loss)}")
 
 
 def train_batches(trainer, count: int, seed: int) -> list:
@@ -561,44 +761,54 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     phase("train")
-    from basd_tpu_torch import train
-
-    with tempfile.TemporaryDirectory() as out_dir:
-        kernels.reset_launch_counts()
-        trainer = train.main(TRAIN_ARGS + [f"run.output_dir={out_dir}"],
-                             device=device)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        metrics = Path(out_dir) / trainer.config.run.name / "metrics.jsonl"
-        records = [json.loads(line) for line in metrics.read_text().splitlines()]
-    print(f"launches {counts}")
+    root = tempfile.TemporaryDirectory()
+    gram, counts, _ = train_run(torch, device, kernels, root.name, "gram", [])
     for name, count in counts.items():
-        check(count > 0, f"{name} never launched on the main path")
+        if name == "K8 jacobi_eigh":
+            check(count == 0, "the gram path launched K8")
+        else:
+            check(count > 0, f"{name} never launched on the main path")
     for name in ("K1 fused_block_attn", "K2 fused_ln_mlp_collect",
                  "K3a fused_block_attn_train fwd", "K3b fused_block_attn_train bwd",
                  "K4a fused_ln_mlp fwd", "K4b fused_ln_mlp bwd"):
         check(counts[name] % 12 == 0, f"{name} must run 12 times per forward")
-    losses = [r["loss"] for r in records if r["kind"] == "step"]
-    print(f"step losses {losses}")
-    check(len(losses) == 3 and all(math.isfinite(v) for v in losses),
-          f"expected 3 finite step losses, got {losses}")
+
+    phase("jacobi train")
+    jacobi, jcounts, epoch = train_run(torch, device, kernels, root.name,
+                                       "jacobi", JACOBI_ARGS)
+    check(jcounts["K8 jacobi_eigh"] == 3,
+          f"K8 must launch once per train step, got {jcounts['K8 jacobi_eigh']}")
+    images, labels = train_batches(jacobi, 1, seed=5)[0]
+    step = jacobi.step(images, labels)
+    torch.cuda.synchronize()
+    print(f"jacobi MP ranks {step['ranks'].tolist()} rank_cap_hits: train epoch "
+          f"{epoch['rank_cap_hits']}, one more step {int(step['rank_cap_hits'])}")
 
     phase("check and timing")
-    teacher_check(torch, trainer, device)
-    student_check(torch, trainer, device)
-    times = stage_times(torch, trainer)
-    torch.cuda.synchronize()
-    print("step_ms " + json.dumps(times))
+    teacher_check(torch, gram, device)
+    student_check(torch, gram, device)
+    backend_agreement(torch, jacobi)
+    times = {}
+    for label, trainer in (("gram", gram), ("jacobi", jacobi)):
+        times[label] = stage_times(torch, trainer)
+        torch.cuda.synchronize()
+        print(f"step_ms {label} " + json.dumps(times[label]))
     if args.profile:
         phase("profile")
-        prof = profile_steps(torch, trainer, args.profile_out)
-        torch.cuda.synchronize()
-        print("profile " + json.dumps(prof))
+        for label, trainer in (("gram", gram), ("jacobi", jacobi)):
+            out = args.profile_out
+            if out is not None and label != "gram":
+                out = str(Path(out).with_suffix(f".{label}.txt"))
+            prof = profile_steps(torch, trainer, out)
+            torch.cuda.synchronize()
+            print(f"profile {label} " + json.dumps(prof))
+    root.cleanup()
 
     entries = []
     for name, route, source, replaces, _fn in kernels.KERNELS:
+        path_counts = jcounts if name == "K8 jacobi_eigh" else counts
         entries.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": path_counts[name],
                         **results[name]})
     print(json.dumps({"kernels": entries}))
     print(smi)

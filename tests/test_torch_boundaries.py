@@ -56,6 +56,7 @@ def _wrapper_cases():
         mix_stack,
         ns_polar,
     )
+    from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh_plain as jacobi_plain
 
     rng = np.random.default_rng(3)
 
@@ -76,6 +77,8 @@ def _wrapper_cases():
     mu, rstd = layernorm.layernorm_plain_fwd(x, *ln)[1:]
     w, stack, g = t(4, 3, dtype=bf), t(3, b * n, d, dtype=bf), t(4, b * n, d, dtype=bf)
     polar_in = t(3, 8, 128)
+    sym = t(2, 8, 8)
+    sym = (sym + sym.transpose(1, 2)) / 2
     buf = torch.zeros(3 * b * n, d, dtype=bf)
     imgs = torch.from_numpy(rng.integers(0, 256, (3, 8, 10, 3), dtype=np.uint8))
     r_h = torch.from_numpy(rng.integers(-3, 4, (3, 8)))
@@ -110,6 +113,8 @@ def _wrapper_cases():
             (g, stack), lambda: mix_stack.mix_dw_plain(g, stack)),
         "K7 ns_polar_hybrid": (
             (polar_in,), lambda: ns_polar.ns_polar_plain(polar_in)),
+        "K8 jacobi_eigh": (
+            (sym, 6), lambda: jacobi_plain(sym, 6)),
         "K9 geom_shift3": (
             (imgs, r_h, r_w, r_h.flip(0)),
             lambda: geom_shift.geom_shift3_plain(imgs, r_h, r_w, r_h.flip(0))),

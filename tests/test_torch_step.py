@@ -137,8 +137,10 @@ def test_step_on_views_matches_jax(monkeypatch, tmp_path):
     assert abs(loss - float(jloss)) <= 1e-4 * abs(float(jloss))
     assert trainer.opt_state.k == int(new.k)
     ref_v = flat(new.v)
+    # the first step's v is proportional to g^2, so its relative error is
+    # twice the gradient's: twice the per-leaf gradient bound above
     for k, r in ref_v.items():
-        assert _rel(trainer.opt_state.v[k].numpy(), r) <= 1e-4, ("v", k)
+        assert _rel(trainer.opt_state.v[k].numpy(), r) <= 2e-3, ("v", k)
 
     # x and z: Adam's first step g / (sqrt(v) + eps) = g / (0.03 |g| + eps)
     # is ill-conditioned where |g| is within some hundred eps of zero, and
