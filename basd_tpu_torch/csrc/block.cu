@@ -31,106 +31,10 @@
 // launch, or 0. Nothing here allocates or synchronises; all buffers come
 // from the caller and every launch goes on the caller's stream.
 
+#include "attention.cuh"
 #include "block_kernels.cuh"
 
 namespace basd {
-
-// One block per (image, head): scores in f32 from bf16 q, k; f32 softmax;
-// bf16 probabilities times v with f32 accumulation and deferred
-// normalisation (the TPU kernel's order). With LSE false (K1) the CLS
-// query's row, divided by l * H, goes to stat[b, h, :]; heads are summed
-// later in a fixed order, so no atomics. With LSE true (K3a) every query
-// row's m + log(l) goes to stat[b, h, query].
-template <bool LSE>
-__global__ void attention_heads_kernel(const bf16* __restrict__ qkv,
-                                       bf16* __restrict__ out,
-                                       float* __restrict__ stat, int N, int D,
-                                       int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = D / H;
-  const int ldk = e + 2;  // odd word stride: conflict-free key-row reads
-  const int nwarps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + N * ldk;
-  float* ps = reinterpret_cast<float*>(vs + N * e);
-  float* qs = ps + nwarps * N;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const size_t ld = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * N * ld;
-  for (int i = threadIdx.x; i < N * e; i += blockDim.x) {
-    const int n = i / e;
-    const int c = i % e;
-    ks[n * ldk + c] = base[n * ld + D + h * e + c];
-    vs[n * e + c] = base[n * ld + 2 * D + h * e + c];
-  }
-  __syncthreads();
-
-  float* p_row = ps + warp * N;
-  float* q_row = qs + warp * e;
-  for (int qi = warp; qi < N; qi += nwarps) {
-    for (int c = lane; c < e; c += 32) q_row[c] = bf2f(base[qi * ld + h * e + c]);
-    __syncwarp();
-    float m_loc = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      const bf16* kr = ks + j * ldk;
-      float acc = 0.f;
-      for (int c = 0; c < e; c += 2) {
-        const float2 kv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kr + c));
-        acc += q_row[c] * kv.x + q_row[c + 1] * kv.y;
-      }
-      const float s = acc * scale;
-      p_row[j] = s;
-      m_loc = fmaxf(m_loc, s);
-    }
-    const float m = warp_max(m_loc);
-    float l_loc = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float p = expf(p_row[j] - m);
-      p_row[j] = p;
-      l_loc += p;
-    }
-    const float l = warp_sum(l_loc);
-    __syncwarp();
-    if constexpr (LSE) {
-      if (lane == 0) stat[((size_t)b * H + h) * N + qi] = m + logf(l);
-    } else if (qi == 0) {
-      const float den = l * (float)H;
-      for (int j = lane; j < N; j += 32)
-        stat[((size_t)b * H + h) * N + j] = p_row[j] / den;
-    }
-    for (int c2 = lane; c2 < e / 2; c2 += 32) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float p = round_bf(p_row[j]);
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + j * e + 2 * c2));
-        a0 += p * v.x;
-        a1 += p * v.y;
-      }
-      bf16* o = out + ((size_t)b * N + qi) * D + h * e + 2 * c2;
-      o[0] = f2bf(a0 / l);
-      o[1] = f2bf(a1 / l);
-    }
-    __syncwarp();
-  }
-}
-
-// imp[b, n] = sum_h imp_heads[b, h, n], heads added in order 0..H-1.
-__global__ void head_sum_kernel(const float* __restrict__ imp_heads,
-                                float* __restrict__ imp, int B, int H, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N;
-  const int n = i % N;
-  float acc = imp_heads[((size_t)b * H) * N + n];
-  for (int h = 1; h < H; ++h) acc += imp_heads[((size_t)b * H + h) * N + n];
-  imp[i] = acc;
-}
 
 // LN, qkv GEMM and per-(image, head) attention; the attention output
 // lands in ws_xn (the LN output is dead by then).
@@ -146,20 +50,8 @@ static int attention_half(const bf16* x, const float* ln_s, const float* ln_b,
   rc = launch_gemm_nk<EPI_BIAS>(ws_xn, w_qkv, b_qkv, ws_qkv, M, 3 * D, D,
                                 nullptr, nullptr, 1, nullptr, st);
   if (rc) return rc;
-  const int threads = 256;
-  const int e = D / H;
-  const size_t smem = (size_t)N * (e + 2) * sizeof(bf16) +
-                      (size_t)N * e * sizeof(bf16) +
-                      (size_t)(threads / 32) * (N + e) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_heads_kernel<LSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_heads_kernel<LSE><<<B * H, threads, smem, st>>>(ws_qkv, ws_xn,
-                                                            stat, N, D, H,
-                                                            scale);
-  BASD_CHECK_LAUNCH();
-  return 0;
+  return launch_attention_heads<LSE>(ws_qkv, ws_xn, stat, B, N, D, H, scale,
+                                     st);
 }
 
 }  // namespace basd
@@ -189,8 +81,8 @@ extern "C" int basd_block_attn_fwd(const void* x, const float* ln_s,
       xb, ln_s, ln_b, static_cast<const bf16*>(w_qkv), b_qkv, xn,
       static_cast<bf16*>(ws_qkv), ws_imp, B, N, D, H, eps, scale, st);
   if (rc) return rc;
-  basd::head_sum_kernel<<<(M + 255) / 256, 256, 0, st>>>(ws_imp, imp, B, H, N);
-  BASD_CHECK_LAUNCH();
+  rc = basd::launch_head_sum(ws_imp, imp, B, H, N, st);
+  if (rc) return rc;
   return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
       xn, static_cast<const bf16*>(w_proj), b_proj, static_cast<bf16*>(out),
       M, D, D, xb, nullptr, 1, nullptr, st);

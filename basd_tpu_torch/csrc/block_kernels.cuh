@@ -1,8 +1,10 @@
 // Device code shared by the block kernels of csrc/block.cu (K1, K2 and the
-// K3a/K4a forwards) and csrc/block_train.cu (the K3b/K4b backwards): the
-// row LayerNorm, one tiled WMMA GEMM with the epilogues the Pallas kernels
-// round through, and the fixed-order reduction of partial sums. Everything launches on the caller's stream and returns
-// the first launch error, or 0.
+// K3a/K4a forwards), csrc/block_train.cu (the K3b/K4b backwards) and
+// csrc/fused_mlp.cu (K11): the row LayerNorm, one tiled WMMA GEMM with the
+// epilogues the Pallas kernels round through, the column sums of an
+// incoming gradient, the split-K weight gradient and the fixed-order
+// reduction of partial sums. Everything launches on the caller's stream
+// and returns the first launch error, or 0.
 #pragma once
 
 #include "common.cuh"
@@ -67,6 +69,7 @@ enum Epilogue {
   EPI_DGELU = 4,          // d = acc * gelu'(aux); out = bf16(d); colpart += d
   EPI_F32 = 5,            // outf = acc
   EPI_PARTIAL = 6,        // outf[split] = acc over this split's K range
+  EPI_BF16 = 7,           // out = bf16(acc)
 };
 
 // out[M, N] = epilogue(A . B) over the K range of blockIdx.z.
@@ -130,6 +133,8 @@ __global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(Gemm g) {
     const size_t o = (size_t)gr * g.N + gc;
     if constexpr (EPI == EPI_F32) {
       g.outf[o] = acc;
+    } else if constexpr (EPI == EPI_BF16) {
+      g.out[o] = f2bf(acc);
     } else if constexpr (EPI == EPI_PARTIAL) {
       g.outf[(size_t)blockIdx.z * g.M * g.N + o] = acc;
     } else {
@@ -217,6 +222,55 @@ static int launch_reduce(const float* part, float* out, int S, int n,
   reduce_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, out, S, n);
   BASD_CHECK_LAUNCH();
   return 0;
+}
+
+// dy = do * mask[row / N] (f32) -> dyb (bf16); part[chunk, c] = sum of dy
+// over the chunk's rows, in order. One thread per column. A null mask is
+// 1 and a null dyb is not written: the plain column sums of do.
+static __global__ void dy_kernel(const bf16* __restrict__ dout,
+                                 const float* __restrict__ mask,
+                                 bf16* __restrict__ dyb,
+                                 float* __restrict__ part, int M, int N, int D,
+                                 int row_chunk) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * row_chunk;
+  const int r1 = min(M, r0 + row_chunk);
+  float acc = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t o = (size_t)r * D + c;
+    const float dy = mask ? bf2f(dout[o]) * mask[r / N] : bf2f(dout[o]);
+    if (dyb) dyb[o] = f2bf(dy);
+    acc += dy;
+  }
+  part[(size_t)blockIdx.y * D + c] = acc;
+}
+
+static int launch_dy(const bf16* dout, const float* mask, bf16* dyb,
+                     float* part, int M, int N, int D, int row_chunk,
+                     cudaStream_t st) {
+  dim3 grid((D + 127) / 128, (M + row_chunk - 1) / row_chunk);
+  dy_kernel<<<grid, 128, 0, st>>>(dout, mask, dyb, part, M, N, D, row_chunk);
+  BASD_CHECK_LAUNCH();
+  return 0;
+}
+
+// dW (m x n) = A^T B summed over `rows` rows, A (rows x m), B (rows x n):
+// split-K partials into part, then their fixed-order sum.
+static int weight_grad(const bf16* A, int m, const bf16* B, int n, int rows,
+                       int k_chunk, float* part, float* dw, cudaStream_t st) {
+  Gemm g{};
+  g.A = A;
+  g.lda = m;
+  g.B = B;
+  g.ldb = n;
+  g.M = m;
+  g.N = n;
+  g.K = rows;
+  g.outf = part;
+  int rc = launch_gemm<true, false, EPI_PARTIAL>(g, k_chunk, st);
+  if (rc) return rc;
+  return launch_reduce(part, dw, (rows + k_chunk - 1) / k_chunk, m * n, st);
 }
 
 }  // namespace basd

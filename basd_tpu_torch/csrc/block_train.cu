@@ -33,45 +33,10 @@
 // Every entry returns the first non-zero cudaGetLastError() after a
 // launch, or 0. Nothing here allocates or synchronises.
 
+#include "attention.cuh"
 #include "block_kernels.cuh"
 
 namespace basd {
-
-// dot of two bf16 rows in f32, products added in order with explicit
-// fused multiply-adds: both phases of the attention backward call it, so
-// every recomputed score is bit-identical between them.
-__device__ __forceinline__ float dot_bf(const bf16* a, const bf16* b, int e) {
-  float acc = 0.f;
-  for (int c = 0; c < e; c += 2) {
-    const float2 av =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + c));
-    const float2 bv =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + c));
-    acc = __fmaf_rn(av.x, bv.x, acc);
-    acc = __fmaf_rn(av.y, bv.y, acc);
-  }
-  return acc;
-}
-
-// dy = do * mask[row / N] (f32) -> dyb (bf16); part[chunk, c] = sum of dy
-// over the chunk's rows, in order. One thread per column.
-__global__ void dy_kernel(const bf16* __restrict__ dout,
-                          const float* __restrict__ mask,
-                          bf16* __restrict__ dyb, float* __restrict__ part,
-                          int M, int N, int D, int row_chunk) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
-  const int r0 = blockIdx.y * row_chunk;
-  const int r1 = min(M, r0 + row_chunk);
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t o = (size_t)r * D + c;
-    const float dy = bf2f(dout[o]) * mask[r / N];
-    dyb[o] = f2bf(dy);
-    acc += dy;
-  }
-  part[(size_t)blockIdx.y * D + c] = acc;
-}
 
 // LN VJP, one warp per row: g = dxn * scale,
 // dx = bf16(do + rstd * (g - mean(g) - xhat * mean(g * xhat))).
@@ -287,15 +252,6 @@ __global__ void attention_bwd_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-static int launch_dy(const bf16* dout, const float* mask, bf16* dyb,
-                     float* part, int M, int N, int D, int row_chunk,
-                     cudaStream_t st) {
-  dim3 grid((D + 127) / 128, (M + row_chunk - 1) / row_chunk);
-  dy_kernel<<<grid, 128, 0, st>>>(dout, mask, dyb, part, M, N, D, row_chunk);
-  BASD_CHECK_LAUNCH();
-  return 0;
-}
-
 // LN VJP rows into dx, then the scale/bias sums into dln_s, dln_b.
 static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
                        const float* ln_s, const float* mu, const float* rstd,
@@ -314,24 +270,6 @@ static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
   int rc = launch_reduce(part, dln_s, chunks, D, st);
   if (rc) return rc;
   return launch_reduce(part + (size_t)chunks * D, dln_b, chunks, D, st);
-}
-
-// dW (m x n) = A^T B summed over `rows` rows, A (rows x m), B (rows x n):
-// split-K partials into part, then their fixed-order sum.
-static int weight_grad(const bf16* A, int m, const bf16* B, int n, int rows,
-                       int k_chunk, float* part, float* dw, cudaStream_t st) {
-  Gemm g{};
-  g.A = A;
-  g.lda = m;
-  g.B = B;
-  g.ldb = n;
-  g.M = m;
-  g.N = n;
-  g.K = rows;
-  g.outf = part;
-  int rc = launch_gemm<true, false, EPI_PARTIAL>(g, k_chunk, st);
-  if (rc) return rc;
-  return launch_reduce(part, dw, (rows + k_chunk - 1) / k_chunk, m * n, st);
 }
 
 // outf (rows x n) = A (rows x k) . W (k x n) in f32, W in torch's (out, in)

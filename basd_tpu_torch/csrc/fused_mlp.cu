@@ -1,0 +1,112 @@
+// K11: the fused MLP  out = fc2(gelu_tanh(fc1(x)))  and its recompute VJP
+// on Hopper, the module-chain MLP of `tpu.student_mlp_impl=fused`.
+//
+// K11a replaces basd_tpu/ops/pallas/fused_mlp.py:_fwd (_fwd_kernel): two
+// launches of the shared WMMA GEMM (csrc/block_kernels.cuh), fc1 with the
+// bias + GELU epilogue (pre rounded to bf16, GELU in f32, hidden rounded to
+// bf16) and fc2 with the bias epilogue (out = bf16(acc + b2)).
+// K11b replaces _bwd (_bwd_kernel), nothing but x saved: it recomputes pre
+// and the hidden state, then
+//   db2 = sum do,  dW2 = do^T h,  dpre = (do W2) gelu'(pre) (f32),
+//   db1 = sum dpre (f32, before the bf16 copy),  dW1 = bf16(dpre)^T x,
+//   dx = bf16(bf16(dpre) W1),
+// K4b's backward (csrc/block_train.cu) without the LayerNorm, the mask and
+// the residual. The TPU kernel adds its weight and bias gradients into one
+// f32 block across a sequential grid; here every cross-row sum is per-block
+// partials (split-K slices, 64-row tiles of the GELU-gradient epilogue, row
+// chunks of the column sums) added in a fixed order: no atomics.
+//
+// What bounds them on the H100: at the student's shapes (B*N = 25216 rows,
+// D = 192, F = 768) K11a is 4 M D F = 14.9 GFLOP and K11b 10 M D F = 37.2
+// GFLOP (15 and 38 us at the bf16 tensor-core peak) against ~20 MB and
+// ~30 MB of unavoidable traffic (6 and 9 us at 3.35 TB/s): operations
+// bound them. This first version is bound by neither: the simple WMMA
+// tiles and the round trips of the (M, F) hidden state, pre-activation and
+// dpre through device memory, which the TPU kernel keeps in VMEM, do.
+//
+// Every entry returns the first non-zero cudaGetLastError() after a launch,
+// or 0. Nothing here allocates or synchronises.
+
+#include "block_kernels.cuh"
+
+using basd::bf16;
+
+// K11a. x (M, D), out (M, Do) bf16; w1 (F, D), w2 (Do, F) bf16; b1, b2 f32.
+// Workspace: ws_h (M, F) bf16.
+extern "C" int basd_fused_mlp_fwd(const void* x, const void* w1,
+                                  const float* b1, const void* w2,
+                                  const float* b2, void* out, void* ws_h,
+                                  int M, int D, int F, int Do, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* hid = static_cast<bf16*>(ws_h);
+  int rc = launch_gemm_nk<EPI_BIAS_GELU>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, hid, M, F,
+      D, nullptr, nullptr, 1, nullptr, st);
+  if (rc) return rc;
+  return launch_gemm_nk<EPI_BIAS>(hid, static_cast<const bf16*>(w2), b2,
+                                  static_cast<bf16*>(out), M, Do, F, nullptr,
+                                  nullptr, 1, nullptr, st);
+}
+
+// K11b. x (M, D), dout (M, Do), dx (M, D) bf16; w1 (F, D), w2 (Do, F) bf16;
+// b1 f32. Outputs in f32: dw1 (F, D), db1 (F), dw2 (Do, F), db2 (Do).
+// Workspaces: ws_pre, ws_h, ws_dpre (M, F) bf16; ws_part f32 of
+// max(splits * F * max(D, Do), row tiles * F, row chunks * Do) elements.
+extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
+                                  const void* w1, const float* b1,
+                                  const void* w2, void* dx, float* dw1,
+                                  float* db1, float* dw2, float* db2,
+                                  void* ws_pre, void* ws_h, void* ws_dpre,
+                                  float* ws_part, int M, int D, int F, int Do,
+                                  int k_chunk, int row_chunk, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  const bf16* w1b = static_cast<const bf16*>(w1);
+  bf16* pre = static_cast<bf16*>(ws_pre);
+  bf16* hid = static_cast<bf16*>(ws_h);
+  bf16* dpre = static_cast<bf16*>(ws_dpre);
+
+  int rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xb, w1b, b1, pre, M, F, D,
+                                             nullptr, nullptr, 1, hid, st);
+  if (rc) return rc;
+  rc = launch_dy(dob, nullptr, nullptr, ws_part, M, 1, Do, row_chunk, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, Do, st);
+  if (rc) return rc;
+  rc = weight_grad(dob, Do, hid, F, M, k_chunk, ws_part, dw2, st);
+  if (rc) return rc;
+
+  // dpre = (do W2) * gelu'(pre), its bf16 copy and per-tile column sums
+  Gemm g{};
+  g.A = dob;
+  g.lda = Do;
+  g.B = static_cast<const bf16*>(w2);
+  g.ldb = F;
+  g.M = M;
+  g.N = F;
+  g.K = Do;
+  g.out = dpre;
+  g.aux = pre;
+  g.outf = ws_part;
+  rc = launch_gemm<false, false, EPI_DGELU>(g, Do, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
+  if (rc) return rc;
+
+  rc = weight_grad(dpre, F, xb, D, M, k_chunk, ws_part, dw1, st);
+  if (rc) return rc;
+  // dx = bf16(dpre W1), W1 (F, D) read as K x N
+  Gemm gx{};
+  gx.A = dpre;
+  gx.lda = F;
+  gx.B = w1b;
+  gx.ldb = D;
+  gx.M = M;
+  gx.N = D;
+  gx.K = F;
+  gx.out = static_cast<bf16*>(dx);
+  return launch_gemm<false, false, EPI_BF16>(gx, F, st);
+}

@@ -16,6 +16,12 @@ from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_collect,
     fused_ln_mlp_fwd,
 )
+from basd_tpu_torch.kernels.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_attention_imp,
+)
+from basd_tpu_torch.kernels.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
 from basd_tpu_torch.kernels.geom_shift import geom_shift3
 from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
 from basd_tpu_torch.kernels.layernorm import layernorm_bwd, layernorm_fwd
@@ -53,6 +59,16 @@ KERNELS = (
      _PALLAS + "jacobi_eigh.py:215", jacobi_eigh),
     ("K9 geom_shift3", "triton", "basd_tpu_torch/kernels/geom_shift.py",
      _PALLAS + "geom_shift.py:103", geom_shift3),
+    ("K10a flash_attention fwd", "cuda", _CSRC + "flash_attention.cu",
+     _PALLAS + "flash_attention.py:239", flash_attention_fwd),
+    ("K10b flash_attention bwd", "cuda", _CSRC + "flash_attention.cu",
+     _PALLAS + "flash_attention.py:269", flash_attention_bwd),
+    ("K10c flash_attention importance", "cuda", _CSRC + "flash_attention.cu",
+     _PALLAS + "flash_attention.py:187", flash_attention_imp),
+    ("K11a fused_mlp fwd", "cuda", _CSRC + "fused_mlp.cu",
+     _PALLAS + "fused_mlp.py:165", fused_mlp_fwd),
+    ("K11b fused_mlp bwd", "cuda", _CSRC + "fused_mlp.cu",
+     _PALLAS + "fused_mlp.py:192", fused_mlp_bwd),
 )
 
 

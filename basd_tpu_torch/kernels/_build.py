@@ -47,6 +47,11 @@ _SIGNATURES = {
     "basd_block_mlp_bwd": (
         [_P] * 23 + [_I] * 6 + [_F, _P]
     ),
+    "basd_flash_attn_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
+    "basd_flash_attn_imp": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "basd_flash_attn_bwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
 }

@@ -1,0 +1,239 @@
+"""K10: attention over the packed qkv slab, the ``flash`` attention impl.
+
+Replaces ``basd_tpu/ops/pallas/flash_attention.py``. The kernels consume the
+(B, N, 3D) slab exactly as the ``qkv`` Linear produces it (head i: q at
+columns ``[i*E, (i+1)*E)``, k at ``D + i*E``, v at ``2*D + i*E``):
+
+- K10a ``flash_attention_fwd`` (``_fwd``): ``o = softmax(scale q k^T) v``
+  (B, N, D) and the per-(image, head, query) logsumexp (B, H, N) f32;
+- K10b ``flash_attention_bwd`` (``_bwd``): dqkv from qkv, the saved o, do
+  and lse;
+- K10c ``flash_attention_imp`` (``_fwd_hp``, and ``_fwd`` with importance
+  for an odd head count): o and the head-mean CLS-query softmax row (B, N)
+  f32, CLS key included (the caller strips it). Forward only.
+
+``FlashAttention`` (K10a forward saving qkv, o and lse; K10b backward) and
+``FlashAttentionImportance`` (K10c; its backward raises, as the JAX
+package's does) are the ``torch.autograd.Function`` s behind
+``flash_attention_qkv`` and ``flash_attention_qkv_with_importance``.
+
+The CUDA kernels (``csrc/flash_attention.cu``) run for bf16 CUDA tensors
+and raise on any other CUDA dtype; the ``*_plain`` functions are the same
+arithmetic in plain PyTorch, taken for CPU tensors of any float dtype. Both
+round where the TPU kernels round: f32 scores and softmax, probabilities in
+qkv's dtype into P.V with deferred normalisation, o in qkv's dtype; the
+backward's points are listed at ``flash_attention_plain_bwd``. The plain
+importance follows the TPU kernel the head count selects: for an even
+count the head-pair kernel (rows pre-divided by l * H, added pair by pair),
+for an odd one the head-loop kernel (rows over l summed, then over H).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from basd_tpu_torch.kernels import _build
+from basd_tpu_torch.kernels.block_attn import (
+    _check,
+    _check_smem,
+    _heads,
+    _merge_heads,
+)
+
+_IMP_BACKWARD = (
+    "flash_attention_qkv_with_importance is forward-only "
+    "(frozen-teacher extraction). For gradients through a "
+    "cls-importance attention use attention_impl='einsum'."
+)
+
+
+def _slab_heads(qkv: torch.Tensor, num_heads: int):
+    """(B, N, 3D) slab -> q, k, v, each (B, H, N, E) in f32."""
+    return tuple(_heads(t, num_heads).float()
+                 for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
+
+
+def _attention_plain(qkv, num_heads: int, scale: float):
+    """o (B, N, D) in qkv.dtype, unnormalised p, row max m and row sum l
+    (the last three f32 (B, H, N, N | 1))."""
+    q, k, v = _slab_heads(qkv, num_heads)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(qkv.dtype).float(), v) / l
+    return _merge_heads(o.to(qkv.dtype)), p, m, l
+
+
+def flash_attention_plain_fwd(qkv, num_heads: int, scale: float):
+    """``(o (B, N, D) in qkv.dtype, lse (B, H, N) f32)``."""
+    o, _, m, l = _attention_plain(qkv, num_heads, scale)
+    return o, (m + torch.log(l))[..., 0]
+
+
+def flash_attention_plain_imp(qkv, num_heads: int, scale: float):
+    """``(o, importance (B, N) f32)``, rounded as the TPU kernel that the
+    head count selects (module docstring)."""
+    o, p, _, l = _attention_plain(qkv, num_heads, scale)
+    h = num_heads
+    if h % 2 == 0:  # _fwd_kernel_hp: pre-divided rows, pair sums in order
+        row0 = p[:, :, 0, :] / (l[:, :, 0] * h)
+        imp = row0[:, 0] + row0[:, 1]
+        for j in range(2, h, 2):
+            imp = imp + (row0[:, j] + row0[:, j + 1])
+    else:  # _fwd_kernel with importance: rows over l, summed, then over h
+        row0 = p[:, :, 0, :] / l[:, :, 0]
+        imp = row0[:, 0]
+        for i in range(1, h):
+            imp = imp + row0[:, i]
+        imp = imp / h
+    return o, imp
+
+
+def flash_attention_plain_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
+    """Recompute backward of K10 (``flash_attention.py:81-124``): dqkv
+    (B, N, 3D) in qkv.dtype. ``dout`` is already in qkv's dtype. Rounding
+    points: p = exp(s - lse) f32; dv = p^T do with p in qkv's dtype;
+    dp = do v^T and delta = sum(do * o) in f32; ds = p (dp - delta) scale
+    rounded to qkv's dtype; dq = ds k, dk = ds^T q in f32, every output
+    rounded once."""
+    dt = qkv.dtype
+    q, k, v = _slab_heads(qkv, num_heads)
+    of, dof = _heads(o, num_heads).float(), _heads(dout, num_heads).float()
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.transpose(-1, -2))
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return torch.cat([_merge_heads(t.to(dt)) for t in (dq, dk, dv)], -1)
+
+
+def _check_slab(name, qkv, num_heads, others=()):
+    """Device, type and shape checks of the CUDA path; ``others``: further
+    (name, tensor, dtype, shape) inputs. Returns (B, N, D, E)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv must be (B, N, 3D), got "
+                         f"{tuple(qkv.shape)}")
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    if d % num_heads or (d // num_heads) % 2:
+        raise ValueError(f"{name}: D={d} with {num_heads} heads needs an "
+                         f"even head width")
+    _check("qkv", qkv, torch.bfloat16, (b, n, d3))
+    for pname, t, dtype, shape in others:
+        _check(pname, t, dtype, shape)
+        if t.device != qkv.device:
+            raise ValueError(f"{name}: all inputs must be on qkv's device")
+    return b, n, d, d // num_heads
+
+
+def _fwd_smem(n: int, e: int) -> int:
+    """Shared memory of a forward block: K and V of one (image, head), a
+    score row and a q row for each of 8 warps."""
+    return n * (e + 2) * 2 + n * e * 2 + 8 * (n + e) * 4
+
+
+def flash_attention_fwd(qkv, num_heads: int, scale: float):
+    """K10a: ``(o (B, N, D), lse (B, H, N) f32)`` of a (B, N, 3D) slab."""
+    if qkv.device.type == "cpu":
+        return flash_attention_plain_fwd(qkv, num_heads, scale)
+    b, n, d, e = _check_slab("flash_attention_fwd", qkv, num_heads)
+    _check_smem("flash_attention_fwd", _fwd_smem(n, e), n, e)
+    o = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32,
+                      device=qkv.device)
+    _build.call("basd_flash_attn_fwd", qkv.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b, n, d, num_heads, float(scale),
+                _build.stream_ptr(qkv.device))
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_imp(qkv, num_heads: int, scale: float):
+    """K10c: ``(o (B, N, D), importance (B, N) f32)``, CLS key included."""
+    if qkv.device.type == "cpu":
+        return flash_attention_plain_imp(qkv, num_heads, scale)
+    b, n, d, e = _check_slab("flash_attention_imp", qkv, num_heads)
+    _check_smem("flash_attention_imp", _fwd_smem(n, e), n, e)
+    dev = qkv.device
+    o = torch.empty((b, n, d), dtype=qkv.dtype, device=dev)
+    imp = torch.empty((b, n), dtype=torch.float32, device=dev)
+    ws_imp = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
+    _build.call("basd_flash_attn_imp", qkv.data_ptr(), o.data_ptr(),
+                imp.data_ptr(), ws_imp.data_ptr(), b, n, d, num_heads,
+                float(scale), _build.stream_ptr(dev))
+    flash_attention_imp.launches += 1
+    return o, imp
+
+
+def flash_attention_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
+    """K10b: dqkv (B, N, 3D) in qkv's dtype; ``dout`` in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return flash_attention_plain_bwd(qkv, o, dout, lse, num_heads, scale)
+    b, n = qkv.shape[:2]
+    d = qkv.shape[-1] // 3
+    bf = torch.bfloat16
+    _, _, _, e = _check_slab(
+        "flash_attention_bwd", qkv, num_heads,
+        [("o", o, bf, (b, n, d)), ("dout", dout, bf, (b, n, d)),
+         ("lse", lse, torch.float32, (b, num_heads, n))])
+    # q, k, v and do of one (image, head), lse, delta, two rows per warp
+    _check_smem("flash_attention_bwd", 4 * n * (e + 2) * 2 + 2 * n * 4
+                + 8 * 2 * n * 4, n, e)
+    dqkv = torch.empty_like(qkv)
+    _build.call("basd_flash_attn_bwd", qkv.data_ptr(), o.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(), b, n, d,
+                num_heads, float(scale), _build.stream_ptr(qkv.device))
+    flash_attention_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+flash_attention_imp.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K10a forward (saves qkv, o and lse), K10b backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        o, lse = flash_attention_fwd(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, o, lse = ctx.saved_tensors
+        dqkv = flash_attention_bwd(qkv, o, dout.to(qkv.dtype).contiguous(),
+                                   lse, ctx.num_heads, ctx.scale)
+        return dqkv, None, None
+
+
+class FlashAttentionImportance(torch.autograd.Function):
+    """K10c; forward-only, as ``flash_attention.py:345-350``."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        return flash_attention_imp(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout, dimp):
+        raise NotImplementedError(_IMP_BACKWARD)
+
+
+def flash_attention_qkv(qkv, num_heads: int, scale: float):
+    """Attention output (B, N, D) of the packed slab, differentiable."""
+    return FlashAttention.apply(qkv.contiguous(), num_heads, float(scale))
+
+
+def flash_attention_qkv_with_importance(qkv, num_heads: int, scale: float):
+    """``(o, importance (B, N))``, CLS key included; forward-only."""
+    return FlashAttentionImportance.apply(qkv.contiguous(), num_heads,
+                                          float(scale))

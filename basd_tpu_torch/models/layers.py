@@ -18,8 +18,20 @@ buffer is given and K4 (``fused_ln_mlp``) otherwise. Off CUDA, ``auto``
 takes the module chain, as the JAX package does off the TPU. An explicit
 ``fused_block`` / ``fused_block_train`` / ``fused_ln`` forces the kernel
 path (on a CPU tensor, its plain version); ``module`` forces the module
-chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). ``flash``
-and ``fused`` (K10, K11) are not ported yet and raise.
+chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA).
+
+Inside the module chain (``layers.py:140-290``), ``Attention`` takes
+``attention_impl``: ``flash`` runs K10 on the packed qkv slab
+(``kernels.flash_attention``; with ``importance_mode='cls'`` the forward-only
+importance variant), ``einsum`` the plain attention, and ``auto`` K10 for a
+bf16 slab on CUDA and einsum otherwise; ``importance_mode='mean'`` always
+takes einsum, which it needs the full probabilities for. ``Mlp`` takes
+``mlp_impl``: ``fused`` runs K11 (``kernels.fused_mlp``, tanh-GELU at every
+dtype), ``dense`` the Linear chain, ``auto`` K11 for a bf16 3-D input on
+CUDA and dense otherwise. ``Block`` hands ``flash`` / ``fused`` / ``auto``
+through and maps ``module`` to ``einsum`` / ``dense``, as
+``layers.py:481-483`` and ``553-555`` do. On a CPU tensor every kernel
+wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -35,9 +47,12 @@ from basd_tpu_torch.kernels.block_attn import (
     fused_block_attn_train,
 )
 from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp, fused_ln_mlp_collect
+from basd_tpu_torch.kernels.flash_attention import (
+    flash_attention_qkv,
+    flash_attention_qkv_with_importance,
+)
+from basd_tpu_torch.kernels.fused_mlp import fused_mlp
 from basd_tpu_torch.kernels.layernorm import fused_layernorm
-
-_UNPORTED_IMPLS = {"flash": "K10 flash_attention", "fused": "K11 fused_mlp"}
 
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float):
@@ -100,14 +115,24 @@ class LayerScale(nn.Module):
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mlp_impl: str = "auto"):
         super().__init__()
         self.fc1 = Linear(dim, hidden_dim, dtype)
         self.fc2 = Linear(hidden_dim, dim, dtype)
         self.compute_dtype = dtype
+        self.mlp_impl = mlp_impl
 
-    def forward(self, x):
-        approx = "tanh" if self.compute_dtype == torch.bfloat16 else "none"
+    def forward(self, x, impl: Optional[str] = None):
+        """``impl``: overrides ``mlp_impl`` for this call."""
+        dt = self.compute_dtype
+        impl = impl or self.mlp_impl
+        if impl == "auto":
+            impl = ("fused" if x.is_cuda and dt == torch.bfloat16
+                    and x.dim() == 3 else "dense")
+        if impl == "fused":
+            return fused_mlp(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias,
+                             self.fc2.weight.to(dt), self.fc2.bias)
+        approx = "tanh" if dt == torch.bfloat16 else "none"
         return self.fc2(F.gelu(self.fc1(x), approximate=approx))
 
 
@@ -118,23 +143,39 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int,
                  importance_mode: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
         self.importance_mode = importance_mode
         self.qkv = Linear(dim, 3 * dim, dtype)
         self.proj = Linear(dim, dim, dtype)
         self.compute_dtype = dtype
+        self.attention_impl = attention_impl
 
-    def forward(self, x):
+    def forward(self, x, impl: Optional[str] = None):
+        """``impl``: overrides ``attention_impl`` for this call."""
         b, n, d = x.shape
         h = self.num_heads
         e = d // h
         scale = e ** -0.5
-        q, k, v = (t.reshape(b, n, h, e).transpose(1, 2)
-                   for t in self.qkv(x).split(d, dim=-1))  # (B, H, N, E)
-        scores = torch.matmul(q, k.transpose(-1, -2))
+        qkv = self.qkv(x)
+        impl = impl or self.attention_impl
+        if impl == "auto":
+            impl = ("flash" if qkv.is_cuda and qkv.dtype == torch.bfloat16
+                    else "einsum")
         importance = None
+        if impl == "flash" and self.importance_mode != "mean":
+            if self.importance_mode == "cls":
+                out, imp_full = flash_attention_qkv_with_importance(
+                    qkv, h, float(scale))
+                importance = imp_full[:, 1:]  # strip the CLS key
+            else:
+                out = flash_attention_qkv(qkv, h, float(scale))
+            return self.proj(out), importance
+        q, k, v = (t.reshape(b, n, h, e).transpose(1, 2)
+                   for t in qkv.split(d, dim=-1))  # (B, H, N, E)
+        scores = torch.matmul(q, k.transpose(-1, -2))
         if self.importance_mode == "mean":
             probs = torch.softmax(scores.float() * scale, dim=-1)
             importance = probs.mean(dim=(1, 2))
@@ -179,10 +220,6 @@ class Block(nn.Module):
                  dtype: torch.dtype = torch.float32, norm_eps: float = 1e-6,
                  attention_impl: str = "auto", mlp_impl: str = "auto"):
         super().__init__()
-        for impl in (attention_impl, mlp_impl):
-            if impl in _UNPORTED_IMPLS:
-                raise NotImplementedError(
-                    f"impl {impl!r} ({_UNPORTED_IMPLS[impl]}) is not ported yet")
         self.num_heads = num_heads
         self.importance_mode = importance_mode
         self.has_cls_token = has_cls_token
@@ -219,9 +256,9 @@ class Block(nn.Module):
     def _mlp_path(self, x) -> str:
         """``layers.py:503-517``: 'fused_ln' (K2 / K4) or the module chain."""
         impl = self.mlp_impl
-        if impl == "auto":
-            impl = ("fused_ln" if x.is_cuda and x.dim() == 3
-                    and self.compute_dtype == torch.bfloat16 else "module")
+        if impl == "auto" and x.is_cuda and x.dim() == 3 and (
+                self.compute_dtype == torch.bfloat16):
+            impl = "fused_ln"
         return impl
 
     @staticmethod
@@ -266,14 +303,19 @@ class Block(nn.Module):
                 x = fused_block_attn_train(
                     x, self._mask(drop, 0, x.shape[0], x.device), *args)
         else:
-            y, importance = self.attn(self.norm1(x))
+            # the module chain: an explicit 'module' means no kernel in the
+            # attention or the MLP (the LayerNorms keep theirs); 'auto' is
+            # left to the module (layers.py:481-483, 553-555)
+            y, importance = self.attn(
+                self.norm1(x), {"module": "einsum"}.get(attn_path, attn_path))
             if self.ls1 is not None:
                 y = self.ls1(y)
             if drop is not None:
                 y = drop_path(y, drop[1][0], drop[0])
             x = x + y
 
-        if self._mlp_path(x) == "fused_ln":
+        mlp_path = self._mlp_path(x)
+        if mlp_path == "fused_ln":
             w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
                                 self.ls2)
             args = (self._mask(drop, 1, x.shape[0], x.device),
@@ -286,7 +328,8 @@ class Block(nn.Module):
             else:
                 x = fused_ln_mlp(x, *args, self.norm_eps)
         else:
-            y = self.mlp(self.norm2(x))
+            y = self.mlp(self.norm2(x),
+                         {"module": "dense"}.get(mlp_path, mlp_path))
             if self.ls2 is not None:
                 y = self.ls2(y)
             if drop is not None:

@@ -92,6 +92,7 @@ def create_model(
     arch_overrides: dict | None = None,
     importance_mode: Optional[str] = None,
     remat: bool = False,
+    remat_policy: Optional[str] = None,
     collect: bool = False,
     dtype: torch.dtype = torch.float32,
     attention_impl: str = "auto",
@@ -101,7 +102,8 @@ def create_model(
     kwargs {embed_dim, depth, num_heads, [mlp_ratio, patch_size,
     layerscale_init]}. Parameters are uninitialised; see ``init_model``.
     ``attention_impl`` / ``mlp_impl`` select the blocks' kernel dispatch
-    (``layers.Block``; the ``tpu.*_impl`` config keys)."""
+    (``layers.Block``; the ``tpu.*_impl`` config keys); ``remat_policy``:
+    ``tpu.remat_policy`` (``vit.VisionTransformer``)."""
     if name in _VIT_PRESETS:
         preset = dict(_VIT_PRESETS[name])
         cfg = ViTConfig(
@@ -132,7 +134,8 @@ def create_model(
             **ov,
         )
     module = VisionTransformer(cfg, importance_mode=importance_mode,
-                               remat=remat, collect=collect, dtype=dtype,
+                               remat=remat, remat_policy=remat_policy,
+                               collect=collect, dtype=dtype,
                                attention_impl=attention_impl,
                                mlp_impl=mlp_impl)
     return ModelBundle(name, module, cfg, _vit_info(cfg))

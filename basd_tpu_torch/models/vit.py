@@ -4,7 +4,9 @@
 A Python loop over the blocks replaces ``nn.scan``; ``torch.utils.checkpoint``
 replaces ``jax.checkpoint`` for ``remat`` (the reference's
 ``set_grad_checkpointing(True)``), so a remat'd block's kernels run twice
-per training step, as under the JAX package's ``nn.remat``. With
+per training step, as under the JAX package's ``nn.remat``; ``remat_policy``
+None or ``'full'`` is that whole-block recompute, ``'dots'`` (save the
+matmul and flash-attention outputs) is not ported and raises. With
 ``collect``, the frozen teacher writes each layer's output into one flat
 (L*B*N, D) stack, which the caller may preallocate and reuse across steps
 (``collection_init``), and returns it as ``PackedTokens``.
@@ -73,8 +75,16 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, importance_mode: Optional[str] = None,
                  remat: bool = False, collect: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto", mlp_impl: str = "auto"):
+                 attention_impl: str = "auto", mlp_impl: str = "auto",
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        if remat and remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' (keep the matmul and flash-attention "
+                "outputs through selective checkpointing) is not ported: "
+                "ROADMAP.md, section 1, 'remat_policy=dots'")
+        if remat and remat_policy not in (None, "full"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.cfg = cfg
         self.remat = remat
         # forward-only collection (the frozen teacher); a remat'd model

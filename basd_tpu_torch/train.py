@@ -9,8 +9,11 @@ teacher's last layer) and ``derive_student_arch`` -> student ->
 ``Trainer.train``. ``tpu.teacher_attention_impl``,
 ``tpu.student_attention_impl`` and ``tpu.student_mlp_impl`` select the
 blocks' kernel dispatch, as in the JAX package (``auto``: the fused
-kernels on CUDA; ``module``: the plain chain). Runs on one CUDA device by default and raises when
-none is present; ``main(argv, device="cpu")`` runs on the CPU.
+kernels on CUDA; ``flash`` / ``fused``: the module chain with the K10
+attention and the K11 MLP; ``module``: the plain chain);
+``tpu.remat_policy`` the student's recompute (null or ``full``). Runs on
+one CUDA device by default and raises when none is present;
+``main(argv, device="cpu")`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -107,7 +110,8 @@ def main(argv: list[str] | None = None,
         num_classes=config.model.num_classes,
         drop_path_rate=config.model.drop_path_rate,
         arch_overrides=arch_overrides, importance_mode=None,
-        remat=bool(config.tpu.get("remat", True)), dtype=compute_dtype,
+        remat=bool(config.tpu.get("remat", True)),
+        remat_policy=config.tpu.get("remat_policy"), dtype=compute_dtype,
         attention_impl=config.tpu.get("student_attention_impl", "auto"),
         mlp_impl=config.tpu.get("student_mlp_impl", "auto"),
     )

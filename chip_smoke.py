@@ -9,36 +9,46 @@ the script exits non-zero without printing a result:
 1. device: the card's name and power limit (nvidia-smi), full-f32 matmul
    and convolution precision, and the build of every CUDA kernel from
    ``basd_tpu_torch/csrc`` (one nvcc process per source, run together);
-2. kernels: each hand-written kernel of the train step (teacher K1, K2;
+2. kernels: each hand-written kernel of the train steps (teacher K1, K2;
    student K3a/b, K4a/b, K5a/b; K6 forward and dw; K7; K8 on the
-   principal-angle batch; K9 on a B=128 view batch) against its plain
-   PyTorch version on the same inputs on the card, at the shapes the train
-   step gives it (B=128); kernel, plain version and, where one PyTorch call
-   computes the same function, that call (``library_ms``) timed with CUDA
-   events (median of several runs); each kernel's bound (bytes over 3.35
-   TB/s or operations over the peak rate of their type, whichever is
-   larger) from this run's shapes; K8 also at (48, 192, 192), the
-   principal-angle batch without a rank cap, on a line of its own, and at
-   n = 256, where A leaves shared memory;
+   principal-angle batch; K9 on a B=128 view batch; the flash path's K10a/b
+   on the student's qkv slab, K10c on the teacher's, K11a/b on the
+   student's MLP) against its plain PyTorch version on the same inputs on
+   the card, at the shapes the train step gives it (B=128); kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call (``library_ms``: ``F.scaled_dot_product_attention`` forward for
+   K10a/K10c, its backward alone for K10b) timed with CUDA events (median
+   of several runs); each kernel's bound (bytes over 3.35 TB/s or
+   operations over the peak rate of their type, whichever is larger) from
+   this run's shapes; K8 also at (48, 192, 192), the principal-angle batch
+   without a rank cap, on a line of its own, and at n = 256, where A
+   leaves shared memory; K10c also at N=257 (dinov2_vitb14's tokens, 12
+   heads);
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
-   backend: every kernel but K8 must launch (K1-K4 a multiple of 12 times),
-   K8 never, and the step losses must be finite;
+   backend: every kernel but K8, K10 and K11 must launch (K1-K4 a multiple
+   of 12 times), those never, and the step losses must be finite;
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
    losses; the MP ranks and rank-cap hits are printed (the teacher is
    random, so nothing is asserted on them);
-4. check and timing: the kernel teacher forward against the plain one (on
-   the CPU) and the kernel student against the module-chain student (on
-   the card, ``tpu.student_*_impl=module``, whose blocks must not launch
-   K3/K4) at full width on a small batch; ``basd_loss`` on one B=8 batch
-   of real tokens under (gram, ident), (jacobi, ident), (gram, composed)
-   and (svd, composed) at ``max_rank=96``: equal ranks, principal-angle
-   distances and losses within the stated tolerances of svd's, finite
-   gradients; then per-stage CUDA-event times of further train steps of
-   both trainers;
+3c. flash train: the jacobi run with ``tpu.teacher_attention_impl=flash
+   tpu.student_attention_impl=flash tpu.student_mlp_impl=fused``, the
+   module chain with K10 and K11: the launch counts derived from the
+   models' depths (``check_flash_counts``: K10c and K2 48, K10a and K11a
+   84, K10b and K11b 36, K8 3, K1, K3 and K4 none), finite losses;
+4. check and timing: the kernel teachers' forwards (K1/K2, K10c/K2)
+   against the plain chain (on the CPU) and the kernel students (K3/K4,
+   K10/K11) against the module-chain student (on the card,
+   ``tpu.student_*_impl=module``, whose blocks must launch none of K3, K4,
+   K10, K11) at full width on a small batch; ``basd_loss`` on one B=8
+   batch of real tokens under (gram, ident), (jacobi, ident), (gram,
+   composed) and (svd, composed) at ``max_rank=96``: equal ranks,
+   principal-angle distances and losses within the stated tolerances of
+   svd's, finite gradients; then per-stage CUDA-event times of further
+   train steps of the three trainers;
 5. with ``--profile`` only: ``torch.profiler`` over 3 more steps of each
    trainer, for the device-busy share, device activities per step and the
    top device ops.
@@ -72,6 +82,15 @@ TRAIN_ARGS = [
 ]
 # the JAX package's benchmarked configuration (bench.py:111-118)
 JACOBI_ARGS = ["basd.spectral_backend=jacobi", "basd.max_rank=96"]
+# the module chain with K10 / K11 (configs/config.yaml:88-98)
+FLASH_ARGS = ["tpu.teacher_attention_impl=flash",
+              "tpu.student_attention_impl=flash", "tpu.student_mlp_impl=fused"]
+# the kernels of each path's blocks
+BLOCK_KERNELS = ("K3a fused_block_attn_train fwd", "K3b fused_block_attn_train bwd",
+                 "K4a fused_ln_mlp fwd", "K4b fused_ln_mlp bwd")
+FLASH_KERNELS = ("K10a flash_attention fwd", "K10b flash_attention bwd",
+                 "K10c flash_attention importance", "K11a fused_mlp fwd",
+                 "K11b fused_mlp bwd")
 # the tracer's own buffer activity, which the profiler lists as device time
 PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
@@ -86,19 +105,24 @@ def phase(name: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = 7) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
-    fn()
-    fn()
-    times = []
-    for _ in range(reps):
+    """Median CUDA-event time of one call of ``fn``: after two warm-up
+    calls, ``reps`` runs of ``k`` back-to-back calls, ``k`` chosen so that
+    a run keeps the card busy ~5 ms (at most 20 calls). Two events around a
+    single short call would also time the host's dispatch of it, which for
+    a kernel of tens of microseconds is most of the reading."""
+    def run(k: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(k):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / k
+
+    fn()
+    k = max(1, min(20, int(5.0 / max(run(1), 1e-3))))
+    return statistics.median(run(k) for _ in range(reps))
 
 
 def check(ok: bool, what: str) -> None:
@@ -146,6 +170,8 @@ def kernel_phase(torch, device):
     from basd_tpu_torch.kernels import (
         block_attn,
         block_mlp,
+        flash_attention,
+        fused_mlp,
         geom_shift,
         layernorm,
         mix_stack,
@@ -361,9 +387,101 @@ def kernel_phase(torch, device):
            nbytes(imgs, out) + 4 * (r1.numel() + r2.numel() + r3.numel()), 0,
            PEAK_F32)
 
+    # K10 on the slabs the flash path gives it: the student's qkv (B, N,
+    # 3 * 192), 3 heads, and the DeiT-S teacher's (B, N, 3 * 384), 6 heads;
+    # the library call is F.scaled_dot_product_attention on pre-split
+    # (B, H, N, E) q, k, v (it returns no lse and no importance)
+    scale = (ds // hs) ** -0.5
+    qkv = rn(b, n, 3 * ds).to(bf)
+    o, lse = flash_attention.flash_attention_fwd(qkv, hs, scale)
+    ref, ref_lse = flash_attention.flash_attention_plain_fwd(qkv, hs, scale)
+    err = max(check_close("K10a o", o, ref, 2 ** -5, 1.0),
+              check_close("K10a lse", lse, ref_lse, 1e-3, 1.0))
+    q, k, v = split_heads(qkv, hs)
+    record("K10a flash_attention fwd", err,
+           lambda: flash_attention.flash_attention_fwd(qkv, hs, scale),
+           lambda: flash_attention.flash_attention_plain_fwd(qkv, hs, scale),
+           nbytes(qkv, o, lse), 4 * b * n * n * ds, PEAK_BF16,
+           lambda: F.scaled_dot_product_attention(q, k, v))
+    do10 = rn(b, n, ds).to(bf)
+    args10b = (qkv, ref, do10, ref_lse, hs, scale)
+    dqkv = flash_attention.flash_attention_bwd(*args10b)
+    err = check_close("K10b dqkv", dqkv,
+                      flash_attention.flash_attention_plain_bwd(*args10b),
+                      2 ** -5, 1.0)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_do = do10.reshape(b, n, hs, ds // hs).transpose(1, 2).contiguous()
+    # s recomputed, dv, dp, dq, dk: five products of 2 B N^2 D
+    record("K10b flash_attention bwd", err,
+           lambda: flash_attention.flash_attention_bwd(*args10b),
+           lambda: flash_attention.flash_attention_plain_bwd(*args10b),
+           nbytes(qkv, ref, do10, ref_lse, dqkv), 10 * b * n * n * ds,
+           PEAK_BF16,
+           lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_do,
+                                       retain_graph=True))
+    tqkv = rn(b, n, 3 * d).to(bf)
+    t_scale = (d // h) ** -0.5
+    err = k10c_check(torch, flash_attention, tqkv, h, t_scale)
+    tq, tk, tv = split_heads(tqkv, h)
+    o, imp = flash_attention.flash_attention_imp(tqkv, h, t_scale)
+    record("K10c flash_attention importance", err,
+           lambda: flash_attention.flash_attention_imp(tqkv, h, t_scale),
+           lambda: flash_attention.flash_attention_plain_imp(tqkv, h, t_scale),
+           nbytes(tqkv, o, imp), 4 * b * n * n * d, PEAK_BF16,
+           lambda: F.scaled_dot_product_attention(tq, tk, tv))
+    # the dinov2_vitb14 teacher's 256 + 1 tokens, D=768, 12 heads: more
+    # shared memory per (image, head)
+    err257 = k10c_check(torch, flash_attention,
+                        rn(b // 4, 257, 3 * 768).to(bf), 12, 64 ** -0.5)
+    print(f"kernel K10c flash_attention importance at ({b // 4}, 257, "
+          f"{3 * 768}), 12 heads: max_abs_err={err257}")
+
+    # K11 at the student's MLP (D=192, F=768); no single PyTorch call
+    # computes it
+    w11 = sw["mlp"]
+    args11 = (xs, *w11)
+    out = fused_mlp.fused_mlp_fwd(*args11)
+    record("K11a fused_mlp fwd",
+           check_close("K11a out", out, fused_mlp.fused_mlp_plain_fwd(*args11),
+                       2 ** -5, 1.0),
+           lambda: fused_mlp.fused_mlp_fwd(*args11),
+           lambda: fused_mlp.fused_mlp_plain_fwd(*args11),
+           nbytes(*args11, out), 4 * s_rows * ds * fs, PEAK_BF16)
+    args11b = (xs, dout, *w11[:3])
+    grads = fused_mlp.fused_mlp_bwd(*args11b)
+    refs = fused_mlp.fused_mlp_plain_bwd(*args11b)
+    record("K11b fused_mlp bwd", check_grads("K11b", grads, refs),
+           lambda: fused_mlp.fused_mlp_bwd(*args11b),
+           lambda: fused_mlp.fused_mlp_plain_bwd(*args11b),
+           nbytes(*args11b, *grads), 10 * s_rows * ds * fs, PEAK_BF16)
+
     for name, rec in results.items():
         print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in rec.items()))
     return results
+
+
+def split_heads(qkv, num_heads: int):
+    """(B, N, 3D) slab -> contiguous q, k, v (B, H, N, E): the layout
+    ``F.scaled_dot_product_attention`` takes."""
+    b, n, d3 = qkv.shape
+    parts = qkv.reshape(b, n, 3, num_heads, d3 // 3 // num_heads)
+    return tuple(t.contiguous() for t in parts.permute(2, 0, 3, 1, 4))
+
+
+def k10c_check(torch, flash_attention, qkv, num_heads: int, scale: float):
+    """K10c against its plain version: o within 2^-5 of max(|ref|, 1), the
+    importance within 2e-2 of its max. Returns the larger error."""
+    o, imp = flash_attention.flash_attention_imp(qkv, num_heads, scale)
+    ref, ref_imp = flash_attention.flash_attention_plain_imp(qkv, num_heads,
+                                                             scale)
+    torch.cuda.synchronize()
+    where = f"K10c {tuple(qkv.shape)}"
+    err = check_close(f"{where} o", o, ref, 2 ** -5, 1.0)
+    imp_err = max_err(imp, ref_imp)
+    check(imp_err <= 2e-2 * ref_imp.max().item(),
+          f"{where} importance err {imp_err}")
+    return max(err, imp_err)
 
 
 def principal_angle_grams(torch, device, g, bsz: int, d: int, r: int):
@@ -464,9 +582,10 @@ def k8_large(torch, device, g, bsz: int = 2, n: int = 256):
     check(err <= 3e-4 and orth <= 3e-4, f"K8 ({bsz}, {n}, {n}): {err}, {orth}")
 
 
-def teacher_check(torch, trainer, device):
-    """The kernel teacher forward (K1/K2 on the card) against the plain
-    chain on the CPU, same weights, full width, small batch."""
+def teacher_check(torch, trainer, device, label: str):
+    """The kernel teacher forward (K1/K2 on the card; K10c/K2 on the flash
+    path) against the plain chain on the CPU, same weights, full width,
+    small batch."""
     import copy
     import dataclasses
 
@@ -483,21 +602,23 @@ def teacher_check(torch, trainer, device):
     err = (a - b_).abs().max().item()
     scale = b_.abs().max().item()
     imp_err = (imp_k.cpu() - imp_p).abs().max().item()
-    print(f"teacher kernels vs plain: tokens max_abs_err={err} (scale {scale}) "
+    print(f"teacher kernels ({label}) vs plain: tokens max_abs_err={err} (scale {scale}) "
           f"importance max_abs_err={imp_err}")
     check(math.isfinite(err) and err <= 2 ** -5 * max(scale, 1.0),
           f"teacher tokens err {err}")
     check(imp_err <= 2e-2 * imp_p.max().item(), f"teacher importance err {imp_err}")
 
 
-def student_check(torch, trainer, device):
-    """The kernel student (K3/K4 per block, K5 final norm) against the
-    module-chain student (``tpu.student_*_impl=module``) on the card, same
-    weights, full width, B=2: logits and every parameter gradient of a
-    fixed random linear loss. The module chain rounds the attention scores
-    to bf16 where the kernels keep them in f32, so the two agree to bf16
-    noise carried through 12 blocks, not to one rounding. The module
-    student's blocks must not launch K3/K4, while its LayerNorms take K5.
+def student_check(torch, trainer, device, taken):
+    """The kernel student (``taken``: the block kernels it launches, K3/K4
+    on the default path, K10a/b and K11a/b on the flash path; K5 final
+    norm) against the module-chain student (``tpu.student_*_impl=module``)
+    on the card, same weights, full width, B=2: logits and every parameter
+    gradient of a fixed random linear loss. The module chain rounds the
+    attention scores to bf16 where the kernels keep them in f32, so the two
+    agree to bf16 noise carried through 12 blocks, not to one rounding. The
+    module student's blocks must launch none of K3, K4, K10 and K11, while
+    its LayerNorms take K5.
     """
     import copy
 
@@ -512,7 +633,7 @@ def student_check(torch, trainer, device):
     g = torch.Generator().manual_seed(2)
     x = torch.randn((2, 224, 224, 3), generator=g).to(torch.bfloat16).to(device)
     w = None
-    grads = []
+    grads, counts = [], []
     for model in (kernel_student, module_student):
         model.zero_grad(set_to_none=True)
         kernels.reset_launch_counts()
@@ -521,27 +642,29 @@ def student_check(torch, trainer, device):
             w = torch.randn(logits.shape, generator=g).to(device)
         (logits * w).sum().backward()
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        counts.append(kernels.launch_counts())
         grads.append((logits.detach(), {k: p.grad.detach().clone()
                                         for k, p in model.named_parameters()}))
-    depth = sum(isinstance(m, Block) for m in module_student.modules())
-    print(f"module student launches {counts}")
-    for name in ("K3a fused_block_attn_train fwd", "K3b fused_block_attn_train bwd",
-                 "K4a fused_ln_mlp fwd", "K4b fused_ln_mlp bwd"):
-        check(counts[name] == 0, f"module student launched {name}")
+    kernel_counts, module_counts = counts
+    print(f"module student launches {module_counts}")
+    for name in taken:
+        check(kernel_counts[name] > 0, f"kernel student never launched {name}")
+    for name in BLOCK_KERNELS + FLASH_KERNELS:
+        check(module_counts[name] == 0, f"module student launched {name}")
     # norm1 and norm2 of every block (again in the remat recompute) and the
     # final norm
+    depth = sum(isinstance(m, Block) for m in module_student.modules())
     runs = 2 if module_student.remat else 1
-    check(counts["K5a fused_layernorm fwd"] == 2 * depth * runs + 1
-          and counts["K5b fused_layernorm bwd"] == 2 * depth + 1,
+    check(module_counts["K5a fused_layernorm fwd"] == 2 * depth * runs + 1
+          and module_counts["K5b fused_layernorm bwd"] == 2 * depth + 1,
           "module student LayerNorms must take K5")
     (lk, gk), (lm, gm) = grads
     err = max_err(lk, lm)
     scale = lm.abs().max().item()
     worst = max(max_err(gk[k], gm[k]) / max(gm[k].abs().max().item(), 1e-30)
                 for k in gm)
-    print(f"student kernels vs module chain: logits max_abs_err={err} "
-          f"(scale {scale}) worst grad err / leaf max={worst}")
+    print(f"student kernels ({', '.join(taken)}) vs module chain: logits "
+          f"max_abs_err={err} (scale {scale}) worst grad err / leaf max={worst}")
     check(math.isfinite(err) and err <= 2 ** -4 * max(scale, 1.0),
           f"student logits err {err}")
     check(worst <= 0.1, f"student grad err {worst} of the leaf max")
@@ -717,6 +840,34 @@ def profile_steps(torch, trainer, out_path, steps: int = 3) -> dict:
             "device_activities_per_step": len(spans) / steps}
 
 
+def check_flash_counts(trainer, counts) -> None:
+    """Launches of the flash train run (3 steps, 1 eval batch), derived
+    from the models' depths: the teacher runs K10c and K2 once per block per
+    forward (calibration and one per step); the remat'd student runs K10a
+    and K11a twice per block per step (forward and recompute) and once more
+    on the eval batch, K10b and K11b once per block per step; K1, K3 and K4
+    never run; K8 once per step (jacobi)."""
+    steps, evals = 3, 1
+    t_depth = len(trainer.teacher.module.blocks)
+    s_depth = len(trainer.student.module.blocks)
+    runs = 2 if trainer.student.module.remat else 1
+    expected = {
+        "K10c flash_attention importance": t_depth * (1 + steps),
+        "K2 fused_ln_mlp_collect": t_depth * (1 + steps),
+        "K10a flash_attention fwd": s_depth * (runs * steps + evals),
+        "K11a fused_mlp fwd": s_depth * (runs * steps + evals),
+        "K10b flash_attention bwd": s_depth * steps,
+        "K11b fused_mlp bwd": s_depth * steps,
+        "K1 fused_block_attn": 0,
+        "K8 jacobi_eigh": steps,
+        **{name: 0 for name in BLOCK_KERNELS},
+    }
+    print(f"flash path expected launches {expected}")
+    for name, count in expected.items():
+        check(counts[name] == count,
+              f"flash path: {name} launched {counts[name]} times, not {count}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -764,13 +915,11 @@ def main(argv=None) -> int:
     root = tempfile.TemporaryDirectory()
     gram, counts, _ = train_run(torch, device, kernels, root.name, "gram", [])
     for name, count in counts.items():
-        if name == "K8 jacobi_eigh":
-            check(count == 0, "the gram path launched K8")
+        if name == "K8 jacobi_eigh" or name in FLASH_KERNELS:
+            check(count == 0, f"the gram path launched {name}")
         else:
             check(count > 0, f"{name} never launched on the main path")
-    for name in ("K1 fused_block_attn", "K2 fused_ln_mlp_collect",
-                 "K3a fused_block_attn_train fwd", "K3b fused_block_attn_train bwd",
-                 "K4a fused_ln_mlp fwd", "K4b fused_ln_mlp bwd"):
+    for name in ("K1 fused_block_attn", "K2 fused_ln_mlp_collect") + BLOCK_KERNELS:
         check(counts[name] % 12 == 0, f"{name} must run 12 times per forward")
 
     phase("jacobi train")
@@ -784,18 +933,26 @@ def main(argv=None) -> int:
     print(f"jacobi MP ranks {step['ranks'].tolist()} rank_cap_hits: train epoch "
           f"{epoch['rank_cap_hits']}, one more step {int(step['rank_cap_hits'])}")
 
+    phase("flash train")
+    flash, fcounts, _ = train_run(torch, device, kernels, root.name, "flash",
+                                  JACOBI_ARGS + FLASH_ARGS)
+    check_flash_counts(flash, fcounts)
+
     phase("check and timing")
-    teacher_check(torch, gram, device)
-    student_check(torch, gram, device)
+    teacher_check(torch, gram, device, "K1/K2")
+    teacher_check(torch, flash, device, "K10c/K2")
+    student_check(torch, gram, device, BLOCK_KERNELS)
+    student_check(torch, flash, device, FLASH_KERNELS[:2] + FLASH_KERNELS[3:])
     backend_agreement(torch, jacobi)
+    trainers = (("gram", gram), ("jacobi", jacobi), ("flash", flash))
     times = {}
-    for label, trainer in (("gram", gram), ("jacobi", jacobi)):
+    for label, trainer in trainers:
         times[label] = stage_times(torch, trainer)
         torch.cuda.synchronize()
         print(f"step_ms {label} " + json.dumps(times[label]))
     if args.profile:
         phase("profile")
-        for label, trainer in (("gram", gram), ("jacobi", jacobi)):
+        for label, trainer in trainers:
             out = args.profile_out
             if out is not None and label != "gram":
                 out = str(Path(out).with_suffix(f".{label}.txt"))
@@ -806,7 +963,8 @@ def main(argv=None) -> int:
 
     entries = []
     for name, route, source, replaces, _fn in kernels.KERNELS:
-        path_counts = jcounts if name == "K8 jacobi_eigh" else counts
+        path_counts = (jcounts if name == "K8 jacobi_eigh"
+                       else fcounts if name in FLASH_KERNELS else counts)
         entries.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": path_counts[name],
                         **results[name]})

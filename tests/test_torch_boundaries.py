@@ -51,6 +51,8 @@ def _wrapper_cases():
     from basd_tpu_torch.kernels import (
         block_attn,
         block_mlp,
+        flash_attention,
+        fused_mlp,
         geom_shift,
         layernorm,
         mix_stack,
@@ -85,6 +87,10 @@ def _wrapper_cases():
     r_w = torch.from_numpy(rng.integers(-3, 4, (3, 10)))
     k3b = (x, mask, dout, lse, *ln, *attn[:3], h)
     k4b = (x, mask, dout, *ln, *mlp[:3])
+    qkv = t(b, n, 3 * d, dtype=bf)
+    o, lse10 = flash_attention.flash_attention_plain_fwd(qkv, h, 0.25)
+    k10b = (qkv, o, dout, lse10, h, 0.25)
+    k11b = (x, dout, *mlp[:3])
     return {
         "K1 fused_block_attn": (
             (x, *ln, *attn, h),
@@ -118,6 +124,18 @@ def _wrapper_cases():
         "K9 geom_shift3": (
             (imgs, r_h, r_w, r_h.flip(0)),
             lambda: geom_shift.geom_shift3_plain(imgs, r_h, r_w, r_h.flip(0))),
+        "K10a flash_attention fwd": (
+            (qkv, h, 0.25),
+            lambda: flash_attention.flash_attention_plain_fwd(qkv, h, 0.25)),
+        "K10b flash_attention bwd": (
+            k10b, lambda: flash_attention.flash_attention_plain_bwd(*k10b)),
+        "K10c flash_attention importance": (
+            (qkv, h, 0.25),
+            lambda: flash_attention.flash_attention_plain_imp(qkv, h, 0.25)),
+        "K11a fused_mlp fwd": (
+            (x, *mlp), lambda: fused_mlp.fused_mlp_plain_fwd(x, *mlp)),
+        "K11b fused_mlp bwd": (
+            k11b, lambda: fused_mlp.fused_mlp_plain_bwd(*k11b)),
     }
 
 

@@ -306,7 +306,11 @@ def test_bf16_student_fused_impls_match_jax():
 def test_block_dispatch_on_cpu_and_unported_impls():
     """Off CUDA ``auto`` takes the module chain, as the JAX package does
     off the TPU, while an explicit fused impl takes the kernels' plain
-    versions; ``flash`` / ``fused`` (K10/K11, not ported) raise."""
+    versions; ``flash`` / ``fused`` (K10/K11) build and run the module chain
+    with K10's and K11's plain versions, which differ from the einsum chain
+    (it rounds the scores to bf16) and from the fused blocks, and count no
+    launch on the CPU."""
+    from basd_tpu_torch import kernels
     from basd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
     cfg = ViTConfig(img_size=16, patch_size=8, embed_dim=32, depth=1,
@@ -316,6 +320,7 @@ def test_block_dispatch_on_cpu_and_unported_impls():
               for impl, (a, m) in {"auto": ("auto", "auto"),
                                    "module": ("module", "module"),
                                    "fused": ("fused_block_train", "fused_ln"),
+                                   "flash": ("flash", "fused"),
                                    }.items()}
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -325,9 +330,27 @@ def test_block_dispatch_on_cpu_and_unported_impls():
         m.load_state_dict(models["auto"].state_dict())
     x = torch.from_numpy(RNG.standard_normal((2, 16, 16, 3)).astype(np.float32)
                          ).to(torch.bfloat16)
+    kernels.reset_launch_counts()
     logits = {k: m(x)["logits"] for k, m in models.items()}
+    assert set(kernels.launch_counts().values()) == {0}
     assert torch.equal(logits["auto"], logits["module"])
     assert not torch.equal(logits["fused"], logits["module"])
-    for kw in (dict(attention_impl="flash"), dict(mlp_impl="fused")):
-        with pytest.raises(NotImplementedError):
-            VisionTransformer(cfg, dtype=torch.bfloat16, **kw)
+    assert not torch.equal(logits["flash"], logits["module"])
+    assert not torch.equal(logits["flash"], logits["fused"])
+    # the flash/fused chain is K10's and K11's plain versions, block by block
+    from basd_tpu_torch.kernels.flash_attention import flash_attention_plain_fwd
+    from basd_tpu_torch.kernels.fused_mlp import fused_mlp_plain_fwd
+
+    blk = models["flash"].blocks[0]
+    xt = torch.from_numpy(RNG.standard_normal((2, 5, 32)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    with torch.no_grad():
+        y, _ = blk(xt)
+        xn = blk.norm1(xt)
+        o = flash_attention_plain_fwd(blk.attn.qkv(xn), 2, 16 ** -0.5)[0]
+        h = xt + blk.attn.proj(o)
+        mlp = blk.mlp
+        ref = h + fused_mlp_plain_fwd(
+            blk.norm2(h), mlp.fc1.weight.to(torch.bfloat16), mlp.fc1.bias,
+            mlp.fc2.weight.to(torch.bfloat16), mlp.fc2.bias)
+    assert torch.equal(y, ref)
