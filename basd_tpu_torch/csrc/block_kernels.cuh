@@ -1,10 +1,17 @@
 // Device code shared by the block kernels of csrc/block.cu (K1, K2 and the
 // K3a/K4a forwards), csrc/block_train.cu (the K3b/K4b backwards) and
-// csrc/fused_mlp.cu (K11): the row LayerNorm, one tiled WMMA GEMM with the
+// csrc/fused_mlp.cu (K11): the row LayerNorm, one tiled GEMM with the
 // epilogues the Pallas kernels round through, the column sums of an
 // incoming gradient, the split-K weight gradient and the fixed-order
 // reduction of partial sums. Everything launches on the caller's stream
 // and returns the first launch error, or 0.
+//
+// The GEMM takes bf16 operands on the tensor cores (WMMA, common.cuh's
+// tile_mma_k) or, for K11's f32 path, f32 operands on CUDA cores
+// (gemm_f32_kernel: full-f32 fused multiply-adds in order over k, no TF32,
+// which the f32 paths of the reference keep off). Both leave the f32 tile
+// in shared memory for one epilogue, templated on the element type T:
+// every rounding to T there is the identity at f32.
 #pragma once
 
 #include "common.cuh"
@@ -61,33 +68,98 @@ static __global__ void layernorm_bf16_kernel(const bf16* __restrict__ x,
   }
 }
 
-enum Epilogue {
-  EPI_BIAS = 0,           // out = bf16(acc + bias)
-  EPI_BIAS_GELU = 1,      // out = bf16(gelu(bf16(acc + bias)))
-  EPI_BIAS_RESIDUAL = 2,  // out (and out2) = bf16(aux + bf16(acc + bias) * mask)
-  EPI_BIAS_PRE_GELU = 3,  // out = p = bf16(acc + bias), out2 = bf16(gelu(p))
-  EPI_DGELU = 4,          // d = acc * gelu'(aux); out = bf16(d); colpart += d
+enum Epilogue {  // T: the GEMM's element type (bf16, or f32 for K11's f32 path)
+  EPI_BIAS = 0,           // out = T(acc + bias)
+  EPI_BIAS_GELU = 1,      // out = T(gelu(T(acc + bias)))
+  EPI_BIAS_RESIDUAL = 2,  // out (and out2) = T(aux + T(acc + bias) * mask)
+  EPI_BIAS_PRE_GELU = 3,  // out = p = T(acc + bias), out2 = T(gelu(p))
+  EPI_DGELU = 4,          // d = acc * gelu'(aux); out = T(d); colpart += d
   EPI_F32 = 5,            // outf = acc
   EPI_PARTIAL = 6,        // outf[split] = acc over this split's K range
-  EPI_BF16 = 7,           // out = bf16(acc)
+  EPI_ROUND = 7,          // out = T(acc)
 };
 
-// out[M, N] = epilogue(A . B) over the K range of blockIdx.z.
-struct Gemm {
-  const bf16* A;
-  const bf16* B;
+// out[M, N] = epilogue(A . B) over the K range of blockIdx.z; operands,
+// out, out2 and aux in T (bf16 or float).
+template <typename T>
+struct GemmT {
+  const T* A;
+  const T* B;
   int lda, ldb;
   bool a_vec, b_vec;
   int M, N, K;
   int k_chunk;  // contraction rows per blockIdx.z (a multiple of BK)
   const float* bias;
-  bf16* out;
-  bf16* out2;
+  T* out;
+  T* out2;
   float* outf;
-  const bf16* aux;     // residual (EPI_BIAS_RESIDUAL) or pre-GELU (EPI_DGELU)
+  const T* aux;        // residual (EPI_BIAS_RESIDUAL) or pre-GELU (EPI_DGELU)
   const float* mask;   // per block of rows_per_mask rows; null means 1
   int rows_per_mask;
 };
+using Gemm = GemmT<bf16>;
+
+// The epilogue of one BM x BN tile whose f32 sums sit in shared memory at
+// c (row stride C_LD). Must be called by all TILE_THREADS threads.
+template <int EPI, typename T>
+__device__ void gemm_epilogue(const GemmT<T>& g, float* c, int m0, int n0) {
+  if constexpr (EPI == EPI_DGELU) {
+    // d = acc * gelu'(pre) in place in the tile, then each of the first BN
+    // threads sums its column over the tile's rows in order: one partial
+    // row per 64-row tile, summed in a fixed order by reduce_partials.
+    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
+      const int r = i / BN;
+      const int cc = i % BN;
+      const int gr = m0 + r;
+      const int gc = n0 + cc;
+      float d = 0.f;
+      if (gr < g.M && gc < g.N) {
+        const size_t o = (size_t)gr * g.N + gc;
+        d = c[r * C_LD + cc] * gelu_tanh_grad(to_f(g.aux[o]));
+        g.out[o] = from_f<T>(d);
+      }
+      c[r * C_LD + cc] = d;
+    }
+    __syncthreads();
+    if (threadIdx.x < BN && n0 + threadIdx.x < g.N) {
+      float s = 0.f;
+      for (int r = 0; r < BM; ++r) s += c[r * C_LD + threadIdx.x];
+      g.outf[(size_t)blockIdx.y * g.N + n0 + threadIdx.x] = s;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
+    const int r = i / BN;
+    const int cc = i % BN;
+    const int gr = m0 + r;
+    const int gc = n0 + cc;
+    if (gr >= g.M || gc >= g.N) continue;
+    const float acc = c[r * C_LD + cc];
+    const size_t o = (size_t)gr * g.N + gc;
+    if constexpr (EPI == EPI_F32) {
+      g.outf[o] = acc;
+    } else if constexpr (EPI == EPI_ROUND) {
+      g.out[o] = from_f<T>(acc);
+    } else if constexpr (EPI == EPI_PARTIAL) {
+      g.outf[(size_t)blockIdx.z * g.M * g.N + o] = acc;
+    } else {
+      const float y = round_t<T>(acc + g.bias[gc]);
+      if constexpr (EPI == EPI_BIAS) {
+        g.out[o] = from_f<T>(y);
+      } else if constexpr (EPI == EPI_BIAS_GELU) {
+        g.out[o] = from_f<T>(gelu_tanh(y));
+      } else if constexpr (EPI == EPI_BIAS_PRE_GELU) {
+        g.out[o] = from_f<T>(y);
+        g.out2[o] = from_f<T>(gelu_tanh(y));
+      } else {  // EPI_BIAS_RESIDUAL
+        const float m = g.mask ? g.mask[gr / g.rows_per_mask] : 1.f;
+        const T v = from_f<T>(to_f(g.aux[o]) + y * m);
+        g.out[o] = v;
+        if (g.out2) g.out2[o] = v;
+      }
+    }
+  }
+}
 
 template <bool A_KM, bool B_NK, int EPI>
 __global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(Gemm g) {
@@ -98,62 +170,81 @@ __global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(Gemm g) {
   const int k_end = min(g.K, k_begin + g.k_chunk);
   tile_mma_k<A_KM, B_NK>(sm, g.A, g.lda, g.a_vec, g.B, g.ldb, g.b_vec, g.M,
                          g.N, k_begin, k_end, m0, n0);
-  if constexpr (EPI == EPI_DGELU) {
-    // d = acc * gelu'(pre) in place in the tile, then each of the first BN
-    // threads sums its column over the tile's rows in order: one partial
-    // row per 64-row tile, summed in a fixed order by reduce_partials.
-    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-      const int r = i / BN;
-      const int c = i % BN;
-      const int gr = m0 + r;
-      const int gc = n0 + c;
-      float d = 0.f;
-      if (gr < g.M && gc < g.N) {
-        const size_t o = (size_t)gr * g.N + gc;
-        d = sm.c[r * C_LD + c] * gelu_tanh_grad(bf2f(g.aux[o]));
-        g.out[o] = f2bf(d);
-      }
-      sm.c[r * C_LD + c] = d;
+  gemm_epilogue<EPI>(g, sm.c, m0, n0);
+}
+
+constexpr int F_BK = 16;  // contraction rows per step of the f32 GEMM
+
+struct TileSmemF32 {
+  float a[F_BK][BM + 4];  // A tile as [k][m]
+  float b[F_BK][BN + 4];  // B tile as [k][n]
+  float c[BM * C_LD];
+};
+
+// The f32 GEMM: the same tiles, split-K ranges and epilogues as gemm_kernel,
+// on CUDA cores. Thread (ty, tx) of 8 x 16 owns rows 8ty..8ty+7 and columns
+// 4tx..4tx+3 of the tile; every sum is fused multiply-adds in order over k.
+template <bool A_KM, bool B_NK, int EPI>
+__global__ void __launch_bounds__(TILE_THREADS)
+    gemm_f32_kernel(GemmT<float> g) {
+  __shared__ __align__(16) TileSmemF32 sm;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * g.k_chunk;
+  const int k_end = min(g.K, k_begin + g.k_chunk);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += F_BK) {
+    // consecutive threads read consecutive addresses of either layout
+    for (int i = threadIdx.x; i < F_BK * BM; i += TILE_THREADS) {
+      const int m = A_KM ? i % BM : i / F_BK;
+      const int k = A_KM ? i / BM : i % F_BK;
+      const int gm = m0 + m;
+      const int gk = k0 + k;
+      float v = 0.f;
+      if (gm < g.M && gk < k_end)
+        v = A_KM ? g.A[(size_t)gk * g.lda + gm] : g.A[(size_t)gm * g.lda + gk];
+      sm.a[k][m] = v;
+    }
+    for (int i = threadIdx.x; i < F_BK * BN; i += TILE_THREADS) {
+      const int n = B_NK ? i / F_BK : i % BN;
+      const int k = B_NK ? i % F_BK : i / BN;
+      const int gn = n0 + n;
+      const int gk = k0 + k;
+      float v = 0.f;
+      if (gn < g.N && gk < k_end)
+        v = B_NK ? g.B[(size_t)gn * g.ldb + gk] : g.B[(size_t)gk * g.ldb + gn];
+      sm.b[k][n] = v;
     }
     __syncthreads();
-    if (threadIdx.x < BN && n0 + threadIdx.x < g.N) {
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += sm.c[r * C_LD + threadIdx.x];
-      g.outf[(size_t)blockIdx.y * g.N + n0 + threadIdx.x] = s;
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = sm.a[kk][8 * ty + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = sm.b[kk][4 * tx + j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
     }
-    return;
+    __syncthreads();
   }
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = i / BN;
-    const int c = i % BN;
-    const int gr = m0 + r;
-    const int gc = n0 + c;
-    if (gr >= g.M || gc >= g.N) continue;
-    const float acc = sm.c[r * C_LD + c];
-    const size_t o = (size_t)gr * g.N + gc;
-    if constexpr (EPI == EPI_F32) {
-      g.outf[o] = acc;
-    } else if constexpr (EPI == EPI_BF16) {
-      g.out[o] = f2bf(acc);
-    } else if constexpr (EPI == EPI_PARTIAL) {
-      g.outf[(size_t)blockIdx.z * g.M * g.N + o] = acc;
-    } else {
-      const float y = round_bf(acc + g.bias[gc]);
-      if constexpr (EPI == EPI_BIAS) {
-        g.out[o] = f2bf(y);
-      } else if constexpr (EPI == EPI_BIAS_GELU) {
-        g.out[o] = f2bf(gelu_tanh(y));
-      } else if constexpr (EPI == EPI_BIAS_PRE_GELU) {
-        g.out[o] = f2bf(y);
-        g.out2[o] = f2bf(gelu_tanh(y));
-      } else {  // EPI_BIAS_RESIDUAL
-        const float m = g.mask ? g.mask[gr / g.rows_per_mask] : 1.f;
-        const bf16 v = f2bf(bf2f(g.aux[o]) + y * m);
-        g.out[o] = v;
-        if (g.out2) g.out2[o] = v;
-      }
-    }
-  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sm.c[(8 * ty + i) * C_LD + 4 * tx + j] = acc[i][j];
+  __syncthreads();
+  gemm_epilogue<EPI>(g, sm.c, m0, n0);
 }
 
 // out[j] = sum_{s < S} part[s * n + j], s in order: the second pass of
@@ -169,27 +260,32 @@ static __global__ void reduce_partials_kernel(const float* __restrict__ part,
 }
 
 // A gemm of A (M x K, or K x M with A_KM) and B (N x K with B_NK, else
-// K x N) into an M x N output; split > 1 only with EPI_PARTIAL.
-template <bool A_KM, bool B_NK, int EPI>
-static int launch_gemm(Gemm g, int k_chunk, cudaStream_t st) {
+// K x N) into an M x N output; split > 1 only with EPI_PARTIAL. bf16
+// operands take the WMMA kernel, f32 operands the CUDA-core one.
+template <bool A_KM, bool B_NK, int EPI, typename T>
+static int launch_gemm(GemmT<T> g, int k_chunk, cudaStream_t st) {
   g.k_chunk = k_chunk;
   g.a_vec = vec_ok(g.A, g.lda);
   g.b_vec = vec_ok(g.B, g.ldb);
   const int splits = (g.K + k_chunk - 1) / k_chunk;
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, splits);
-  gemm_kernel<A_KM, B_NK, EPI><<<grid, TILE_THREADS, 0, st>>>(g);
+  if constexpr (std::is_same_v<T, float>) {
+    gemm_f32_kernel<A_KM, B_NK, EPI><<<grid, TILE_THREADS, 0, st>>>(g);
+  } else {
+    gemm_kernel<A_KM, B_NK, EPI><<<grid, TILE_THREADS, 0, st>>>(g);
+  }
   BASD_CHECK_LAUNCH();
   return 0;
 }
 
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T + bias): the forward products,
 // W in torch's (out, in) layout.
-template <int EPI>
-static int launch_gemm_nk(const bf16* A, const bf16* W, const float* bias,
-                          bf16* out, int M, int N, int K, const bf16* aux,
-                          const float* mask, int rows_per_mask, bf16* out2,
-                          cudaStream_t st) {
-  Gemm g{};
+template <int EPI, typename T>
+static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
+                          int M, int N, int K, no_deduce_t<const T*> aux,
+                          const float* mask, int rows_per_mask,
+                          no_deduce_t<T*> out2, cudaStream_t st) {
+  GemmT<T> g{};
   g.A = A;
   g.lda = K;
   g.B = W;
@@ -227,9 +323,10 @@ static int launch_reduce(const float* part, float* out, int S, int n,
 // dy = do * mask[row / N] (f32) -> dyb (bf16); part[chunk, c] = sum of dy
 // over the chunk's rows, in order. One thread per column. A null mask is
 // 1 and a null dyb is not written: the plain column sums of do.
-static __global__ void dy_kernel(const bf16* __restrict__ dout,
+template <typename T>
+static __global__ void dy_kernel(const T* __restrict__ dout,
                                  const float* __restrict__ mask,
-                                 bf16* __restrict__ dyb,
+                                 T* __restrict__ dyb,
                                  float* __restrict__ part, int M, int N, int D,
                                  int row_chunk) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -239,14 +336,15 @@ static __global__ void dy_kernel(const bf16* __restrict__ dout,
   float acc = 0.f;
   for (int r = r0; r < r1; ++r) {
     const size_t o = (size_t)r * D + c;
-    const float dy = mask ? bf2f(dout[o]) * mask[r / N] : bf2f(dout[o]);
-    if (dyb) dyb[o] = f2bf(dy);
+    const float dy = mask ? to_f(dout[o]) * mask[r / N] : to_f(dout[o]);
+    if (dyb) dyb[o] = from_f<T>(dy);
     acc += dy;
   }
   part[(size_t)blockIdx.y * D + c] = acc;
 }
 
-static int launch_dy(const bf16* dout, const float* mask, bf16* dyb,
+template <typename T>
+static int launch_dy(const T* dout, const float* mask, no_deduce_t<T*> dyb,
                      float* part, int M, int N, int D, int row_chunk,
                      cudaStream_t st) {
   dim3 grid((D + 127) / 128, (M + row_chunk - 1) / row_chunk);
@@ -257,9 +355,10 @@ static int launch_dy(const bf16* dout, const float* mask, bf16* dyb,
 
 // dW (m x n) = A^T B summed over `rows` rows, A (rows x m), B (rows x n):
 // split-K partials into part, then their fixed-order sum.
-static int weight_grad(const bf16* A, int m, const bf16* B, int n, int rows,
+template <typename T>
+static int weight_grad(const T* A, int m, const T* B, int n, int rows,
                        int k_chunk, float* part, float* dw, cudaStream_t st) {
-  Gemm g{};
+  GemmT<T> g{};
   g.A = A;
   g.lda = m;
   g.B = B;

@@ -154,9 +154,9 @@ __global__ void attention_bwd_kernel(const bf16* __restrict__ qkv,
     const bf16* dai = das + i * ldk;
     const float lse_i = lse_s[i];
     for (int j = lane; j < N; j += 32) {
-      const float s = __fmul_rn(dot_bf(qi, ks + j * ldk, e), scale);
+      const float s = __fmul_rn(dot_rows(qi, ks + j * ldk, e), scale);
       row_a[j] = expf(__fsub_rn(s, lse_i));
-      row_b[j] = dot_bf(dai, vs + j * ldk, e);
+      row_b[j] = dot_rows(dai, vs + j * ldk, e);
     }
     __syncwarp();
     const size_t orow = ((size_t)b * N + i) * D + h * e;
@@ -207,9 +207,9 @@ __global__ void attention_bwd_kernel(const bf16* __restrict__ qkv,
     const bf16* kj = ks + j * ldk;
     const bf16* vj = vs + j * ldk;
     for (int i = lane; i < N; i += 32) {
-      const float s = __fmul_rn(dot_bf(qs + i * ldk, kj, e), scale);
+      const float s = __fmul_rn(dot_rows(qs + i * ldk, kj, e), scale);
       const float p = expf(__fsub_rn(s, lse_s[i]));
-      const float dp = dot_bf(das + i * ldk, vj, e);
+      const float dp = dot_rows(das + i * ldk, vj, e);
       row_a[i] = round_bf(p);
       row_b[i] = round_bf(
           __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_s[i])), scale));

@@ -47,6 +47,46 @@ __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
 
+// The element type T of a kernel templated on bf16 or float: to_f widens,
+// from_f rounds to T, round_t rounds to T and back (the identity at f32).
+template <typename T>
+__device__ __forceinline__ float to_f(T v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __bfloat162float(v);
+  } else {
+    return v;
+  }
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __float2bfloat16(v);
+  } else {
+    return v;
+  }
+}
+template <typename T>
+__device__ __forceinline__ float round_t(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+// Two neighbouring elements (an even offset) widened to f32.
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Keeps a parameter out of template argument deduction (a null pointer
+// argument then converts to the deduced T*).
+template <typename T>
+struct no_deduce {
+  using type = T;
+};
+template <typename T>
+using no_deduce_t = typename no_deduce<T>::type;
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

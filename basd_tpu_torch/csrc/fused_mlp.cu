@@ -24,50 +24,50 @@
 // tiles and the round trips of the (M, F) hidden state, pre-activation and
 // dpre through device memory, which the TPU kernel keeps in VMEM, do.
 //
+// The _f32 entries are the same chains on f32 tensors (the JAX package's
+// f32 path), through the CUDA-core f32 GEMM of csrc/block_kernels.cuh with
+// the same epilogues: no rounding of the pre-activation, the hidden state
+// or dpre (each round to T is the identity at f32), tanh-GELU as at bf16.
+// A plain right kernel, not a fast one.
+//
 // Every entry returns the first non-zero cudaGetLastError() after a launch,
 // or 0. Nothing here allocates or synchronises.
 
 #include "block_kernels.cuh"
 
-using basd::bf16;
+namespace basd {
 
-// K11a. x (M, D), out (M, Do) bf16; w1 (F, D), w2 (Do, F) bf16; b1, b2 f32.
-// Workspace: ws_h (M, F) bf16.
-extern "C" int basd_fused_mlp_fwd(const void* x, const void* w1,
-                                  const float* b1, const void* w2,
-                                  const float* b2, void* out, void* ws_h,
-                                  int M, int D, int F, int Do, void* stream) {
-  using namespace basd;
+template <typename T>
+static int fused_mlp_fwd(const void* x, const void* w1, const float* b1,
+                         const void* w2, const float* b2, void* out,
+                         void* ws_h, int M, int D, int F, int Do,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* hid = static_cast<bf16*>(ws_h);
+  T* hid = static_cast<T*>(ws_h);
   int rc = launch_gemm_nk<EPI_BIAS_GELU>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1, hid, M, F,
-      D, nullptr, nullptr, 1, nullptr, st);
+      static_cast<const T*>(x), static_cast<const T*>(w1), b1, hid, M, F, D,
+      nullptr, nullptr, 1, nullptr, st);
   if (rc) return rc;
-  return launch_gemm_nk<EPI_BIAS>(hid, static_cast<const bf16*>(w2), b2,
-                                  static_cast<bf16*>(out), M, Do, F, nullptr,
+  return launch_gemm_nk<EPI_BIAS>(static_cast<const T*>(hid),
+                                  static_cast<const T*>(w2), b2,
+                                  static_cast<T*>(out), M, Do, F, nullptr,
                                   nullptr, 1, nullptr, st);
 }
 
-// K11b. x (M, D), dout (M, Do), dx (M, D) bf16; w1 (F, D), w2 (Do, F) bf16;
-// b1 f32. Outputs in f32: dw1 (F, D), db1 (F), dw2 (Do, F), db2 (Do).
-// Workspaces: ws_pre, ws_h, ws_dpre (M, F) bf16; ws_part f32 of
-// max(splits * F * max(D, Do), row tiles * F, row chunks * Do) elements.
-extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
-                                  const void* w1, const float* b1,
-                                  const void* w2, void* dx, float* dw1,
-                                  float* db1, float* dw2, float* db2,
-                                  void* ws_pre, void* ws_h, void* ws_dpre,
-                                  float* ws_part, int M, int D, int F, int Do,
-                                  int k_chunk, int row_chunk, void* stream) {
-  using namespace basd;
+template <typename T>
+static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
+                         const float* b1, const void* w2, void* dx, float* dw1,
+                         float* db1, float* dw2, float* db2, void* ws_pre,
+                         void* ws_h, void* ws_dpre, float* ws_part, int M,
+                         int D, int F, int Do, int k_chunk, int row_chunk,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  bf16* pre = static_cast<bf16*>(ws_pre);
-  bf16* hid = static_cast<bf16*>(ws_h);
-  bf16* dpre = static_cast<bf16*>(ws_dpre);
+  const T* xb = static_cast<const T*>(x);
+  const T* dob = static_cast<const T*>(dout);
+  const T* w1b = static_cast<const T*>(w1);
+  T* pre = static_cast<T*>(ws_pre);
+  T* hid = static_cast<T*>(ws_h);
+  T* dpre = static_cast<T*>(ws_dpre);
 
   int rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xb, w1b, b1, pre, M, F, D,
                                              nullptr, nullptr, 1, hid, st);
@@ -76,14 +76,15 @@ extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
   if (rc) return rc;
   rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, Do, st);
   if (rc) return rc;
-  rc = weight_grad(dob, Do, hid, F, M, k_chunk, ws_part, dw2, st);
+  rc = weight_grad(dob, Do, static_cast<const T*>(hid), F, M, k_chunk,
+                   ws_part, dw2, st);
   if (rc) return rc;
 
-  // dpre = (do W2) * gelu'(pre), its bf16 copy and per-tile column sums
-  Gemm g{};
+  // dpre = (do W2) * gelu'(pre), its copy in T and per-tile column sums
+  GemmT<T> g{};
   g.A = dob;
   g.lda = Do;
-  g.B = static_cast<const bf16*>(w2);
+  g.B = static_cast<const T*>(w2);
   g.ldb = F;
   g.M = M;
   g.N = F;
@@ -96,10 +97,11 @@ extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
   rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
   if (rc) return rc;
 
-  rc = weight_grad(dpre, F, xb, D, M, k_chunk, ws_part, dw1, st);
+  rc = weight_grad(static_cast<const T*>(dpre), F, xb, D, M, k_chunk, ws_part,
+                   dw1, st);
   if (rc) return rc;
-  // dx = bf16(dpre W1), W1 (F, D) read as K x N
-  Gemm gx{};
+  // dx = T(dpre W1), W1 (F, D) read as K x N
+  GemmT<T> gx{};
   gx.A = dpre;
   gx.lda = F;
   gx.B = w1b;
@@ -107,6 +109,57 @@ extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
   gx.M = M;
   gx.N = D;
   gx.K = F;
-  gx.out = static_cast<bf16*>(dx);
-  return launch_gemm<false, false, EPI_BF16>(gx, F, st);
+  gx.out = static_cast<T*>(dx);
+  return launch_gemm<false, false, EPI_ROUND>(gx, F, st);
+}
+
+}  // namespace basd
+
+using basd::bf16;
+
+// K11a. x (M, D), out (M, Do); w1 (F, D), w2 (Do, F), all bf16 (f32 for
+// the _f32 entry); b1, b2 f32. Workspace: ws_h (M, F) in x's type.
+extern "C" int basd_fused_mlp_fwd(const void* x, const void* w1,
+                                  const float* b1, const void* w2,
+                                  const float* b2, void* out, void* ws_h,
+                                  int M, int D, int F, int Do, void* stream) {
+  return basd::fused_mlp_fwd<bf16>(x, w1, b1, w2, b2, out, ws_h, M, D, F, Do,
+                                   stream);
+}
+extern "C" int basd_fused_mlp_fwd_f32(const void* x, const void* w1,
+                                      const float* b1, const void* w2,
+                                      const float* b2, void* out, void* ws_h,
+                                      int M, int D, int F, int Do,
+                                      void* stream) {
+  return basd::fused_mlp_fwd<float>(x, w1, b1, w2, b2, out, ws_h, M, D, F, Do,
+                                    stream);
+}
+
+// K11b. x (M, D), dout (M, Do), dx (M, D); w1 (F, D), w2 (Do, F), all bf16
+// (f32 for the _f32 entry); b1 f32. Outputs in f32: dw1 (F, D), db1 (F),
+// dw2 (Do, F), db2 (Do). Workspaces: ws_pre, ws_h, ws_dpre (M, F) in x's
+// type; ws_part f32 of max(splits * F * max(D, Do), row tiles * F,
+// row chunks * Do) elements.
+extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
+                                  const void* w1, const float* b1,
+                                  const void* w2, void* dx, float* dw1,
+                                  float* db1, float* dw2, float* db2,
+                                  void* ws_pre, void* ws_h, void* ws_dpre,
+                                  float* ws_part, int M, int D, int F, int Do,
+                                  int k_chunk, int row_chunk, void* stream) {
+  return basd::fused_mlp_bwd<bf16>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
+                                   db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
+                                   F, Do, k_chunk, row_chunk, stream);
+}
+extern "C" int basd_fused_mlp_bwd_f32(const void* x, const void* dout,
+                                      const void* w1, const float* b1,
+                                      const void* w2, void* dx, float* dw1,
+                                      float* db1, float* dw2, float* db2,
+                                      void* ws_pre, void* ws_h, void* ws_dpre,
+                                      float* ws_part, int M, int D, int F,
+                                      int Do, int k_chunk, int row_chunk,
+                                      void* stream) {
+  return basd::fused_mlp_bwd<float>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
+                                    db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
+                                    F, Do, k_chunk, row_chunk, stream);
 }

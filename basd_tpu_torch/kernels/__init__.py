@@ -3,7 +3,9 @@
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor; it counts its launches in a plain integer
 attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
-replaces and its source.
+replaces and its source. The four wrappers of the forward attention core
+(``ATTENTION_CORE``) also count each of its two kernels, ``tc_launches``
+(tensor cores) and ``simt_launches`` (CUDA cores).
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -72,10 +74,23 @@ KERNELS = (
 )
 
 
+# the wrappers that launch csrc/attention.cuh's forward attention core
+ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
+                  "K10a flash_attention fwd", "K10c flash_attention importance")
+
+
 def reset_launch_counts() -> None:
-    for *_, fn in KERNELS:
+    for name, *_, fn in KERNELS:
         fn.launches = 0
+        if name in ATTENTION_CORE:
+            fn.tc_launches = fn.simt_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, *_, fn in KERNELS}
+
+
+def variant_counts() -> dict[str, dict[str, int]]:
+    """Launches of each attention-core wrapper by variant, tc and simt."""
+    return {name: {"tc": fn.tc_launches, "simt": fn.simt_launches}
+            for name, *_, fn in KERNELS if name in ATTENTION_CORE}

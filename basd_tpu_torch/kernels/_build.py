@@ -55,6 +55,13 @@ _SIGNATURES = {
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
 }
+# the f32 twins of K10's and K11's entries take the same arguments
+_SIGNATURES.update({
+    name + "_f32": _SIGNATURES[name]
+    for name in ("basd_flash_attn_fwd", "basd_flash_attn_imp",
+                 "basd_flash_attn_bwd", "basd_fused_mlp_fwd",
+                 "basd_fused_mlp_bwd")
+})
 
 _LIBRARY: list[ctypes.CDLL] = []
 
@@ -142,6 +149,14 @@ def call(name: str, *args) -> None:
     if rc != 0:
         msg = lib.basd_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def entry(name: str, dtype) -> str:
+    """The entry point of ``name`` for tensors of ``dtype``: its ``_f32``
+    twin at torch.float32, ``name`` itself otherwise."""
+    import torch
+
+    return name + ("_f32" if dtype == torch.float32 else "")
 
 
 def stream_ptr(device) -> int:

@@ -27,6 +27,14 @@ with bf16 probabilities into P.V and deferred normalisation, proj
 accumulated in f32 and rounded to bf16, residual (times the mask) added in
 f32 and rounded once; the backward's rounding points are listed at
 ``block_attn_train_plain_bwd``. Weights are in torch's (out, in) layout.
+
+The attention of K1 and K3a is the forward attention core of
+``csrc/attention.cuh``, which K10a and K10c share: ``attn_fwd_variant``
+says which of its two kernels a slab takes (the tensor-core kernel for bf16
+with a head width E % 16 == 0, 16 <= E <= 128; the CUDA-core kernel for
+any other even E and for f32), ``_attn_fwd_smem`` the shared memory it
+needs. Each of the four wrappers counts its launches of each variant in
+``tc_launches`` and ``simt_launches`` beside ``launches``.
 """
 
 from __future__ import annotations
@@ -201,6 +209,47 @@ def _check_smem(name, smem, n, e):
                          f"{_SMEM_PER_BLOCK}")
 
 
+def attn_fwd_variant(dtype: torch.dtype, e: int) -> str:
+    """The forward attention kernel ``csrc/attention.cuh`` launches for a
+    slab of ``dtype`` and head width ``e`` (its ``launch_attention_heads``
+    decides the same before launch): ``"tc"``, the tensor-core kernel, for
+    bf16 with ``e % 16 == 0`` and ``16 <= e <= 128``; ``"simt"``, the
+    CUDA-core kernel, otherwise."""
+    if dtype == torch.bfloat16 and e % 16 == 0 and 16 <= e <= 128:
+        return "tc"
+    return "simt"
+
+
+def _attn_fwd_smem(n: int, e: int, variant: str, itemsize: int = 2) -> int:
+    """Dynamic shared memory of one forward-attention block, bytes.
+
+    ``"tc"``: K and V of one (image, head), rows padded to a multiple of 16
+    and E + 8 bf16 wide. ``"simt"``: K (rows E + 2 wide) and V in the
+    slab's element size ``itemsize``, and a score row and a q row of f32
+    for each of 8 warps."""
+    if variant == "tc":
+        return 2 * (-(-n // 16) * 16) * (e + 8) * 2
+    return n * (e + 2) * itemsize + n * e * itemsize + 8 * (n + e) * 4
+
+
+def _attn_fwd_variant_checked(name, dtype, n, e, ptr):
+    """The variant of a CUDA launch, after its shared-memory and alignment
+    checks (the tensor-core kernel reads 16-byte chunks of the slab)."""
+    variant = attn_fwd_variant(dtype, e)
+    _check_smem(name, _attn_fwd_smem(n, e, variant, dtype.itemsize), n, e)
+    if variant == "tc" and ptr % 16:
+        raise ValueError(f"{name}: the qkv slab must start 16-byte aligned")
+    return variant
+
+
+def _count_attn_launch(fn, variant: str) -> None:
+    fn.launches += 1
+    if variant == "tc":
+        fn.tc_launches += 1
+    else:
+        fn.simt_launches += 1
+
+
 def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                      num_heads: int, eps: float = 1e-6):
     """Returns ``(out (B, N, D) in x.dtype, importance (B, N) f32)``; the
@@ -217,9 +266,9 @@ def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                              b_proj))
     b, n, d = x.shape
     e = d // num_heads
-    # one (image, head) block keeps K, V and a score row per warp on chip
-    _check_smem("fused_block_attn", n * (e + 2) * 2 + n * e * 2
-                + 8 * (n + e) * 4, n, e)
+    # the attention reads the qkv workspace, fresh and so aligned
+    variant = _attn_fwd_variant_checked("fused_block_attn", torch.bfloat16,
+                                        n, e, 0)
     bf, f32 = torch.bfloat16, torch.float32
     out = torch.empty_like(x)
     imp = torch.empty((b, n), dtype=f32, device=x.device)
@@ -234,7 +283,7 @@ def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
         ws_qkv.data_ptr(), ws_imp.data_ptr(), b, n, d, num_heads,
         float(eps), float(e) ** -0.5, _build.stream_ptr(x.device),
     )
-    fused_block_attn.launches += 1
+    _count_attn_launch(fused_block_attn, variant)
     return out, imp
 
 
@@ -265,8 +314,8 @@ def fused_block_attn_train_fwd(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
                              b_proj))
     b, n, d = x.shape
     e = d // num_heads
-    _check_smem("fused_block_attn_train_fwd", n * (e + 2) * 2 + n * e * 2
-                + 8 * (n + e) * 4, n, e)
+    variant = _attn_fwd_variant_checked("fused_block_attn_train_fwd",
+                                        torch.bfloat16, n, e, 0)
     bf = torch.bfloat16
     out = torch.empty_like(x)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=x.device)
@@ -280,7 +329,7 @@ def fused_block_attn_train_fwd(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
         ws_qkv.data_ptr(), b, n, d, num_heads, float(eps), float(e) ** -0.5,
         _build.stream_ptr(x.device),
     )
-    fused_block_attn_train_fwd.launches += 1
+    _count_attn_launch(fused_block_attn_train_fwd, variant)
     return out, lse
 
 
@@ -342,6 +391,8 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
 fused_block_attn.launches = 0
 fused_block_attn_train_fwd.launches = 0
 fused_block_attn_train_bwd.launches = 0
+for _fn in (fused_block_attn, fused_block_attn_train_fwd):
+    _fn.tc_launches = _fn.simt_launches = 0
 
 
 class FusedBlockAttnTrain(torch.autograd.Function):

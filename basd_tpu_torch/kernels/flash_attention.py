@@ -17,12 +17,20 @@ columns ``[i*E, (i+1)*E)``, k at ``D + i*E``, v at ``2*D + i*E``):
 package's does) are the ``torch.autograd.Function`` s behind
 ``flash_attention_qkv`` and ``flash_attention_qkv_with_importance``.
 
-The CUDA kernels (``csrc/flash_attention.cu``) run for bf16 CUDA tensors
-and raise on any other CUDA dtype; the ``*_plain`` functions are the same
-arithmetic in plain PyTorch, taken for CPU tensors of any float dtype. Both
-round where the TPU kernels round: f32 scores and softmax, probabilities in
-qkv's dtype into P.V with deferred normalisation, o in qkv's dtype; the
-backward's points are listed at ``flash_attention_plain_bwd``. The plain
+The CUDA kernels (``csrc/flash_attention.cu``) run for bf16 and f32 CUDA
+tensors and raise on any other CUDA dtype; the ``*_plain`` functions are
+the same arithmetic in plain PyTorch, taken for CPU tensors of any float
+dtype. Both round where the TPU kernels round: f32 scores and softmax,
+probabilities in qkv's dtype into P.V with deferred normalisation, o in
+qkv's dtype; the backward's points are listed at
+``flash_attention_plain_bwd``. The forward (K10a, K10c) is the attention
+core of ``csrc/attention.cuh``: a bf16 slab whose head width E is a
+multiple of 16 in [16, 128] takes its tensor-core kernel, an f32 slab or
+any other even E its CUDA-core kernel (``block_attn.attn_fwd_variant``;
+each wrapper counts them in ``tc_launches`` and ``simt_launches``). The
+backward (K10b) runs on CUDA cores at both dtypes; at f32 its (image, head)
+needs ~222 KB of shared memory at N=197, E=64, and an N or E beyond the
+card's 227 KB (N=257 at E=64) raises before launch. The plain
 importance follows the TPU kernel the head count selects: for an even
 count the head-pair kernel (rows pre-divided by l * H, added pair by pair),
 for an odd one the head-loop kernel (rows over l summed, then over H).
@@ -34,11 +42,15 @@ import torch
 
 from basd_tpu_torch.kernels import _build
 from basd_tpu_torch.kernels.block_attn import (
+    _attn_fwd_variant_checked,
     _check,
     _check_smem,
+    _count_attn_launch,
     _heads,
     _merge_heads,
 )
+
+_DTYPES = (torch.bfloat16, torch.float32)  # the types the kernels take
 
 _IMP_BACKWARD = (
     "flash_attention_qkv_with_importance is forward-only "
@@ -111,20 +123,21 @@ def flash_attention_plain_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
     return torch.cat([_merge_heads(t.to(dt)) for t in (dq, dk, dv)], -1)
 
 
-def _check_slab(name, qkv, num_heads, others=()):
-    """Device, type and shape checks of the CUDA path; ``others``: further
-    (name, tensor, dtype, shape) inputs. Returns (B, N, D, E)."""
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {qkv.device}")
+def _slab_dims(name, qkv, num_heads, others=()):
+    """Type and shape rules of the CUDA path, on any device: qkv (B, N, 3D)
+    bf16 or f32 with an even head width; ``others``: further (name,
+    tensor, dtype, shape) inputs. Returns (B, N, D, E)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: qkv must be (B, N, 3D), got "
                          f"{tuple(qkv.shape)}")
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"{name}: qkv must be bf16 or f32, got {qkv.dtype}")
     b, n, d3 = qkv.shape
     d = d3 // 3
     if d % num_heads or (d // num_heads) % 2:
         raise ValueError(f"{name}: D={d} with {num_heads} heads needs an "
                          f"even head width")
-    _check("qkv", qkv, torch.bfloat16, (b, n, d3))
+    _check("qkv", qkv, qkv.dtype, (b, n, d3))
     for pname, t, dtype, shape in others:
         _check(pname, t, dtype, shape)
         if t.device != qkv.device:
@@ -132,70 +145,89 @@ def _check_slab(name, qkv, num_heads, others=()):
     return b, n, d, d // num_heads
 
 
-def _fwd_smem(n: int, e: int) -> int:
-    """Shared memory of a forward block: K and V of one (image, head), a
-    score row and a q row for each of 8 warps."""
-    return n * (e + 2) * 2 + n * e * 2 + 8 * (n + e) * 4
+def _check_slab(name, qkv, num_heads, others=()):
+    """``_slab_dims`` for a CUDA tensor; raises on any other device."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    return _slab_dims(name, qkv, num_heads, others)
 
 
 def flash_attention_fwd(qkv, num_heads: int, scale: float):
-    """K10a: ``(o (B, N, D), lse (B, H, N) f32)`` of a (B, N, 3D) slab."""
+    """K10a: ``(o (B, N, D), lse (B, H, N) f32)`` of a (B, N, 3D) slab; on
+    CUDA the tensor-core kernel for bf16 with E % 16 == 0 in [16, 128], the
+    CUDA-core kernel for f32 or another even E."""
     if qkv.device.type == "cpu":
         return flash_attention_plain_fwd(qkv, num_heads, scale)
     b, n, d, e = _check_slab("flash_attention_fwd", qkv, num_heads)
-    _check_smem("flash_attention_fwd", _fwd_smem(n, e), n, e)
+    variant = _attn_fwd_variant_checked("flash_attention_fwd", qkv.dtype, n,
+                                        e, qkv.data_ptr())
     o = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32,
                       device=qkv.device)
-    _build.call("basd_flash_attn_fwd", qkv.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b, n, d, num_heads, float(scale),
-                _build.stream_ptr(qkv.device))
-    flash_attention_fwd.launches += 1
+    _build.call(_build.entry("basd_flash_attn_fwd", qkv.dtype),
+                qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, d,
+                num_heads, float(scale), _build.stream_ptr(qkv.device))
+    _count_attn_launch(flash_attention_fwd, variant)
     return o, lse
 
 
 def flash_attention_imp(qkv, num_heads: int, scale: float):
-    """K10c: ``(o (B, N, D), importance (B, N) f32)``, CLS key included."""
+    """K10c: ``(o (B, N, D), importance (B, N) f32)``, CLS key included;
+    the kernels as K10a's."""
     if qkv.device.type == "cpu":
         return flash_attention_plain_imp(qkv, num_heads, scale)
     b, n, d, e = _check_slab("flash_attention_imp", qkv, num_heads)
-    _check_smem("flash_attention_imp", _fwd_smem(n, e), n, e)
+    variant = _attn_fwd_variant_checked("flash_attention_imp", qkv.dtype, n,
+                                        e, qkv.data_ptr())
     dev = qkv.device
     o = torch.empty((b, n, d), dtype=qkv.dtype, device=dev)
     imp = torch.empty((b, n), dtype=torch.float32, device=dev)
     ws_imp = torch.empty((b, num_heads, n), dtype=torch.float32, device=dev)
-    _build.call("basd_flash_attn_imp", qkv.data_ptr(), o.data_ptr(),
-                imp.data_ptr(), ws_imp.data_ptr(), b, n, d, num_heads,
-                float(scale), _build.stream_ptr(dev))
-    flash_attention_imp.launches += 1
+    _build.call(_build.entry("basd_flash_attn_imp", qkv.dtype),
+                qkv.data_ptr(), o.data_ptr(), imp.data_ptr(),
+                ws_imp.data_ptr(), b, n, d, num_heads, float(scale),
+                _build.stream_ptr(dev))
+    _count_attn_launch(flash_attention_imp, variant)
     return o, imp
 
 
 def flash_attention_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
-    """K10b: dqkv (B, N, 3D) in qkv's dtype; ``dout`` in qkv's dtype."""
+    """K10b: dqkv (B, N, 3D) in qkv's dtype; ``dout`` in qkv's dtype. On
+    CUDA one CUDA-core kernel at bf16 and f32; raises where an (image,
+    head) needs more shared memory than a block has (at f32: N=257, E=64).
+    """
     if qkv.device.type == "cpu":
         return flash_attention_plain_bwd(qkv, o, dout, lse, num_heads, scale)
     b, n = qkv.shape[:2]
     d = qkv.shape[-1] // 3
-    bf = torch.bfloat16
     _, _, _, e = _check_slab(
         "flash_attention_bwd", qkv, num_heads,
-        [("o", o, bf, (b, n, d)), ("dout", dout, bf, (b, n, d)),
+        [("o", o, qkv.dtype, (b, n, d)), ("dout", dout, qkv.dtype, (b, n, d)),
          ("lse", lse, torch.float32, (b, num_heads, n))])
     # q, k, v and do of one (image, head), lse, delta, two rows per warp
-    _check_smem("flash_attention_bwd", 4 * n * (e + 2) * 2 + 2 * n * 4
-                + 8 * 2 * n * 4, n, e)
+    _check_smem("flash_attention_bwd", _bwd_smem(n, e, qkv.element_size()),
+                n, e)
     dqkv = torch.empty_like(qkv)
-    _build.call("basd_flash_attn_bwd", qkv.data_ptr(), o.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(), b, n, d,
-                num_heads, float(scale), _build.stream_ptr(qkv.device))
+    _build.call(_build.entry("basd_flash_attn_bwd", qkv.dtype),
+                qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                dqkv.data_ptr(), b, n, d, num_heads, float(scale),
+                _build.stream_ptr(qkv.device))
     flash_attention_bwd.launches += 1
     return dqkv
+
+
+def _bwd_smem(n: int, e: int, itemsize: int) -> int:
+    """Dynamic shared memory of one backward block, bytes: q, k, v and do
+    of one (image, head) in rows E + 2 wide, lse, delta, and two f32 rows
+    of N for each of 8 warps."""
+    return 4 * n * (e + 2) * itemsize + 2 * n * 4 + 8 * 2 * n * 4
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_imp.launches = 0
+for _fn in (flash_attention_fwd, flash_attention_imp):
+    _fn.tc_launches = _fn.simt_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -7,9 +7,11 @@ over the rows. ``FusedMlp`` wraps them as a ``torch.autograd.Function``
 that saves only x and the weights; as the JAX package's VJP it returns the
 weight gradients in the weights' dtype and both bias gradients in b1's.
 
-The CUDA kernels (``csrc/fused_mlp.cu``) run for bf16 CUDA tensors and
-raise on any other CUDA dtype; the ``*_plain`` functions are the same
-arithmetic in plain PyTorch, taken for CPU tensors of any float dtype.
+The CUDA kernels (``csrc/fused_mlp.cu``) run for bf16 CUDA tensors (WMMA
+tensor-core GEMMs) and f32 CUDA tensors (CUDA-core f32 GEMMs with the same
+epilogues, full f32, no TF32) and raise on any other CUDA dtype; the
+``*_plain`` functions are the same arithmetic in plain PyTorch, taken for
+CPU tensors of any float dtype.
 Rounding follows the TPU kernel: operands in x's dtype, f32 accumulation,
 the pre-activation rounded to x's dtype before an f32 tanh-GELU (tanh at
 every dtype: the fused MLP never takes erf), the hidden state rounded into
@@ -58,31 +60,41 @@ def fused_mlp_plain_bwd(x, dout, w1, b1, w2):
     return dx.reshape(x.shape), dw1, dpre.sum(0), dw2, do2.sum(0)
 
 
-def _check_mlp(name, x, w1, b1, w2, *extra):
-    """Device, type and shape checks of the CUDA path; ``extra``: further
+def _mlp_dims(name, x, w1, b1, w2, *extra):
+    """Type and shape rules of the CUDA path, on any device: x (B, N, D)
+    bf16 or f32, the weights in x's dtype, b1 f32; ``extra``: further
     (name, tensor, dtype, shape) inputs. Returns (M, D, F, Do)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, N, D), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: x must be bf16 or f32, got {x.dtype}")
     b, n, d = x.shape
     f, do_ = w1.shape[0], w2.shape[0]
     if d % 8 or f % 8 or do_ % 8:
         raise ValueError(f"{name}: D={d}, F={f}, Do={do_} must be % 8")
-    bf, f32 = torch.bfloat16, torch.float32
-    for pname, t, dtype, shape in [("x", x, bf, (b, n, d)),
-                                   ("w1", w1, bf, (f, d)), ("b1", b1, f32, (f,)),
-                                   ("w2", w2, bf, (do_, f)), *extra]:
+    dt, f32 = x.dtype, torch.float32
+    for pname, t, dtype, shape in [("x", x, dt, (b, n, d)),
+                                   ("w1", w1, dt, (f, d)), ("b1", b1, f32, (f,)),
+                                   ("w2", w2, dt, (do_, f)), *extra]:
         _check(pname, t, dtype, shape)
         if t.device != x.device:
             raise ValueError(f"{name}: all inputs must be on x's device")
     return b * n, d, f, do_
 
 
+def _check_mlp(name, x, w1, b1, w2, *extra):
+    """``_mlp_dims`` for a CUDA tensor; raises on any other device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return _mlp_dims(name, x, w1, b1, w2, *extra)
+
+
+
 def fused_mlp_fwd(x, w1, b1, w2, b2):
     """K11a: ``fc2(gelu_tanh(fc1(x)))`` (B, N, Do) in x.dtype.
 
-    x: (B, N, D) bf16; w1: (F, D), w2: (Do, F) bf16; b1, b2: f32.
+    x: (B, N, D) bf16 or f32; w1: (F, D), w2: (Do, F) in x's dtype;
+    b1, b2: f32.
     """
     if x.device.type == "cpu":
         return fused_mlp_plain_fwd(x, w1, b1, w2, b2)
@@ -90,23 +102,24 @@ def fused_mlp_fwd(x, w1, b1, w2, b2):
                               ("b2", b2, torch.float32, (w2.shape[0],)))
     out = torch.empty(x.shape[:-1] + (do_,), dtype=x.dtype, device=x.device)
     ws_h = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    _build.call("basd_fused_mlp_fwd", x.data_ptr(), w1.data_ptr(),
-                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+    _build.call(_build.entry("basd_fused_mlp_fwd", x.dtype), x.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(),
                 ws_h.data_ptr(), m, d, f, do_, _build.stream_ptr(x.device))
     fused_mlp_fwd.launches += 1
     return out
 
 
 def fused_mlp_bwd(x, dout, w1, b1, w2):
-    """K11b: ``(dx bf16, dw1, db1, dw2, db2)``, the gradients f32 and summed
-    over the rows."""
+    """K11b: ``(dx in x's dtype, dw1, db1, dw2, db2)``, the gradients f32
+    and summed over the rows."""
     if x.device.type == "cpu":
         return fused_mlp_plain_bwd(x, dout, w1, b1, w2)
     m, d, f, do_ = _check_mlp(
         "fused_mlp_bwd", x, w1, b1, w2,
-        ("dout", dout, torch.bfloat16, x.shape[:-1] + (w2.shape[0],)))
+        ("dout", dout, x.dtype, x.shape[:-1] + (w2.shape[0],)))
     dev = x.device
-    f32, bf = torch.float32, torch.bfloat16
+    f32 = torch.float32
     k_chunk = split_k_chunk(m, -(-f // 64) * -(-max(d, do_) // 64))
     splits = -(-m // k_chunk)
     chunks = -(-m // _ROW_CHUNK)
@@ -115,13 +128,14 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
     db1 = torch.empty((f,), dtype=f32, device=dev)
     dw2 = torch.empty((do_, f), dtype=f32, device=dev)
     db2 = torch.empty((do_,), dtype=f32, device=dev)
-    ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=bf, device=dev)
+    ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=x.dtype, device=dev)
                              for _ in range(3))
     ws_part = torch.empty(
         (max(splits * f * max(d, do_), -(-m // 64) * f, chunks * do_),),
         dtype=f32, device=dev)
     _build.call(
-        "basd_fused_mlp_bwd", x.data_ptr(), dout.data_ptr(), w1.data_ptr(),
+        _build.entry("basd_fused_mlp_bwd", x.dtype), x.data_ptr(),
+        dout.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws_pre.data_ptr(),
         ws_h.data_ptr(), ws_dpre.data_ptr(), ws_part.data_ptr(), m, d, f, do_,

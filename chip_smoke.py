@@ -23,12 +23,19 @@ the script exits non-zero without printing a result:
    this run's shapes; K8 also at (48, 192, 192), the principal-angle batch
    without a rank cap, on a line of its own, and at n = 256, where A
    leaves shared memory; K10c also at N=257 (dinov2_vitb14's tokens, 12
-   heads);
+   heads); the bf16 forward attention of K1, K3a, K10a and K10c runs
+   ``csrc/attention.cuh``'s tensor-core kernel, and K10a is also held at
+   head widths 32 and 128 on it and at one it does not take (E=24, the
+   CUDA-core kernel); K10a,
+   K10b, K10c, K11a and K11b also on f32 tensors (B=8, N=197, the student's
+   and the teacher's widths), each against its plain version and timed;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
    backend: every kernel but K8, K10 and K11 must launch (K1-K4 a multiple
-   of 12 times), those never, and the step losses must be finite;
+   of 12 times), those never, and the step losses must be finite; in this
+   and the two runs below every launch of K1, K3a, K10a and K10c must take
+   the tensor-core attention kernel (``check_core_variants``);
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
@@ -431,11 +438,40 @@ def kernel_phase(torch, device):
            nbytes(tqkv, o, imp), 4 * b * n * n * d, PEAK_BF16,
            lambda: F.scaled_dot_product_attention(tq, tk, tv))
     # the dinov2_vitb14 teacher's 256 + 1 tokens, D=768, 12 heads: more
-    # shared memory per (image, head)
+    # shared memory per (image, head); the tensor-core kernel
+    tc = flash_attention.flash_attention_imp.tc_launches
     err257 = k10c_check(torch, flash_attention,
                         rn(b // 4, 257, 3 * 768).to(bf), 12, 64 ** -0.5)
+    check(flash_attention.flash_attention_imp.tc_launches == tc + 1,
+          "K10c at N=257 must take the tensor-core kernel")
     print(f"kernel K10c flash_attention importance at ({b // 4}, 257, "
           f"{3 * 768}), 12 heads: max_abs_err={err257}")
+    # other head widths of the tensor-core kernel (its register and
+    # ldmatrix tiling is instantiated per width)
+    for e_w, h_w in ((32, 6), (128, 3)):
+        tc = flash_attention.flash_attention_fwd.tc_launches
+        qkv_w = rn(8, n, 3 * e_w * h_w).to(bf)
+        o, lse = flash_attention.flash_attention_fwd(qkv_w, h_w, e_w ** -0.5)
+        ref, ref_lse = flash_attention.flash_attention_plain_fwd(qkv_w, h_w,
+                                                                 e_w ** -0.5)
+        err = max(check_close(f"K10a E={e_w} o", o, ref, 2 ** -5, 1.0),
+                  check_close(f"K10a E={e_w} lse", lse, ref_lse, 1e-3, 1.0))
+        check(flash_attention.flash_attention_fwd.tc_launches == tc + 1,
+              f"K10a at E={e_w} must take the tensor-core kernel")
+        print(f"kernel K10a flash_attention fwd at (8, {n}, {3 * e_w * h_w}), "
+              f"{h_w} heads (E={e_w}, tensor-core kernel): max_abs_err={err}")
+    # a head width the tensor-core kernel does not take: the CUDA-core one
+    simt = flash_attention.flash_attention_fwd.simt_launches
+    qkv24 = rn(8, n, 3 * 72).to(bf)
+    o, lse = flash_attention.flash_attention_fwd(qkv24, 3, 24 ** -0.5)
+    ref, ref_lse = flash_attention.flash_attention_plain_fwd(qkv24, 3, 24 ** -0.5)
+    err = max(check_close("K10a E=24 o", o, ref, 2 ** -5, 1.0),
+              check_close("K10a E=24 lse", lse, ref_lse, 1e-3, 1.0))
+    check(flash_attention.flash_attention_fwd.simt_launches == simt + 1,
+          "K10a at E=24 must take the CUDA-core kernel")
+    print(f"kernel K10a flash_attention fwd at (8, {n}, 216), 3 heads (E=24, "
+          f"CUDA-core kernel): max_abs_err={err}")
+    f32_checks(torch, rn, flash_attention, fused_mlp)
 
     # K11 at the student's MLP (D=192, F=768); no single PyTorch call
     # computes it
@@ -459,6 +495,81 @@ def kernel_phase(torch, device):
     for name, rec in results.items():
         print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in rec.items()))
     return results
+
+
+def f32_checks(torch, rn, flash_attention, fused_mlp, b: int = 8, n: int = 197):
+    """K10a, K10c, K10b, K11a and K11b on f32 tensors against their plain
+    versions, B=8, N=197, at the student's (D=192, 3 heads, F=768) and the
+    teacher's (D=384, 6 heads, F=1536) widths: outputs within 1e-4 of
+    max(|ref|, 1) (the importance of its max), gradients within 1e-3 of
+    their leaf's max. Both sides keep every value in f32 and differ in the
+    order of their sums only: the kernels add in other orders than cuBLAS,
+    and TF32 is off (``set_full_f32_precision``). The forward must take the
+    CUDA-core attention kernel. Prints each kernel's error and its and the
+    plain version's times at the teacher's width."""
+    fa, fm = flash_attention, fused_mlp
+    for d, h, f in ((192, 3, 768), (384, 6, 1536)):
+        scale = (d // h) ** -0.5
+        qkv = rn(b, n, 3 * d)
+        dout = rn(b, n, d)
+        x = rn(b, n, d)
+        mlp = (rn(f, d, scale=d ** -0.5), 0.1 * rn(f), rn(d, f, scale=f ** -0.5),
+               0.1 * rn(d))
+        simt = fa.flash_attention_fwd.simt_launches
+        o, lse = fa.flash_attention_fwd(qkv, h, scale)
+        ref_o, ref_lse = fa.flash_attention_plain_fwd(qkv, h, scale)
+        check(fa.flash_attention_fwd.simt_launches == simt + 1,
+              "f32 K10a must take the CUDA-core kernel")
+        errs = {"K10a": max(check_close(f"f32 K10a D={d} o", o, ref_o, 1e-4, 1.0),
+                            check_close(f"f32 K10a D={d} lse", lse, ref_lse,
+                                        1e-4, 1.0))}
+        o, imp = fa.flash_attention_imp(qkv, h, scale)
+        ref, ref_imp = fa.flash_attention_plain_imp(qkv, h, scale)
+        errs["K10c"] = max(check_close(f"f32 K10c D={d} o", o, ref, 1e-4, 1.0),
+                           check_close(f"f32 K10c D={d} importance", imp,
+                                       ref_imp, 1e-4))
+        args10b = (qkv, ref_o, dout, ref_lse, h, scale)
+        errs["K10b"] = check_close(f"f32 K10b D={d} dqkv",
+                                   fa.flash_attention_bwd(*args10b),
+                                   fa.flash_attention_plain_bwd(*args10b), 1e-3)
+        errs["K11a"] = check_close(f"f32 K11a D={d} out", fm.fused_mlp_fwd(x, *mlp),
+                                   fm.fused_mlp_plain_fwd(x, *mlp), 1e-4, 1.0)
+        args11b = (x, dout, *mlp[:3])
+        errs["K11b"] = max(
+            check_close(f"f32 K11b D={d} grad {i}", a, r_, 1e-3)
+            for i, (a, r_) in enumerate(zip(fm.fused_mlp_bwd(*args11b),
+                                            fm.fused_mlp_plain_bwd(*args11b))))
+        torch.cuda.synchronize()
+        if d == 384:
+            pairs = {
+                "K10a": (lambda: fa.flash_attention_fwd(qkv, h, scale),
+                         lambda: fa.flash_attention_plain_fwd(qkv, h, scale)),
+                "K10c": (lambda: fa.flash_attention_imp(qkv, h, scale),
+                         lambda: fa.flash_attention_plain_imp(qkv, h, scale)),
+                "K10b": (lambda: fa.flash_attention_bwd(*args10b),
+                         lambda: fa.flash_attention_plain_bwd(*args10b)),
+                "K11a": (lambda: fm.fused_mlp_fwd(x, *mlp),
+                         lambda: fm.fused_mlp_plain_fwd(x, *mlp)),
+                "K11b": (lambda: fm.fused_mlp_bwd(*args11b),
+                         lambda: fm.fused_mlp_plain_bwd(*args11b)),
+            }
+        for name, err in errs.items():
+            line = f"kernel f32 {name} at D={d}, B={b}, N={n}: max_abs_err={err}"
+            if d == 384:
+                line += (f" ms={time_ms(torch, pairs[name][0])} "
+                         f"plain_ms={time_ms(torch, pairs[name][1])}")
+            print(line)
+
+
+def check_core_variants(label, counts, variants) -> None:
+    """Every launch of K1, K3a, K10a and K10c in a train run took the
+    tensor-core attention kernel, none the CUDA-core one (the step's slabs
+    are bf16 with E=64)."""
+    print(f"attention core variants {label} {variants}")
+    for name, v in variants.items():
+        check(v["tc"] == counts[name] and v["simt"] == 0,
+              f"{label} path: {name} took the tensor-core kernel {v['tc']} of "
+              f"{counts[name]} times and the CUDA-core kernel {v['simt']}")
 
 
 def split_heads(qkv, num_heads: int):
@@ -683,6 +794,7 @@ def train_run(torch, device, kernels, root: str, label: str, extra: list):
                          device=device)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    check_core_variants(label, counts, kernels.variant_counts())
     metrics = out_dir / trainer.config.run.name / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     print(f"launches {label} {counts}")
