@@ -16,24 +16,25 @@
 // block across a sequential grid. Hopper's blocks run in no order, so here
 // every cross-row sum is two passes: per-block partials into a scratch
 // buffer (split-K slices of the weight-gradient GEMMs, 64-row tiles of the
-// GELU-gradient epilogue, row chunks of the column sums, images of the
-// attention kernel), then reduce_partials_kernel adds them in a fixed
-// order. No atomics: the result is deterministic.
+// GELU-gradient epilogue, row chunks of the column sums, (image, tile)
+// blocks of the attention backward), then reduce_partials_kernel adds them
+// in a fixed order. No atomics: the result is deterministic.
 //
 // What bounds them on the H100: at the student's shapes (B*N = 25216 rows,
 // D = 192, F = 768, 3 heads, B=128) K3b is ~36 GFLOP and K4b ~45 GFLOP
 // (counted from the shapes; 0.04-0.05 ms at the bf16 tensor-core peak)
 // against ~0.1 GB of unavoidable traffic (0.03 ms at 3.35 TB/s). This
-// first version is bound by neither: the simple WMMA tiles, the
-// CUDA-core attention backward (which computes the scores twice, once per
-// query row for dq and once per key row for dk and dv, so each block keeps
-// only q, k, v and dattn of its (image, head) in shared memory) and the
-// round trips of the recomputed slabs through device memory bind it.
+// version is bound by neither: the simple WMMA tiles and the round trips
+// of the recomputed slabs through device memory bind it. K3b's attention
+// is the tensor-core backward core of csrc/attention_bwd.cuh (K10b's too):
+// a query-tiled launch for attn, delta and dq, a key-tiled one for dk and
+// dv, each staging 64-row blocks, so nothing of the N x N scores reaches
+// device memory.
 //
 // Every entry returns the first non-zero cudaGetLastError() after a
 // launch, or 0. Nothing here allocates or synchronises.
 
-#include "attention.cuh"
+#include "attention_bwd.cuh"
 #include "block_kernels.cuh"
 
 namespace basd {
@@ -95,163 +96,6 @@ __global__ void ln_param_partials_kernel(const bf16* __restrict__ x,
   part_b[(size_t)blockIdx.y * D + c] = ab;
 }
 
-// Attention backward of one (image, head) per block, from the recomputed
-// bf16 qkv slab, the forward's lse (B, H, N) and dattn = dy W_proj (f32):
-//   p = exp(s - lse), pb = bf16(p), o = pb v (f32) -> attn (bf16),
-//   delta = sum(dattn * o), dp = bf16(dattn) v^T,
-//   ds = bf16(p (dp - delta) scale),
-//   dq = ds k, dk = ds^T q, dv = pb^T bf16(dattn)  -> dqkv (bf16),
-// and the image's column sums of the f32 dq, dk, dv into part[b, 3D].
-// Phase A walks query rows (one warp each) for attn, delta and dq; phase B
-// walks key rows and recomputes the scores for dk and dv.
-__global__ void attention_bwd_kernel(const bf16* __restrict__ qkv,
-                                     const float* __restrict__ lse,
-                                     const float* __restrict__ dattn,
-                                     bf16* __restrict__ attn,
-                                     bf16* __restrict__ dqkv,
-                                     float* __restrict__ part, int N, int D,
-                                     int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = D / H;
-  const int ldk = e + 2;  // odd word stride: conflict-free row reads
-  const int nwarps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + N * ldk;
-  bf16* vs = ks + N * ldk;
-  bf16* das = vs + N * ldk;
-  float* lse_s = reinterpret_cast<float*>(das + N * ldk);
-  float* delta_s = lse_s + N;
-  float* rows_s = delta_s + N;          // two rows of N per warp
-  float* colp = rows_s + 2 * nwarps * N;  // 3e column sums per warp
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const size_t ld3 = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * N * ld3;
-  const float* dbase = dattn + (size_t)b * N * D;
-  for (int i = threadIdx.x; i < N * e; i += blockDim.x) {
-    const int n = i / e;
-    const int c = i % e;
-    qs[n * ldk + c] = base[n * ld3 + h * e + c];
-    ks[n * ldk + c] = base[n * ld3 + D + h * e + c];
-    vs[n * ldk + c] = base[n * ld3 + 2 * D + h * e + c];
-    das[n * ldk + c] = f2bf(dbase[(size_t)n * D + h * e + c]);
-  }
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    lse_s[i] = lse[((size_t)b * H + h) * N + i];
-  for (int i = threadIdx.x; i < nwarps * 3 * e; i += blockDim.x) colp[i] = 0.f;
-  __syncthreads();
-
-  float* row_a = rows_s + warp * 2 * N;
-  float* row_b = row_a + N;
-  float* cp = colp + warp * 3 * e;
-
-  // phase A: query rows
-  for (int i = warp; i < N; i += nwarps) {
-    const bf16* qi = qs + i * ldk;
-    const bf16* dai = das + i * ldk;
-    const float lse_i = lse_s[i];
-    for (int j = lane; j < N; j += 32) {
-      const float s = __fmul_rn(dot_rows(qi, ks + j * ldk, e), scale);
-      row_a[j] = expf(__fsub_rn(s, lse_i));
-      row_b[j] = dot_rows(dai, vs + j * ldk, e);
-    }
-    __syncwarp();
-    const size_t orow = ((size_t)b * N + i) * D + h * e;
-    float dpart = 0.f;
-    for (int c2 = lane; c2 < e / 2; c2 += 32) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float pb = round_bf(row_a[j]);
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + j * ldk + 2 * c2));
-        a0 += pb * v.x;
-        a1 += pb * v.y;
-      }
-      attn[orow + 2 * c2] = f2bf(a0);
-      attn[orow + 2 * c2 + 1] = f2bf(a1);
-      dpart += dbase[(size_t)i * D + h * e + 2 * c2] * a0 +
-               dbase[(size_t)i * D + h * e + 2 * c2 + 1] * a1;
-    }
-    const float delta = warp_sum(dpart);
-    if (lane == 0) delta_s[i] = delta;
-    __syncwarp();  // every lane has read row_a before it becomes ds
-    for (int j = lane; j < N; j += 32) {
-      row_a[j] = round_bf(
-          __fmul_rn(__fmul_rn(row_a[j], __fsub_rn(row_b[j], delta)), scale));
-    }
-    __syncwarp();
-    const size_t qrow = ((size_t)b * N + i) * ld3 + h * e;
-    for (int c2 = lane; c2 < e / 2; c2 += 32) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float ds = row_a[j];
-        const float2 k = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ks + j * ldk + 2 * c2));
-        a0 += ds * k.x;
-        a1 += ds * k.y;
-      }
-      dqkv[qrow + 2 * c2] = f2bf(a0);
-      dqkv[qrow + 2 * c2 + 1] = f2bf(a1);
-      cp[2 * c2] += a0;
-      cp[2 * c2 + 1] += a1;
-    }
-    __syncwarp();
-  }
-  __syncthreads();  // delta_s complete
-
-  // phase B: key rows
-  for (int j = warp; j < N; j += nwarps) {
-    const bf16* kj = ks + j * ldk;
-    const bf16* vj = vs + j * ldk;
-    for (int i = lane; i < N; i += 32) {
-      const float s = __fmul_rn(dot_rows(qs + i * ldk, kj, e), scale);
-      const float p = expf(__fsub_rn(s, lse_s[i]));
-      const float dp = dot_rows(das + i * ldk, vj, e);
-      row_a[i] = round_bf(p);
-      row_b[i] = round_bf(
-          __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_s[i])), scale));
-    }
-    __syncwarp();
-    const size_t krow = ((size_t)b * N + j) * ld3 + h * e;
-    for (int c2 = lane; c2 < e / 2; c2 += 32) {
-      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float ds = row_b[i];
-        const float pb = row_a[i];
-        const float2 q = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(qs + i * ldk + 2 * c2));
-        const float2 da = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(das + i * ldk + 2 * c2));
-        k0 += ds * q.x;
-        k1 += ds * q.y;
-        v0 += pb * da.x;
-        v1 += pb * da.y;
-      }
-      dqkv[krow + D + 2 * c2] = f2bf(k0);
-      dqkv[krow + D + 2 * c2 + 1] = f2bf(k1);
-      dqkv[krow + 2 * D + 2 * c2] = f2bf(v0);
-      dqkv[krow + 2 * D + 2 * c2 + 1] = f2bf(v1);
-      cp[e + 2 * c2] += k0;
-      cp[e + 2 * c2 + 1] += k1;
-      cp[2 * e + 2 * c2] += v0;
-      cp[2 * e + 2 * c2 + 1] += v1;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // this image's column sums, warps added in order
-  for (int t = threadIdx.x; t < 3 * e; t += blockDim.x) {
-    float acc = 0.f;
-    for (int w = 0; w < nwarps; ++w) acc += colp[w * 3 * e + t];
-    const int which = t / e;  // 0 q, 1 k, 2 v
-    part[(size_t)b * ld3 + which * D + h * e + t % e] = acc;
-  }
-}
-
 // LN VJP rows into dx, then the scale/bias sums into dln_s, dln_b.
 static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
                        const float* ln_s, const float* mu, const float* rstd,
@@ -297,15 +141,17 @@ using basd::bf16;
 // f32: dw_qkv (3D, D), db_qkv (3D), dw_proj (D, D), db_proj, dln_s, dln_b
 // (D). Workspaces: ws_xn, ws_dyb, ws_attn (B*N, D) bf16; ws_qkv, ws_dqkv
 // (B*N, 3D) bf16; ws_stats (2 B*N) f32; ws_f32 (B*N, D) f32; ws_part f32
-// of max(splits * 3D * D, B * 3D, 2 * row chunks * D) elements.
+// of max(splits * 3D * D, B * ceil(N / 64) * 3D, 2 * row chunks * D)
+// elements; ws_delta (B, H, N) f32.
 extern "C" int basd_block_attn_train_bwd(
     const void* x, const float* mask, const void* dout, const float* lse,
     const float* ln_s, const float* ln_b, const void* w_qkv,
     const float* b_qkv, const void* w_proj, void* dx, float* dw_qkv,
     float* db_qkv, float* dw_proj, float* db_proj, float* dln_s, float* dln_b,
     void* ws_xn, float* ws_stats, void* ws_qkv, void* ws_dyb, float* ws_f32,
-    void* ws_attn, void* ws_dqkv, float* ws_part, int B, int N, int D, int H,
-    int k_chunk, int row_chunk, float eps, float scale, void* stream) {
+    void* ws_attn, void* ws_dqkv, float* ws_part, float* ws_delta, int B,
+    int N, int D, int H, int k_chunk, int row_chunk, float eps, float scale,
+    void* stream) {
   using namespace basd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
@@ -333,20 +179,25 @@ extern "C" int basd_block_attn_train_bwd(
   rc = input_grad(dyb, wp, M, D, D, ws_f32, st);  // dattn
   if (rc) return rc;
 
-  const int threads = 256;
-  const int e = D / H;
-  const size_t smem = (size_t)4 * N * (e + 2) * sizeof(bf16) +
-                      (size_t)2 * N * sizeof(float) +
-                      (size_t)(threads / 32) * (2 * N + 3 * e) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<<<B * H, threads, smem, st>>>(qkv, lse, ws_f32, attn,
-                                                     dqkv, ws_part, N, D, H,
-                                                     scale);
-  BASD_CHECK_LAUNCH();
-  rc = launch_reduce(ws_part, db_qkv, B, 3 * D, st);
+  // the attention backward (csrc/attention_bwd.cuh): attn, dqkv and the
+  // column sums of dqkv per (image, tile), added in order into db_qkv
+  AttnBwd a{};
+  a.qkv = qkv;
+  a.lse = lse;
+  a.dattn = ws_f32;
+  a.attn = attn;
+  a.dqkv = dqkv;
+  a.delta = ws_delta;
+  a.part = ws_part;
+  a.B = B;
+  a.N = N;
+  a.D = D;
+  a.H = H;
+  a.scale = scale;
+  int part_rows = 0;
+  rc = launch_attention_bwd<true, bf16>(a, &part_rows, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db_qkv, part_rows, 3 * D, st);
   if (rc) return rc;
 
   rc = weight_grad(dyb, D, attn, D, M, k_chunk, ws_part, dw_proj, st);

@@ -3,9 +3,10 @@
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor; it counts its launches in a plain integer
 attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
-replaces and its source. The four wrappers of the forward attention core
-(``ATTENTION_CORE``) also count each of its two kernels, ``tc_launches``
-(tensor cores) and ``simt_launches`` (CUDA cores).
+replaces and its source. The six wrappers of the attention cores
+(``ATTENTION_CORE``: the forward of K1, K3a, K10a and K10c, the backward of
+K3b and K10b) also count each of its two variants, ``tc_launches`` (tensor
+cores) and ``simt_launches`` (CUDA cores).
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -74,9 +75,11 @@ KERNELS = (
 )
 
 
-# the wrappers that launch csrc/attention.cuh's forward attention core
+# the wrappers that launch the attention cores: csrc/attention.cuh's
+# forward and csrc/attention_bwd.cuh's backward
 ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
-                  "K10a flash_attention fwd", "K10c flash_attention importance")
+                  "K3b fused_block_attn_train bwd", "K10a flash_attention fwd",
+                  "K10b flash_attention bwd", "K10c flash_attention importance")
 
 
 def reset_launch_counts() -> None:

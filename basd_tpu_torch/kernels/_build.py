@@ -42,14 +42,14 @@ _SIGNATURES = {
         [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P]
     ),
     "basd_block_attn_train_bwd": (
-        [_P] * 24 + [_I] * 6 + [_F, _F, _P]
+        [_P] * 25 + [_I] * 6 + [_F, _F, _P]
     ),
     "basd_block_mlp_bwd": (
         [_P] * 23 + [_I] * 6 + [_F, _P]
     ),
     "basd_flash_attn_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_imp": [_P] * 4 + [_I] * 4 + [_F, _P],
-    "basd_flash_attn_bwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "basd_flash_attn_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],

@@ -33,8 +33,11 @@ The attention of K1 and K3a is the forward attention core of
 says which of its two kernels a slab takes (the tensor-core kernel for bf16
 with a head width E % 16 == 0, 16 <= E <= 128; the CUDA-core kernel for
 any other even E and for f32), ``_attn_fwd_smem`` the shared memory it
-needs. Each of the four wrappers counts its launches of each variant in
-``tc_launches`` and ``simt_launches`` beside ``launches``.
+needs. K3b's attention is the backward core of ``csrc/attention_bwd.cuh``,
+which K10b shares, with the same rule (``attn_bwd_variant``) and two
+launches of either variant (``_attn_bwd_smem``). Each of the six wrappers
+counts its launches of each variant in ``tc_launches`` and
+``simt_launches`` beside ``launches``.
 """
 
 from __future__ import annotations
@@ -232,6 +235,43 @@ def _attn_fwd_smem(n: int, e: int, variant: str, itemsize: int = 2) -> int:
     return n * (e + 2) * itemsize + n * e * itemsize + 8 * (n + e) * 4
 
 
+def attn_bwd_variant(dtype: torch.dtype, e: int) -> str:
+    """The backward attention kernels ``csrc/attention_bwd.cuh`` launches
+    for a slab of ``dtype`` and head width ``e`` (its
+    ``launch_attention_bwd`` decides the same before launch): the forward's
+    rule, ``"tc"`` (tensor cores) for bf16 with ``e % 16 == 0`` and
+    ``16 <= e <= 128``, ``"simt"`` (CUDA cores) otherwise."""
+    return attn_fwd_variant(dtype, e)
+
+
+def _attn_bwd_smem(n: int, e: int, variant: str, itemsize: int = 2) -> int:
+    """Dynamic shared memory of the larger of the backward's two launches
+    (the key-tiled one), bytes; ``attn_bwd_*_smem`` in the C header.
+
+    ``"tc"``, whatever N: K and V of the 64-key tile and two stages of a
+    64-query block's Q and dO, rows E + 8 bf16 wide; the 64 x 64 P and dS
+    tiles (rows 72 wide); two stages of the block's lse and delta; four
+    warps' column sums of dk and dv. ``"simt"``: Q and dO of one (image,
+    head) in rows E + 2 wide of ``itemsize``; lse and delta; for each of 8
+    warps its k and v rows, two f32 rows of N and its column sums."""
+    if variant == "tc":
+        return 6 * 64 * (e + 8) * 2 + 2 * 64 * 72 * 2 + 4 * 64 * 4 + 8 * e * 4
+    common = 2 * n * (e + 2) * itemsize + 8 * 2 * (e + 2) * itemsize + 8 * 2 * n * 4
+    return common + 2 * n * 4 + 8 * 2 * e * 4
+
+
+def _attn_bwd_variant_checked(name, dtype, n, e, ptrs):
+    """The variant of a backward launch, after its shared-memory and
+    alignment checks (the tensor-core kernels stage 16-byte chunks of every
+    pointer in ``ptrs``)."""
+    variant = attn_bwd_variant(dtype, e)
+    _check_smem(name, _attn_bwd_smem(n, e, variant, dtype.itemsize), n, e)
+    if variant == "tc" and any(p % 16 for p in ptrs):
+        raise ValueError(f"{name}: the qkv slab and do must start 16-byte "
+                         f"aligned")
+    return variant
+
+
 def _attn_fwd_variant_checked(name, dtype, n, e, ptr):
     """The variant of a CUDA launch, after its shared-memory and alignment
     checks (the tensor-core kernel reads 16-byte chunks of the slab)."""
@@ -337,7 +377,9 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
                                b_qkv, w_proj, num_heads: int,
                                eps: float = 1e-6):
     """K3b: ``(dx bf16, dw_qkv, db_qkv, dw_proj, db_proj, dln_scale,
-    dln_bias)``, the gradients f32 and summed over the batch."""
+    dln_bias)``, the gradients f32 and summed over the batch. On CUDA its
+    attention takes the tensor-core backward for E % 16 == 0 in [16, 128]
+    and the CUDA-core one for any other even E (``attn_bwd_variant``)."""
     if x.device.type == "cpu":
         return block_attn_train_plain_bwd(x, mask, dout, lse, ln_scale,
                                           ln_bias, w_qkv, b_qkv, w_proj,
@@ -350,9 +392,9 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
                              None)
                 + [("dout", dout, bf, (b, n, d)), ("lse", lse, f32, (b, h, n))])
     e = d // h
-    # q, k, v and dattn of one (image, head), two score rows per warp
-    _check_smem("fused_block_attn_train_bwd", 4 * n * (e + 2) * 2 + 2 * n * 4
-                + 8 * (2 * n + 3 * e) * 4, n, e)
+    # the attention reads the qkv and dattn workspaces, fresh and so aligned
+    variant = _attn_bwd_variant_checked("fused_block_attn_train_bwd", bf, n,
+                                        e, ())
     m = b * n
     dev = x.device
     k_chunk = split_k_chunk(m, -(-3 * d // 64) * -(-d // 64))
@@ -370,8 +412,11 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
                        for _ in range(2))
     ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
     ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
-    ws_part = torch.empty((max(splits * 3 * d * d, b * 3 * d, 2 * chunks * d),),
-                          dtype=f32, device=dev)
+    # the attention's column sums: one row per (image, 64-query tile)
+    tiles = -(-n // 64)
+    ws_part = torch.empty((max(splits * 3 * d * d, b * tiles * 3 * d,
+                               2 * chunks * d),), dtype=f32, device=dev)
+    ws_delta = torch.empty((b, h, n), dtype=f32, device=dev)
     _build.call(
         "basd_block_attn_train_bwd",
         x.data_ptr(), mask.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -381,17 +426,18 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
         dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
         ws_stats.data_ptr(), ws_qkv.data_ptr(), ws_dyb.data_ptr(),
         ws_f32.data_ptr(), ws_attn.data_ptr(), ws_dqkv.data_ptr(),
-        ws_part.data_ptr(), b, n, d, h, k_chunk, _ROW_CHUNK, float(eps),
-        float(e) ** -0.5, _build.stream_ptr(dev),
+        ws_part.data_ptr(), ws_delta.data_ptr(), b, n, d, h, k_chunk,
+        _ROW_CHUNK, float(eps), float(e) ** -0.5, _build.stream_ptr(dev),
     )
-    fused_block_attn_train_bwd.launches += 1
+    _count_attn_launch(fused_block_attn_train_bwd, variant)
     return dx, dw_qkv, db_qkv, dw_proj, db_proj, dln_s, dln_b
 
 
 fused_block_attn.launches = 0
 fused_block_attn_train_fwd.launches = 0
 fused_block_attn_train_bwd.launches = 0
-for _fn in (fused_block_attn, fused_block_attn_train_fwd):
+for _fn in (fused_block_attn, fused_block_attn_train_fwd,
+            fused_block_attn_train_bwd):
     _fn.tc_launches = _fn.simt_launches = 0
 
 

@@ -28,9 +28,12 @@ core of ``csrc/attention.cuh``: a bf16 slab whose head width E is a
 multiple of 16 in [16, 128] takes its tensor-core kernel, an f32 slab or
 any other even E its CUDA-core kernel (``block_attn.attn_fwd_variant``;
 each wrapper counts them in ``tc_launches`` and ``simt_launches``). The
-backward (K10b) runs on CUDA cores at both dtypes; at f32 its (image, head)
-needs ~222 KB of shared memory at N=197, E=64, and an N or E beyond the
-card's 227 KB (N=257 at E=64) raises before launch. The plain
+backward (K10b) is the backward core of ``csrc/attention_bwd.cuh``, which
+K3b shares, with the same rule (``block_attn.attn_bwd_variant``): on
+tensor cores, tiled over 64-query and 64-key blocks, its shared memory
+does not grow with N; on CUDA cores (f32, other even E) each of its two
+launches holds two of q, k, v and do of one (image, head), ~159 KB at f32,
+N=257, E=64 (``block_attn._attn_bwd_smem``). The plain
 importance follows the TPU kernel the head count selects: for an even
 count the head-pair kernel (rows pre-divided by l * H, added pair by pair),
 for an odd one the head-loop kernel (rows over l summed, then over H).
@@ -42,9 +45,9 @@ import torch
 
 from basd_tpu_torch.kernels import _build
 from basd_tpu_torch.kernels.block_attn import (
+    _attn_bwd_variant_checked,
     _attn_fwd_variant_checked,
     _check,
-    _check_smem,
     _count_attn_launch,
     _heads,
     _merge_heads,
@@ -193,9 +196,8 @@ def flash_attention_imp(qkv, num_heads: int, scale: float):
 
 def flash_attention_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
     """K10b: dqkv (B, N, 3D) in qkv's dtype; ``dout`` in qkv's dtype. On
-    CUDA one CUDA-core kernel at bf16 and f32; raises where an (image,
-    head) needs more shared memory than a block has (at f32: N=257, E=64).
-    """
+    CUDA the tensor-core kernels for bf16 with E % 16 == 0 in [16, 128],
+    the CUDA-core ones for f32 or another even E (two launches each)."""
     if qkv.device.type == "cpu":
         return flash_attention_plain_bwd(qkv, o, dout, lse, num_heads, scale)
     b, n = qkv.shape[:2]
@@ -204,29 +206,23 @@ def flash_attention_bwd(qkv, o, dout, lse, num_heads: int, scale: float):
         "flash_attention_bwd", qkv, num_heads,
         [("o", o, qkv.dtype, (b, n, d)), ("dout", dout, qkv.dtype, (b, n, d)),
          ("lse", lse, torch.float32, (b, num_heads, n))])
-    # q, k, v and do of one (image, head), lse, delta, two rows per warp
-    _check_smem("flash_attention_bwd", _bwd_smem(n, e, qkv.element_size()),
-                n, e)
+    variant = _attn_bwd_variant_checked("flash_attention_bwd", qkv.dtype, n,
+                                        e, (qkv.data_ptr(), dout.data_ptr()))
     dqkv = torch.empty_like(qkv)
+    ws_delta = torch.empty((b, num_heads, n), dtype=torch.float32,
+                           device=qkv.device)
     _build.call(_build.entry("basd_flash_attn_bwd", qkv.dtype),
                 qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                dqkv.data_ptr(), b, n, d, num_heads, float(scale),
-                _build.stream_ptr(qkv.device))
-    flash_attention_bwd.launches += 1
+                dqkv.data_ptr(), ws_delta.data_ptr(), b, n, d, num_heads,
+                float(scale), _build.stream_ptr(qkv.device))
+    _count_attn_launch(flash_attention_bwd, variant)
     return dqkv
-
-
-def _bwd_smem(n: int, e: int, itemsize: int) -> int:
-    """Dynamic shared memory of one backward block, bytes: q, k, v and do
-    of one (image, head) in rows E + 2 wide, lse, delta, and two f32 rows
-    of N for each of 8 warps."""
-    return 4 * n * (e + 2) * itemsize + 2 * n * 4 + 8 * 2 * n * 4
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_imp.launches = 0
-for _fn in (flash_attention_fwd, flash_attention_imp):
+for _fn in (flash_attention_fwd, flash_attention_imp, flash_attention_bwd):
     _fn.tc_launches = _fn.simt_launches = 0
 
 

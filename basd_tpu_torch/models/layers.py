@@ -18,13 +18,19 @@ buffer is given and K4 (``fused_ln_mlp``) otherwise. Off CUDA, ``auto``
 takes the module chain, as the JAX package does off the TPU. An explicit
 ``fused_block`` / ``fused_block_train`` / ``fused_ln`` forces the kernel
 path (on a CPU tensor, its plain version); ``module`` forces the module
-chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA).
+chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). K2 and K4
+are bf16 kernels: an explicit ``fused_ln`` on a block of another dtype
+raises ``NotImplementedError`` on CUDA (``block_mlp_path``) rather than
+taking the module chain, whose f32 erf-GELU is not the tanh-GELU of the
+reference's f32 ``fused_ln``; on the CPU its plain version runs in the
+block's dtype, as the reference's Pallas kernel does in interpret mode.
 
 Inside the module chain (``layers.py:140-290``), ``Attention`` takes
 ``attention_impl``: ``flash`` runs K10 on the packed qkv slab
 (``kernels.flash_attention``; with ``importance_mode='cls'`` the forward-only
-importance variant), ``einsum`` the plain attention, and ``auto`` K10 for a
-bf16 slab on CUDA and einsum otherwise; ``importance_mode='mean'`` always
+importance variant), ``einsum`` the plain attention, and ``auto`` K10 on
+CUDA at any dtype and einsum otherwise (``attention_auto_impl``, as
+``layers.py:247-251`` picks flash on the TPU); ``importance_mode='mean'`` always
 takes einsum, which it needs the full probabilities for. ``Mlp`` takes
 ``mlp_impl``: ``fused`` runs K11 (``kernels.fused_mlp``, tanh-GELU at every
 dtype), ``dense`` the Linear chain, ``auto`` K11 for a bf16 3-D input on
@@ -61,6 +67,30 @@ def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float):
     m = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
                                                 device=x.device)).to(x.dtype)
+
+
+def attention_auto_impl(is_cuda: bool) -> str:
+    """What ``Attention``'s ``attention_impl='auto'`` takes: K10
+    (``'flash'``) on CUDA at any dtype, as the reference takes it on the
+    TPU (``layers.py:247-251``), ``'einsum'`` elsewhere."""
+    return "flash" if is_cuda else "einsum"
+
+
+def block_mlp_path(impl: str, is_cuda: bool, dtype: torch.dtype,
+                   ndim: int) -> str:
+    """``Block``'s MLP dispatch (``layers.py:503-517``): 'fused_ln' (K2 /
+    K4) or the module chain. ``auto`` takes K2 / K4 for a bf16 3-D block
+    on CUDA. An explicit ``fused_ln`` at another dtype raises on CUDA: the
+    kernels are bf16-only, and the module chain would compute another
+    function (erf-GELU at f32, where the reference's f32 ``fused_ln`` uses
+    tanh-GELU)."""
+    if impl == "auto" and is_cuda and ndim == 3 and dtype == torch.bfloat16:
+        impl = "fused_ln"
+    if impl == "fused_ln" and is_cuda and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"f32 fused_ln on CUDA: K2/K4 are bf16 kernels (block dtype "
+            f"{dtype}); use mlp_impl='auto' or 'module'")
+    return impl
 
 
 class Linear(nn.Linear):
@@ -162,8 +192,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x)
         impl = impl or self.attention_impl
         if impl == "auto":
-            impl = ("flash" if qkv.is_cuda and qkv.dtype == torch.bfloat16
-                    else "einsum")
+            impl = attention_auto_impl(qkv.is_cuda)
         importance = None
         if impl == "flash" and self.importance_mode != "mean":
             if self.importance_mode == "cls":
@@ -254,12 +283,9 @@ class Block(nn.Module):
         return impl
 
     def _mlp_path(self, x) -> str:
-        """``layers.py:503-517``: 'fused_ln' (K2 / K4) or the module chain."""
-        impl = self.mlp_impl
-        if impl == "auto" and x.is_cuda and x.dim() == 3 and (
-                self.compute_dtype == torch.bfloat16):
-            impl = "fused_ln"
-        return impl
+        """'fused_ln' (K2 / K4) or the module chain (``block_mlp_path``)."""
+        return block_mlp_path(self.mlp_impl, x.is_cuda, self.compute_dtype,
+                              x.dim())
 
     @staticmethod
     def _fold(w, b, ls):
@@ -316,12 +342,15 @@ class Block(nn.Module):
 
         mlp_path = self._mlp_path(x)
         if mlp_path == "fused_ln":
+            # the weights in the block's dtype, as the reference casts them
+            # to self.dtype (layers.py:534-540)
+            dt = self.compute_dtype
             w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
                                 self.ls2)
             args = (self._mask(drop, 1, x.shape[0], x.device),
                     self.norm2.weight.float(), self.norm2.bias.float(),
-                    self.mlp.fc1.weight.to(bf), self.mlp.fc1.bias.float(),
-                    w2.to(bf), b2.float())
+                    self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.float(),
+                    w2.to(dt), b2.float())
             if buf is not None:
                 x = fused_ln_mlp_collect(x.contiguous(), *args, buf, idx,
                                          self.norm_eps)

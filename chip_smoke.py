@@ -26,7 +26,11 @@ the script exits non-zero without printing a result:
    heads); the bf16 forward attention of K1, K3a, K10a and K10c runs
    ``csrc/attention.cuh``'s tensor-core kernel, and K10a is also held at
    head widths 32 and 128 on it and at one it does not take (E=24, the
-   CUDA-core kernel); K10a,
+   CUDA-core kernel); the bf16 backward of K3b and K10b runs
+   ``csrc/attention_bwd.cuh``'s tensor-core kernels, two calls on the same
+   inputs give the same bits, and K10b is also held at E=32, E=128 and
+   N=257 (12 heads) on them and at E=24 on the CUDA-core ones, K3b at E=32
+   and E=24, and K10b at f32 at (8, 257, 2304), 12 heads; K10a,
    K10b, K10c, K11a and K11b also on f32 tensors (B=8, N=197, the student's
    and the teacher's widths), each against its plain version and timed;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
@@ -34,8 +38,8 @@ the script exits non-zero without printing a result:
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
    backend: every kernel but K8, K10 and K11 must launch (K1-K4 a multiple
    of 12 times), those never, and the step losses must be finite; in this
-   and the two runs below every launch of K1, K3a, K10a and K10c must take
-   the tensor-core attention kernel (``check_core_variants``);
+   and the two runs below every launch of K1, K3a, K3b, K10a, K10b and K10c
+   must take the tensor-core attention kernels (``check_core_variants``);
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
@@ -57,8 +61,9 @@ the script exits non-zero without printing a result:
    svd's, finite gradients; then per-stage CUDA-event times of further
    train steps of the three trainers;
 5. with ``--profile`` only: ``torch.profiler`` over 3 more steps of each
-   trainer, for the device-busy share, device activities per step and the
-   top device ops.
+   trainer, for the device-busy share, device activities per step, the
+   top device ops and the device time per launch of the attention
+   backward's kernels.
 
 The last three lines of standard output are the kernels' JSON (each
 kernel's launches from the train run that takes it), the card's name and
@@ -270,6 +275,8 @@ def kernel_phase(torch, device):
     refs = block_attn.block_attn_train_plain_bwd(*args3b)
     # recomputed qkv, dattn, the six attention products, dW_proj, dW_qkv, dxn
     flops = 2 * s_rows * ds * ds * 11 + 6 * 2 * b * n * n * ds
+    check_repeatable(torch, "K3b", grads,
+                     block_attn.fused_block_attn_train_bwd(*args3b))
     record("K3b fused_block_attn_train bwd", check_grads("K3b", grads, refs),
            lambda: block_attn.fused_block_attn_train_bwd(*args3b),
            lambda: block_attn.block_attn_train_plain_bwd(*args3b),
@@ -416,6 +423,8 @@ def kernel_phase(torch, device):
     err = check_close("K10b dqkv", dqkv,
                       flash_attention.flash_attention_plain_bwd(*args10b),
                       2 ** -5, 1.0)
+    check_repeatable(torch, "K10b", (dqkv,),
+                     (flash_attention.flash_attention_bwd(*args10b),))
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl)
     lib_do = do10.reshape(b, n, hs, ds // hs).transpose(1, 2).contiguous()
@@ -471,6 +480,7 @@ def kernel_phase(torch, device):
           "K10a at E=24 must take the CUDA-core kernel")
     print(f"kernel K10a flash_attention fwd at (8, {n}, 216), 3 heads (E=24, "
           f"CUDA-core kernel): max_abs_err={err}")
+    attention_bwd_checks(torch, rn, block_attn, flash_attention)
     f32_checks(torch, rn, flash_attention, fused_mlp)
 
     # K11 at the student's MLP (D=192, F=768); no single PyTorch call
@@ -561,10 +571,65 @@ def f32_checks(torch, rn, flash_attention, fused_mlp, b: int = 8, n: int = 197):
             print(line)
 
 
+def check_repeatable(torch, name, outs, again) -> None:
+    """A second call on the same inputs gave the same bits: the kernel adds
+    across blocks in a fixed order, with no atomics."""
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip(outs, again)),
+          f"{name}: two calls on the same inputs differ")
+
+
+def attention_bwd_checks(torch, rn, block_attn, flash_attention, b: int = 8,
+                         n: int = 197):
+    """The backward attention core (``csrc/attention_bwd.cuh``) beyond the
+    train step's shapes, each against its plain version and each on the
+    variant named: K10b at bf16 on the tensor-core kernels at head widths
+    32 and 128 and at N=257 with 12 heads (dinov2_vitb14's tokens, B=32),
+    on the CUDA-core ones at E=24, dqkv within 2^-5 of max(|ref|, 1); K10b
+    at f32 at (8, 257, 3 * 768), 12 heads, on the CUDA-core kernels, within
+    1e-3 of max(|ref|); K3b at E=32 (tensor cores) and E=24 (CUDA cores)
+    within ``check_grads``'s tolerances."""
+    bf, f32 = torch.bfloat16, torch.float32
+    fa, ba = flash_attention, block_attn
+    for bsz, nn, e, h, dt, variant in (
+            (b, n, 32, 6, bf, "tc"), (b, n, 128, 3, bf, "tc"),
+            (b, n, 24, 3, bf, "simt"), (32, 257, 64, 12, bf, "tc"),
+            (8, 257, 64, 12, f32, "simt")):
+        d, scale = e * h, e ** -0.5
+        qkv = rn(bsz, nn, 3 * d).to(dt)
+        o, lse = fa.flash_attention_plain_fwd(qkv, h, scale)
+        args = (qkv, o, rn(bsz, nn, d).to(dt), lse, h, scale)
+        before = getattr(fa.flash_attention_bwd, f"{variant}_launches")
+        dqkv = fa.flash_attention_bwd(*args)
+        where = f"K10b {dt} ({bsz}, {nn}, {3 * d}), {h} heads (E={e}, {variant})"
+        err = (check_close(where, dqkv, fa.flash_attention_plain_bwd(*args),
+                           2 ** -5, 1.0) if dt == bf else
+               check_close(where, dqkv, fa.flash_attention_plain_bwd(*args), 1e-3))
+        check(getattr(fa.flash_attention_bwd, f"{variant}_launches") == before + 1,
+              f"{where} did not take the {variant} kernels")
+        print(f"kernel {where}: max_abs_err={err}")
+    for e, h, variant in ((32, 6, "tc"), (24, 3, "simt")):
+        d = e * h
+        x = rn(b, n, d).to(bf)
+        mask = torch.ones(b, device=x.device)
+        params = (1.0 + 0.1 * rn(d), 0.1 * rn(d), rn(3 * d, d, scale=d ** -0.5).to(bf),
+                  0.1 * rn(3 * d), rn(d, d, scale=d ** -0.5).to(bf), 0.1 * rn(d))
+        _, lse = ba.block_attn_train_plain_fwd(x, mask, *params, h)
+        args = (x, mask, rn(b, n, d).to(bf), lse, *params[:5], h)
+        before = getattr(ba.fused_block_attn_train_bwd, f"{variant}_launches")
+        err = check_grads(f"K3b E={e}", ba.fused_block_attn_train_bwd(*args),
+                          ba.block_attn_train_plain_bwd(*args))
+        check(getattr(ba.fused_block_attn_train_bwd, f"{variant}_launches")
+              == before + 1, f"K3b at E={e} did not take the {variant} kernels")
+        print(f"kernel K3b at ({b}, {n}, {d}), {h} heads (E={e}, {variant}): "
+              f"max_abs_err={err}")
+
+
 def check_core_variants(label, counts, variants) -> None:
-    """Every launch of K1, K3a, K10a and K10c in a train run took the
-    tensor-core attention kernel, none the CUDA-core one (the step's slabs
-    are bf16 with E=64)."""
+    """Every launch of K1, K3a, K10a and K10c (the forward attention core)
+    and of K3b and K10b (the backward one) in a train run took the
+    tensor-core kernels, none the CUDA-core ones (the step's slabs are bf16
+    with E=64)."""
     print(f"attention core variants {label} {variants}")
     for name, v in variants.items():
         check(v["tc"] == counts[name] and v["simt"] == 0,
@@ -939,6 +1004,11 @@ def profile_steps(torch, trainer, out_path, steps: int = 3) -> dict:
         print(f"profile op {a.key[:60]!r}: self_device_ms_per_step="
               f"{a.self_device_time_total / 1e3 / steps} calls_per_step="
               f"{a.count / steps}")
+    for a in averages:  # the attention backward's kernels, per launch
+        if "attn_bwd" in a.key and a.count:
+            print(f"profile kernel {a.key[:70]!r}: device_ms_per_launch="
+                  f"{a.self_device_time_total / 1e3 / a.count} calls_per_step="
+                  f"{a.count / steps}")
     if out_path is not None:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(

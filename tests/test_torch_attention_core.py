@@ -6,8 +6,9 @@ at f32, as far as the CPU reaches them.
   JAX package's ``flash_attention_qkv(_with_importance)`` kernels in
   interpret mode at the slice's real widths (N=197; the student's D=192
   with 3 heads, the DeiT-S teacher's D=384 with 6), bf16 and f32, B=2.
-- The dispatch between the tensor-core and the CUDA-core kernel and the
-  shared memory each needs, as pure functions.
+- The dispatch between the tensor-core and the CUDA-core kernels of the
+  forward and the backward attention cores and the shared memory each
+  needs, as pure functions.
 - The type rules of the CUDA paths of K10 and K11, split from their device
   check, so that an f32 tensor is seen to reach the kernels' entries; and
   the ctypes signatures of every entry against its C declaration.
@@ -145,18 +146,56 @@ def test_attention_core_smem_fits(n, e, variant, itemsize, expected):
     ba._check_smem("test", smem, n, e)
 
 
-@pytest.mark.parametrize("n,itemsize,fits", [
-    (197, 2, True), (257, 2, True), (197, 4, True), (257, 4, False)])
-def test_flash_bwd_smem(n, itemsize, fits):
-    """K10b's (image, head) at E=64: ~222 KB at f32 and N=197, just under
-    the 227 KB a block can have; N=257 at f32 raises before launch."""
-    smem = fa._bwd_smem(n, 64, itemsize)
-    assert smem == 4 * n * 66 * itemsize + 2 * n * 4 + 8 * 2 * n * 4
+@pytest.mark.parametrize("dtype,e,variant", [
+    (torch.bfloat16, 64, "tc"),    # K3b and K10b at every registry preset
+    (torch.bfloat16, 32, "tc"),
+    (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 24, "simt"),  # even, not a multiple of 16
+    (torch.bfloat16, 144, "simt"),
+    (torch.float32, 64, "simt"),   # K10b at f32
+])
+def test_attention_bwd_dispatch(dtype, e, variant):
+    assert ba.attn_bwd_variant(dtype, e) == variant
+
+
+@pytest.mark.parametrize("n,e,variant,itemsize,fits", [
+    # tensor cores: 64-key and 64-query blocks, the same bytes at any N
+    (197, 64, "tc", 2, True),
+    (257, 64, "tc", 2, True),
+    (4096, 64, "tc", 2, True),
+    (197, 128, "tc", 2, True),
+    # CUDA cores: two of q, k, v and do of one (image, head) per launch;
+    # f32 at N=257, E=64 (dinov2_vitb14's tokens) fits
+    (197, 64, "simt", 4, True),
+    (257, 64, "simt", 4, True),
+    (197, 24, "simt", 2, True),
+    (1024, 64, "simt", 4, False),
+])
+def test_flash_bwd_smem(n, e, variant, itemsize, fits):
+    """The backward's shared memory (K10b's and K3b's attention): constant
+    in N on tensor cores, linear in N on CUDA cores."""
+    smem = ba._attn_bwd_smem(n, e, variant, itemsize)
+    if variant == "tc":
+        assert smem == (6 * 64 * (e + 8) * 2 + 2 * 64 * 72 * 2 + 4 * 64 * 4
+                        + 8 * e * 4)
+    else:
+        assert smem == (2 * n * (e + 2) * itemsize + 2 * n * 4
+                        + 8 * (2 * (e + 2) * itemsize + 2 * n * 4 + 2 * e * 4))
     if fits:
-        fa._check_smem("K10b", smem, n, 64)
+        ba._check_smem("K10b", smem, n, e)
     else:
         with pytest.raises(ValueError, match="shared memory"):
-            fa._check_smem("K10b", smem, n, 64)
+            ba._check_smem("K10b", smem, n, e)
+
+
+def test_attention_bwd_checked_variant_alignment():
+    checked = ba._attn_bwd_variant_checked
+    assert checked("K", torch.bfloat16, 257, 64, (256, 512)) == "tc"
+    assert checked("K", torch.float32, 257, 64, (4, 8)) == "simt"
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        checked("K", torch.bfloat16, N, 64, (256, 8))
+    with pytest.raises(ValueError, match="shared memory"):
+        checked("K", torch.float32, 1024, 64, ())
 
 
 def test_attention_core_checked_variant_alignment():
