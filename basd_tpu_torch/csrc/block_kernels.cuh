@@ -1,17 +1,19 @@
 // Device code shared by the block kernels of csrc/block.cu (K1, K2 and the
 // K3a/K4a forwards), csrc/block_train.cu (the K3b/K4b backwards) and
-// csrc/fused_mlp.cu (K11): the row LayerNorm, one tiled GEMM with the
+// csrc/fused_mlp.cu (K11): the row LayerNorm, the tiled GEMMs with the
 // epilogues the Pallas kernels round through, the column sums of an
 // incoming gradient, the split-K weight gradient and the fixed-order
 // reduction of partial sums. Everything launches on the caller's stream
 // and returns the first launch error, or 0.
 //
 // The GEMM takes bf16 operands on the tensor cores (WMMA, common.cuh's
-// tile_mma_k) or, for K11's f32 path, f32 operands on CUDA cores
-// (gemm_f32_kernel: full-f32 fused multiply-adds in order over k, no TF32,
-// which the f32 paths of the reference keep off). Both leave the f32 tile
-// in shared memory for one epilogue, templated on the element type T:
-// every rounding to T there is the identity at f32.
+// tile_mma_k) or, for the f32 paths of K2/K4 and K11, f32 operands on CUDA
+// cores (gemm_f32_kernel: full-f32 fused multiply-adds in order over k, no
+// TF32, which the f32 paths of the reference keep off). The forward
+// products (launch_gemm_nk) take gemm_sm90.cuh's wgmma GEMM instead of the
+// WMMA tile where its rule allows. All three leave the f32 tile in shared
+// memory for one epilogue, templated on the element type T and on the
+// tile's size: every rounding to T there is the identity at f32.
 #pragma once
 
 #include "common.cuh"
@@ -33,34 +35,36 @@ __device__ __forceinline__ float gelu_tanh_grad(float p) {
          0.5f * p * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_A * p * p);
 }
 
-// One warp per row: f32 two-pass statistics, out = bf16(xhat * s + b).
-// With mu/rstd not null the row statistics are stored too (the backward
-// kernels recompute the LayerNorm and reuse them for its VJP).
-static __global__ void layernorm_bf16_kernel(const bf16* __restrict__ x,
-                                      const float* __restrict__ scale,
-                                      const float* __restrict__ bias,
-                                      bf16* __restrict__ out,
-                                      float* __restrict__ mu_out,
-                                      float* __restrict__ rstd_out, int rows,
-                                      int d, float eps) {
+// One warp per row: f32 two-pass statistics, out = T(xhat * s + b) (the
+// identity rounding at f32). With mu/rstd not null the row statistics are
+// stored too (the backward kernels recompute the LayerNorm and reuse them
+// for its VJP).
+template <typename T>
+static __global__ void layernorm_kernel(const T* __restrict__ x,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias,
+                                        T* __restrict__ out,
+                                        float* __restrict__ mu_out,
+                                        float* __restrict__ rstd_out, int rows,
+                                        int d, float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * d;
-  bf16* orow = out + (size_t)row * d;
+  const T* xr = x + (size_t)row * d;
+  T* orow = out + (size_t)row * d;
   const float inv_d = 1.f / (float)d;
   float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += bf2f(xr[i]);
+  for (int i = lane; i < d; i += 32) s += to_f(xr[i]);
   const float mu = warp_sum(s) * inv_d;
   float sq = 0.f;
   for (int i = lane; i < d; i += 32) {
-    const float c = bf2f(xr[i]) - mu;
+    const float c = to_f(xr[i]) - mu;
     sq += c * c;
   }
   const float var = warp_sum(sq) * inv_d;
   const float rstd = rsqrtf(var + eps);
   for (int i = lane; i < d; i += 32) {
-    orow[i] = f2bf((bf2f(xr[i]) - mu) * rstd * scale[i] + bias[i]);
+    orow[i] = from_f<T>((to_f(xr[i]) - mu) * rstd * scale[i] + bias[i]);
   }
   if (mu_out != nullptr && lane == 0) {
     mu_out[row] = mu;
@@ -96,45 +100,131 @@ struct GemmT {
   const T* aux;        // residual (EPI_BIAS_RESIDUAL) or pre-GELU (EPI_DGELU)
   const float* mask;   // per block of rows_per_mask rows; null means 1
   int rows_per_mask;
+  bool epi_vec;        // 16-byte epilogue accesses are legal (epi_vec_ok)
 };
 using Gemm = GemmT<bf16>;
 
-// The epilogue of one BM x BN tile whose f32 sums sit in shared memory at
-// c (row stride C_LD). Must be called by all TILE_THREADS threads.
+// Elements of T in 16 bytes: the bias epilogues' vector width.
+template <typename T>
+__host__ __device__ constexpr int epi_width() {
+  return 16 / (int)sizeof(T);
+}
+
+// The bias epilogues may move 16 bytes at a time: N a multiple of the
+// width and every pointer they touch 16-byte aligned.
+template <typename T>
+inline bool epi_vec_ok(const GemmT<T>& g) {
+  auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return g.N % epi_width<T>() == 0 && al(g.bias) && al(g.out) && al(g.out2) &&
+         al(g.aux);
+}
+
+// The bias epilogues' arithmetic on one element: y = T(acc + bias); out =
+// y, T(gelu(y)) or T(aux + y * m) (mask and residual in f32, rounded
+// once); out2 = T(gelu(y)) beside the pre-activation, or the residual
+// output's second copy.
 template <int EPI, typename T>
+__device__ __forceinline__ void bias_epilogue(float acc, float bias, float aux,
+                                              float m, T& out, T& out2) {
+  const float y = round_t<T>(acc + bias);
+  if constexpr (EPI == EPI_BIAS) {
+    out = from_f<T>(y);
+  } else if constexpr (EPI == EPI_BIAS_GELU) {
+    out = from_f<T>(gelu_tanh(y));
+  } else if constexpr (EPI == EPI_BIAS_PRE_GELU) {
+    out = from_f<T>(y);
+    out2 = from_f<T>(gelu_tanh(y));
+  } else {  // EPI_BIAS_RESIDUAL
+    out = out2 = from_f<T>(aux + y * m);
+  }
+}
+
+// W elements of T in one 16-byte access.
+template <typename T>
+struct alignas(16) Vec16 {
+  T v[epi_width<T>()];
+};
+
+// The epilogue of one TM x TN tile at (m0, n0) whose f32 sums sit in
+// shared memory at c (row stride LD): the WMMA and f32 tiles' BM x BN and
+// the sm90 GEMM's 128 x TN. Must be called by every thread of the block.
+template <int EPI, typename T, int TM = BM, int TN = BN, int LD = C_LD>
 __device__ void gemm_epilogue(const GemmT<T>& g, float* c, int m0, int n0) {
   if constexpr (EPI == EPI_DGELU) {
-    // d = acc * gelu'(pre) in place in the tile, then each of the first BN
+    // d = acc * gelu'(pre) in place in the tile, then each of the first TN
     // threads sums its column over the tile's rows in order: one partial
-    // row per 64-row tile, summed in a fixed order by reduce_partials.
-    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-      const int r = i / BN;
-      const int cc = i % BN;
+    // row per row tile, summed in a fixed order by reduce_partials.
+    for (int i = threadIdx.x; i < TM * TN; i += blockDim.x) {
+      const int r = i / TN;
+      const int cc = i % TN;
       const int gr = m0 + r;
       const int gc = n0 + cc;
       float d = 0.f;
       if (gr < g.M && gc < g.N) {
         const size_t o = (size_t)gr * g.N + gc;
-        d = c[r * C_LD + cc] * gelu_tanh_grad(to_f(g.aux[o]));
+        d = c[r * LD + cc] * gelu_tanh_grad(to_f(g.aux[o]));
         g.out[o] = from_f<T>(d);
       }
-      c[r * C_LD + cc] = d;
+      c[r * LD + cc] = d;
     }
     __syncthreads();
-    if (threadIdx.x < BN && n0 + threadIdx.x < g.N) {
+    if (threadIdx.x < TN && n0 + threadIdx.x < g.N) {
       float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += c[r * C_LD + threadIdx.x];
+      for (int r = 0; r < TM; ++r) s += c[r * LD + threadIdx.x];
       g.outf[(size_t)blockIdx.y * g.N + n0 + threadIdx.x] = s;
     }
     return;
   }
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = i / BN;
-    const int cc = i % BN;
+  constexpr bool BIAS_EPI = EPI == EPI_BIAS || EPI == EPI_BIAS_GELU ||
+                            EPI == EPI_BIAS_PRE_GELU ||
+                            EPI == EPI_BIAS_RESIDUAL;
+  constexpr bool TWO = EPI == EPI_BIAS_PRE_GELU || EPI == EPI_BIAS_RESIDUAL;
+  constexpr int W = epi_width<T>();
+  if constexpr (BIAS_EPI && TN % W == 0) {
+    if (g.epi_vec) {
+      // W consecutive columns a thread: 16-byte loads of the tile, the bias
+      // and the residual, 16-byte stores
+      for (int i = threadIdx.x; i < TM * (TN / W); i += blockDim.x) {
+        const int r = i / (TN / W);
+        const int cc = (i % (TN / W)) * W;
+        const int gr = m0 + r;
+        const int gc = n0 + cc;
+        if (gr >= g.M || gc >= g.N) continue;
+        const size_t o = (size_t)gr * g.N + gc;
+        float acc[W], bias[W];
+#pragma unroll
+        for (int j = 0; j < W; j += 4) {
+          *reinterpret_cast<float4*>(acc + j) =
+              *reinterpret_cast<const float4*>(c + r * LD + cc + j);
+          *reinterpret_cast<float4*>(bias + j) =
+              *reinterpret_cast<const float4*>(g.bias + gc + j);
+        }
+        Vec16<T> aux{}, out, out2;
+        float m = 1.f;
+        if constexpr (EPI == EPI_BIAS_RESIDUAL) {
+          aux = *reinterpret_cast<const Vec16<T>*>(g.aux + o);
+          if (g.mask) m = g.mask[gr / g.rows_per_mask];
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          bias_epilogue<EPI, T>(acc[j], bias[j], to_f(aux.v[j]), m, out.v[j],
+                                out2.v[j]);
+        }
+        *reinterpret_cast<Vec16<T>*>(g.out + o) = out;
+        if (TWO && g.out2) *reinterpret_cast<Vec16<T>*>(g.out2 + o) = out2;
+      }
+      return;
+    }
+  }
+  for (int i = threadIdx.x; i < TM * TN; i += blockDim.x) {
+    const int r = i / TN;
+    const int cc = i % TN;
     const int gr = m0 + r;
     const int gc = n0 + cc;
     if (gr >= g.M || gc >= g.N) continue;
-    const float acc = c[r * C_LD + cc];
+    const float acc = c[r * LD + cc];
     const size_t o = (size_t)gr * g.N + gc;
     if constexpr (EPI == EPI_F32) {
       g.outf[o] = acc;
@@ -143,20 +233,15 @@ __device__ void gemm_epilogue(const GemmT<T>& g, float* c, int m0, int n0) {
     } else if constexpr (EPI == EPI_PARTIAL) {
       g.outf[(size_t)blockIdx.z * g.M * g.N + o] = acc;
     } else {
-      const float y = round_t<T>(acc + g.bias[gc]);
-      if constexpr (EPI == EPI_BIAS) {
-        g.out[o] = from_f<T>(y);
-      } else if constexpr (EPI == EPI_BIAS_GELU) {
-        g.out[o] = from_f<T>(gelu_tanh(y));
-      } else if constexpr (EPI == EPI_BIAS_PRE_GELU) {
-        g.out[o] = from_f<T>(y);
-        g.out2[o] = from_f<T>(gelu_tanh(y));
-      } else {  // EPI_BIAS_RESIDUAL
-        const float m = g.mask ? g.mask[gr / g.rows_per_mask] : 1.f;
-        const T v = from_f<T>(to_f(g.aux[o]) + y * m);
-        g.out[o] = v;
-        if (g.out2) g.out2[o] = v;
+      float aux = 0.f, m = 1.f;
+      if constexpr (EPI == EPI_BIAS_RESIDUAL) {
+        aux = to_f(g.aux[o]);
+        if (g.mask) m = g.mask[gr / g.rows_per_mask];
       }
+      T out, out2;
+      bias_epilogue<EPI, T>(acc, g.bias[gc], aux, m, out, out2);
+      g.out[o] = out;
+      if (TWO && g.out2) g.out2[o] = out2;
     }
   }
 }
@@ -267,6 +352,7 @@ static int launch_gemm(GemmT<T> g, int k_chunk, cudaStream_t st) {
   g.k_chunk = k_chunk;
   g.a_vec = vec_ok(g.A, g.lda);
   g.b_vec = vec_ok(g.B, g.ldb);
+  g.epi_vec = epi_vec_ok(g);
   const int splits = (g.K + k_chunk - 1) / k_chunk;
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM, splits);
   if constexpr (std::is_same_v<T, float>) {
@@ -278,8 +364,16 @@ static int launch_gemm(GemmT<T> g, int k_chunk, cudaStream_t st) {
   return 0;
 }
 
+}  // namespace basd
+
+#include "gemm_sm90.cuh"
+
+namespace basd {
+
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T + bias): the forward products,
-// W in torch's (out, in) layout.
+// W in torch's (out, in) layout. bf16 operands that pass gemm_nk_tile_n's
+// rule take the sm90 GEMM, other bf16 operands the WMMA tile, f32 ones the
+// CUDA-core tile.
 template <int EPI, typename T>
 static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
                           int M, int N, int K, no_deduce_t<const T*> aux,
@@ -299,16 +393,22 @@ static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
   g.aux = aux;
   g.mask = mask;
   g.rows_per_mask = rows_per_mask;
+  if constexpr (std::is_same_v<T, bf16>) {
+    const int tile_n = gemm_nk_tile_n(N, K, A, W, out);
+    if (tile_n == 128) return sm90::launch<EPI, 128>(g, st);
+    if (tile_n == 64) return sm90::launch<EPI, 64>(g, st);
+  }
   return launch_gemm<false, true, EPI>(g, K, st);
 }
 
-static int launch_layernorm(const bf16* x, const float* s, const float* b,
-                            bf16* out, float* mu, float* rstd, int rows, int d,
+template <typename T>
+static int launch_layernorm(const T* x, const float* s, const float* b,
+                            T* out, float* mu, float* rstd, int rows, int d,
                             float eps, cudaStream_t st) {
   const int threads = 256;
   const int blocks = (int)(((size_t)rows * 32 + threads - 1) / threads);
-  layernorm_bf16_kernel<<<blocks, threads, 0, st>>>(x, s, b, out, mu, rstd,
-                                                    rows, d, eps);
+  layernorm_kernel<T><<<blocks, threads, 0, st>>>(x, s, b, out, mu, rstd,
+                                                  rows, d, eps);
   BASD_CHECK_LAUNCH();
   return 0;
 }

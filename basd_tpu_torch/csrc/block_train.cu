@@ -4,7 +4,9 @@
 // K3b replaces basd_tpu/ops/pallas/fused_block_attn.py:_bwd_train
 // (_bwd_train_kernel), the VJP of  out = x + mask * proj(MHSA(qkv(LN(x)))).
 // K4b replaces basd_tpu/ops/pallas/fused_block_mlp.py:_bwd (_bwd_kernel),
-// the VJP of  out = x + mask * fc2(gelu_tanh(fc1(LN(x)))).
+// the VJP of  out = x + mask * fc2(gelu_tanh(fc1(LN(x)))). Its _f32 entry
+// runs the same chain on f32 tensors through the CUDA-core f32 GEMM, every
+// rounding below then the identity.
 // Both recompute from the block input x (and, for attention, the forward's
 // per-row logsumexp) instead of saving activations, and round where the
 // TPU kernels round: bf16 LN output, bf16 qkv / pre-activation / hidden,
@@ -24,8 +26,10 @@
 // D = 192, F = 768, 3 heads, B=128) K3b is ~36 GFLOP and K4b ~45 GFLOP
 // (counted from the shapes; 0.04-0.05 ms at the bf16 tensor-core peak)
 // against ~0.1 GB of unavoidable traffic (0.03 ms at 3.35 TB/s). This
-// version is bound by neither: the simple WMMA tiles and the round trips
-// of the recomputed slabs through device memory bind it. K3b's attention
+// version is bound by neither: the simple WMMA tiles of the backward
+// products and the round trips of the recomputed slabs through device
+// memory bind it. The recomputed forward products (qkv; fc1) run on
+// gemm_sm90.cuh's wgmma GEMM. K3b's attention
 // is the tensor-core backward core of csrc/attention_bwd.cuh (K10b's too):
 // a query-tiled launch for attn, delta and dq, a key-tiled one for dk and
 // dv, each staging 64-row blocks, so nothing of the N x N scores reaches
@@ -40,14 +44,15 @@
 namespace basd {
 
 // LN VJP, one warp per row: g = dxn * scale,
-// dx = bf16(do + rstd * (g - mean(g) - xhat * mean(g * xhat))).
-__global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x,
-                                   const bf16* __restrict__ dout,
+// dx = T(do + rstd * (g - mean(g) - xhat * mean(g * xhat))).
+template <typename T>
+__global__ void ln_bwd_rows_kernel(const T* __restrict__ x,
+                                   const T* __restrict__ dout,
                                    const float* __restrict__ dxn,
                                    const float* __restrict__ scale,
                                    const float* __restrict__ mu,
                                    const float* __restrict__ rstd,
-                                   bf16* __restrict__ dx, int rows, int d) {
+                                   T* __restrict__ dx, int rows, int d) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -57,7 +62,7 @@ __global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x,
   const float inv_d = 1.f / (float)d;
   float sg = 0.f, sgx = 0.f;
   for (int i = lane; i < d; i += 32) {
-    const float xhat = (bf2f(x[base + i]) - m) * rs;
+    const float xhat = (to_f(x[base + i]) - m) * rs;
     const float g = dxn[base + i] * scale[i];
     sg += g;
     sgx += g * xhat;
@@ -65,16 +70,17 @@ __global__ void ln_bwd_rows_kernel(const bf16* __restrict__ x,
   const float mg = warp_sum(sg) * inv_d;
   const float mgx = warp_sum(sgx) * inv_d;
   for (int i = lane; i < d; i += 32) {
-    const float xhat = (bf2f(x[base + i]) - m) * rs;
+    const float xhat = (to_f(x[base + i]) - m) * rs;
     const float g = dxn[base + i] * scale[i];
     const float dxln = rs * (g - mg - xhat * mgx);
-    dx[base + i] = f2bf(bf2f(dout[base + i]) + dxln);
+    dx[base + i] = from_f<T>(to_f(dout[base + i]) + dxln);
   }
 }
 
 // LN parameter partials over a row chunk, one thread per column:
 // part_s[chunk, c] = sum dxn * xhat, part_b[chunk, c] = sum dxn.
-__global__ void ln_param_partials_kernel(const bf16* __restrict__ x,
+template <typename T>
+__global__ void ln_param_partials_kernel(const T* __restrict__ x,
                                          const float* __restrict__ dxn,
                                          const float* __restrict__ mu,
                                          const float* __restrict__ rstd,
@@ -88,7 +94,7 @@ __global__ void ln_param_partials_kernel(const bf16* __restrict__ x,
   float as = 0.f, ab = 0.f;
   for (int r = r0; r < r1; ++r) {
     const size_t o = (size_t)r * D + c;
-    const float xhat = (bf2f(x[o]) - mu[r]) * rstd[r];
+    const float xhat = (to_f(x[o]) - mu[r]) * rstd[r];
     as += dxn[o] * xhat;
     ab += dxn[o];
   }
@@ -97,18 +103,19 @@ __global__ void ln_param_partials_kernel(const bf16* __restrict__ x,
 }
 
 // LN VJP rows into dx, then the scale/bias sums into dln_s, dln_b.
-static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
+template <typename T>
+static int ln_backward(const T* x, const T* dout, const float* dxn,
                        const float* ln_s, const float* mu, const float* rstd,
-                       bf16* dx, float* dln_s, float* dln_b, float* part,
+                       T* dx, float* dln_s, float* dln_b, float* part,
                        int M, int D, int row_chunk, cudaStream_t st) {
   const int threads = 256;
   const int blocks = (int)(((size_t)M * 32 + threads - 1) / threads);
-  ln_bwd_rows_kernel<<<blocks, threads, 0, st>>>(x, dout, dxn, ln_s, mu, rstd,
-                                                 dx, M, D);
+  ln_bwd_rows_kernel<T><<<blocks, threads, 0, st>>>(x, dout, dxn, ln_s, mu,
+                                                    rstd, dx, M, D);
   BASD_CHECK_LAUNCH();
   const int chunks = (M + row_chunk - 1) / row_chunk;
   dim3 grid((D + 127) / 128, chunks);
-  ln_param_partials_kernel<<<grid, 128, 0, st>>>(
+  ln_param_partials_kernel<T><<<grid, 128, 0, st>>>(
       x, dxn, mu, rstd, part, part + (size_t)chunks * D, M, D, row_chunk);
   BASD_CHECK_LAUNCH();
   int rc = launch_reduce(part, dln_s, chunks, D, st);
@@ -118,9 +125,10 @@ static int ln_backward(const bf16* x, const bf16* dout, const float* dxn,
 
 // outf (rows x n) = A (rows x k) . W (k x n) in f32, W in torch's (out, in)
 // layout read as K x N: the input gradient of a forward x W^T.
-static int input_grad(const bf16* A, const bf16* W, int rows, int k, int n,
+template <typename T>
+static int input_grad(const T* A, const T* W, int rows, int k, int n,
                       float* outf, cudaStream_t st) {
-  Gemm g{};
+  GemmT<T> g{};
   g.A = A;
   g.lda = k;
   g.B = W;
@@ -130,6 +138,67 @@ static int input_grad(const bf16* A, const bf16* W, int rows, int k, int n,
   g.K = k;
   g.outf = outf;
   return launch_gemm<false, false, EPI_F32>(g, k, st);
+}
+
+// K4b's chain in T (bf16, or f32 on the CUDA-core GEMM).
+template <typename T>
+static int mlp_bwd(const void* x, const float* mask, const void* dout,
+                   const float* ln_s, const float* ln_b, const void* w1,
+                   const float* b1, const void* w2, void* dx, float* dw1,
+                   float* db1, float* dw2, float* db2, float* dln_s,
+                   float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre,
+                   void* ws_h, void* ws_dyb, void* ws_dpre, float* ws_f32,
+                   float* ws_part, int B, int N, int D, int F, int k_chunk,
+                   int row_chunk, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * N;
+  const T* xb = static_cast<const T*>(x);
+  const T* dob = static_cast<const T*>(dout);
+  const T* w1b = static_cast<const T*>(w1);
+  const T* w2b = static_cast<const T*>(w2);
+  T* xn = static_cast<T*>(ws_xn);
+  T* pre = static_cast<T*>(ws_pre);
+  T* hid = static_cast<T*>(ws_h);
+  T* dyb = static_cast<T*>(ws_dyb);
+  T* dpre = static_cast<T*>(ws_dpre);
+  float* mu = ws_stats;
+  float* rstd = ws_stats + M;
+
+  int rc = launch_layernorm(xb, ln_s, ln_b, xn, mu, rstd, M, D, eps, st);
+  if (rc) return rc;
+  rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xn, w1b, b1, pre, M, F, D, nullptr,
+                                         nullptr, 1, hid, st);
+  if (rc) return rc;
+  rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
+  if (rc) return rc;
+  rc = weight_grad(dyb, D, hid, F, M, k_chunk, ws_part, dw2, st);
+  if (rc) return rc;
+
+  // dpre = (dyb W2) * gelu'(pre), its copy in T and per-tile column sums
+  GemmT<T> g{};
+  g.A = dyb;
+  g.lda = D;
+  g.B = w2b;
+  g.ldb = F;
+  g.M = M;
+  g.N = F;
+  g.K = D;
+  g.out = dpre;
+  g.aux = pre;
+  g.outf = ws_part;
+  rc = launch_gemm<false, false, EPI_DGELU>(g, D, st);
+  if (rc) return rc;
+  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
+  if (rc) return rc;
+
+  rc = weight_grad(dpre, F, xn, D, M, k_chunk, ws_part, dw1, st);
+  if (rc) return rc;
+  rc = input_grad(dpre, w1b, M, F, D, ws_f32, st);  // dxn
+  if (rc) return rc;
+  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<T*>(dx),
+                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
 }
 
 }  // namespace basd
@@ -210,12 +279,12 @@ extern "C" int basd_block_attn_train_bwd(
                      dln_s, dln_b, ws_part, M, D, row_chunk, st);
 }
 
-// K4b. x, dout, dx: (B, N, D) bf16; mask (B,) f32; w1 (F, D), w2 (D, F)
-// bf16; LN affine and b1 f32. Outputs in f32: dw1 (F, D), db1 (F),
-// dw2 (D, F), db2, dln_s, dln_b (D). Workspaces: ws_xn, ws_dyb (B*N, D)
-// bf16; ws_pre, ws_h, ws_dpre (B*N, F) bf16; ws_stats (2 B*N) f32; ws_f32
-// (B*N, D) f32; ws_part f32 of max(splits * F * D, row tiles * F,
-// 2 * row chunks * D) elements.
+// K4b. x, dout, dx: (B, N, D) bf16 (f32 for the _f32 entry); mask (B,)
+// f32; w1 (F, D), w2 (D, F) in x's type; LN affine and b1 f32. Outputs in
+// f32: dw1 (F, D), db1 (F), dw2 (D, F), db2, dln_s, dln_b (D). Workspaces
+// in x's type: ws_xn, ws_dyb (B*N, D); ws_pre, ws_h, ws_dpre (B*N, F); in
+// f32: ws_stats (2 B*N), ws_f32 (B*N, D), ws_part of max(splits * F * D,
+// row tiles * F, 2 * row chunks * D) elements.
 extern "C" int basd_block_mlp_bwd(
     const void* x, const float* mask, const void* dout, const float* ln_s,
     const float* ln_b, const void* w1, const float* b1, const void* w2,
@@ -223,54 +292,20 @@ extern "C" int basd_block_mlp_bwd(
     float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
     void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
     int D, int F, int k_chunk, int row_chunk, float eps, void* stream) {
-  using namespace basd;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  bf16* xn = static_cast<bf16*>(ws_xn);
-  bf16* pre = static_cast<bf16*>(ws_pre);
-  bf16* hid = static_cast<bf16*>(ws_h);
-  bf16* dyb = static_cast<bf16*>(ws_dyb);
-  bf16* dpre = static_cast<bf16*>(ws_dpre);
-  float* mu = ws_stats;
-  float* rstd = ws_stats + M;
-
-  int rc = launch_layernorm(xb, ln_s, ln_b, xn, mu, rstd, M, D, eps, st);
-  if (rc) return rc;
-  rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xn, w1b, b1, pre, M, F, D, nullptr,
-                                         nullptr, 1, hid, st);
-  if (rc) return rc;
-  rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
-  if (rc) return rc;
-  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
-  if (rc) return rc;
-  rc = weight_grad(dyb, D, hid, F, M, k_chunk, ws_part, dw2, st);
-  if (rc) return rc;
-
-  // dpre = (dyb W2) * gelu'(pre), its bf16 copy and per-tile column sums
-  Gemm g{};
-  g.A = dyb;
-  g.lda = D;
-  g.B = w2b;
-  g.ldb = F;
-  g.M = M;
-  g.N = F;
-  g.K = D;
-  g.out = dpre;
-  g.aux = pre;
-  g.outf = ws_part;
-  rc = launch_gemm<false, false, EPI_DGELU>(g, D, st);
-  if (rc) return rc;
-  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
-  if (rc) return rc;
-
-  rc = weight_grad(dpre, F, xn, D, M, k_chunk, ws_part, dw1, st);
-  if (rc) return rc;
-  rc = input_grad(dpre, w1b, M, F, D, ws_f32, st);  // dxn
-  if (rc) return rc;
-  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<bf16*>(dx),
-                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
+  return basd::mlp_bwd<bf16>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
+                             db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
+                             ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part, B,
+                             N, D, F, k_chunk, row_chunk, eps, stream);
+}
+extern "C" int basd_block_mlp_bwd_f32(
+    const void* x, const float* mask, const void* dout, const float* ln_s,
+    const float* ln_b, const void* w1, const float* b1, const void* w2,
+    void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
+    float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
+    void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
+    int D, int F, int k_chunk, int row_chunk, float eps, void* stream) {
+  return basd::mlp_bwd<float>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
+                              db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
+                              ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part,
+                              B, N, D, F, k_chunk, row_chunk, eps, stream);
 }

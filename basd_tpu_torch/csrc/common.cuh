@@ -12,8 +12,9 @@
 // shared memory for the caller's epilogue, which does the reference's
 // bf16 rounding at the same points as the Pallas kernels.
 //
-// This first version is simple on purpose: no TMA, no wgmma, no
-// multi-stage pipeline. Those belong to later tuning work.
+// It is simple on purpose: no TMA, no wgmma, no multi-stage pipeline. The
+// forward products with bf16 operands take gemm_sm90.cuh's GEMM, which has
+// them; the backward products still take this tile.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -2,7 +2,8 @@
 // on Hopper, the module-chain MLP of `tpu.student_mlp_impl=fused`.
 //
 // K11a replaces basd_tpu/ops/pallas/fused_mlp.py:_fwd (_fwd_kernel): two
-// launches of the shared WMMA GEMM (csrc/block_kernels.cuh), fc1 with the
+// launches of the shared forward GEMM (csrc/block_kernels.cuh's
+// launch_gemm_nk: the wgmma GEMM of gemm_sm90.cuh at bf16), fc1 with the
 // bias + GELU epilogue (pre rounded to bf16, GELU in f32, hidden rounded to
 // bf16) and fc2 with the bias epilogue (out = bf16(acc + b2)).
 // K11b replaces _bwd (_bwd_kernel), nothing but x saved: it recomputes pre
@@ -20,9 +21,10 @@
 // D = 192, F = 768) K11a is 4 M D F = 14.9 GFLOP and K11b 10 M D F = 37.2
 // GFLOP (15 and 38 us at the bf16 tensor-core peak) against ~20 MB and
 // ~30 MB of unavoidable traffic (6 and 9 us at 3.35 TB/s): operations
-// bound them. This first version is bound by neither: the simple WMMA
-// tiles and the round trips of the (M, F) hidden state, pre-activation and
-// dpre through device memory, which the TPU kernel keeps in VMEM, do.
+// bound them. This version is bound by neither: the simple WMMA tiles of
+// the backward products and the round trips of the (M, F) hidden state,
+// pre-activation and dpre through device memory, which the TPU kernel
+// keeps in VMEM, do.
 //
 // The _f32 entries are the same chains on f32 tensors (the JAX package's
 // f32 path), through the CUDA-core f32 GEMM of csrc/block_kernels.cuh with

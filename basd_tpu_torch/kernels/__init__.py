@@ -6,7 +6,10 @@ attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
 replaces and its source. The six wrappers of the attention cores
 (``ATTENTION_CORE``: the forward of K1, K3a, K10a and K10c, the backward of
 K3b and K10b) also count each of its two variants, ``tc_launches`` (tensor
-cores) and ``simt_launches`` (CUDA cores).
+cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
+(``GEMM_NK``) count their forward products by GEMM variant in
+``gemm_variants`` (``block_mlp.gemm_nk_variant``: ``sm90``, ``wmma``,
+``f32``), two a launch.
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -82,11 +85,17 @@ ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
                   "K10b flash_attention bwd", "K10c flash_attention importance")
 
 
+# the wrappers that count their forward products by GEMM variant
+GEMM_NK = ("K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd")
+
+
 def reset_launch_counts() -> None:
     for name, *_, fn in KERNELS:
         fn.launches = 0
         if name in ATTENTION_CORE:
             fn.tc_launches = fn.simt_launches = 0
+        if name in GEMM_NK:
+            fn.gemm_variants = dict.fromkeys(fn.gemm_variants, 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -97,3 +106,9 @@ def variant_counts() -> dict[str, dict[str, int]]:
     """Launches of each attention-core wrapper by variant, tc and simt."""
     return {name: {"tc": fn.tc_launches, "simt": fn.simt_launches}
             for name, *_, fn in KERNELS if name in ATTENTION_CORE}
+
+
+def gemm_variant_counts() -> dict[str, dict[str, int]]:
+    """Forward products of each ``GEMM_NK`` wrapper by GEMM variant."""
+    return {name: dict(fn.gemm_variants) for name, *_, fn in KERNELS
+            if name in GEMM_NK}

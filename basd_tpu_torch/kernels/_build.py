@@ -50,15 +50,17 @@ _SIGNATURES = {
     "basd_flash_attn_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_imp": [_P] * 4 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "basd_gemm_nk": [_P] * 4 + [_I] * 4 + [_P],
     "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
 }
-# the f32 twins of K10's and K11's entries take the same arguments
+# the f32 twins of K2/K4's, K10's and K11's entries take the same arguments
 _SIGNATURES.update({
     name + "_f32": _SIGNATURES[name]
-    for name in ("basd_flash_attn_fwd", "basd_flash_attn_imp",
+    for name in ("basd_block_mlp_collect_fwd", "basd_block_mlp_bwd",
+                 "basd_flash_attn_fwd", "basd_flash_attn_imp",
                  "basd_flash_attn_bwd", "basd_fused_mlp_fwd",
                  "basd_fused_mlp_bwd")
 })

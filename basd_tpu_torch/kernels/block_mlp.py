@@ -15,12 +15,20 @@ summed over the batch. ``FusedLnMlp`` wraps them as a
 ``torch.autograd.Function`` that saves only x, mask and the parameters.
 
 The CUDA kernels (``csrc/block.cu``: ``basd_block_mlp_collect_fwd``;
-``csrc/block_train.cu``: ``basd_block_mlp_bwd``) run for CUDA tensors; the
-``*_plain`` functions are the same arithmetic in plain PyTorch, taken for
-CPU tensors. Rounding follows the TPU kernels: LN output, fc1 output and
-GELU output rounded to bf16, GELU in f32, fc2 output rounded to bf16, mask
-and residual in f32, rounded once; the backward's rounding points are
-listed at ``block_mlp_plain_bwd``. Weights are in torch's (out, in) layout.
+``csrc/block_train.cu``: ``basd_block_mlp_bwd``) run for bf16 CUDA tensors,
+their ``_f32`` twins for f32 ones (the reference's f32 Pallas kernels:
+tanh-GELU, full-f32 CUDA-core GEMMs, no TF32), and raise on any other
+dtype; the ``*_plain`` functions are the same arithmetic in plain PyTorch,
+taken for CPU tensors. Rounding follows the TPU kernels: LN output, fc1
+output and GELU output rounded to x's dtype, GELU in f32, fc2 output
+rounded to x's dtype, mask and residual in f32, rounded once; the
+backward's rounding points are listed at ``block_mlp_plain_bwd``. Weights
+are in torch's (out, in) layout.
+
+At bf16 the two forward products of K2 and K4a (and of every other
+``launch_gemm_nk`` caller) take ``csrc/gemm_sm90.cuh``'s wgmma GEMM when
+``gemm_nk_variant`` says so; the wrappers count the products of each
+variant in ``gemm_variants``.
 """
 
 from __future__ import annotations
@@ -73,11 +81,11 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     """Recompute backward of K4 (``fused_block_mlp.py:95-135``).
 
     Returns (dx in x.dtype, dw1 (F, D), db1, dw2 (D, F), db2, dln_scale,
-    dln_bias), the gradients f32. Rounding points: bf16 LN output,
-    pre-activation and hidden; dy = do * mask with a bf16 copy;
-    dh = dyb W2 f32; dpre = dh gelu'(preb) f32 with a bf16 copy into dW1
-    and dxn; dW2 from bf16 hidden and dy; the LN VJP per row f32;
-    dx = bf16(do + dxln).
+    dln_bias), the gradients f32. Rounding points (to x's dtype, the
+    identity at f32): the LN output, pre-activation and hidden; dy =
+    do * mask with a rounded copy; dh = dyb W2 f32; dpre = dh gelu'(preb)
+    f32 with a rounded copy into dW1 and dxn; dW2 from the rounded hidden
+    and dy; the LN VJP per row f32; dx = round(do + dxln).
     """
     dt = x.dtype
     xhat, _, rstd = ln_stats_plain(x, eps)
@@ -101,20 +109,49 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
             (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
 
 
+def gemm_nk_variant(dtype, n: int, k: int, ptrs) -> str:
+    """The GEMM a forward product ``out (M, n) = A (M, k) . W (n, k)^T``
+    takes, by ``csrc/gemm_sm90.cuh:gemm_nk_tile_n``'s rule (``n`` does not
+    enter it; it sets the tile width, ``gemm_nk_tile_n``): ``'sm90'`` (the
+    wgmma GEMM) for bf16 with k % 8 == 0 and every address in ``ptrs``
+    (A, W and out) 16-byte aligned; ``'wmma'`` (common.cuh's tile) for
+    other bf16 operands; ``'f32'`` (the CUDA-core tile) for f32."""
+    if dtype == torch.float32:
+        return "f32"
+    if k > 0 and k % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "sm90"
+    return "wmma"
+
+
+def gemm_nk_tile_n(n: int) -> int:
+    """The sm90 GEMM's tile width for ``n`` output columns."""
+    return 128 if n >= 256 else 64
+
+
 def _check_mlp(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
-    """Shape, type and device checks of the CUDA path; ``extra``: further
-    (name, tensor, dtype, shape) inputs."""
+    """Shape, type and device checks of the CUDA path: x (B, N, D) bf16 or
+    f32, the weights in x's dtype, mask, LN affine and biases f32;
+    ``extra``: further (name, tensor, dtype, shape) inputs."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    _mlp_dims(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra)
+
+
+def _mlp_dims(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
+    """``_check_mlp``'s type and shape rules, on any device."""
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, N, D), got {tuple(x.shape)}")
+    dt, f32 = x.dtype, torch.float32
+    if dt not in (torch.bfloat16, f32):
+        raise ValueError(f"{name}: x must be bf16 or f32, got {dt}")
     b, n, d = x.shape
     f = w1.shape[0]
     if d % 8 or f % 8:
         raise ValueError(f"{name}: D={d}, F={f} must be % 8")
-    bf, f32 = torch.bfloat16, torch.float32
-    params = [("x", x, bf, (b, n, d)), ("mask", mask, f32, (b,)),
+    params = [("x", x, dt, (b, n, d)), ("mask", mask, f32, (b,)),
               ("ln_scale", ln_scale, f32, (d,)), ("ln_bias", ln_bias, f32, (d,)),
-              ("w1", w1, bf, (f, d)), ("b1", b1, f32, (f,)),
-              ("w2", w2, bf, (d, f)), *extra]
+              ("w1", w1, dt, (f, d)), ("b1", b1, f32, (f,)),
+              ("w2", w2, dt, (d, f)), *extra]
     if b2 is not None:
         params.append(("b2", b2, f32, (d,)))
     for pname, t, dtype, shape in params:
@@ -123,19 +160,52 @@ def _check_mlp(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
             raise ValueError(f"{name}: all inputs must be on x's device")
 
 
-def _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows, eps):
+def _mlp_fwd_call(fn, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows,
+                  eps):
+    """K2's entry (K4a's with no buffer); counts the launch and the
+    variants of its two products on the wrapper ``fn``."""
     b, n, d = x.shape
     f = w1.shape[0]
     out = torch.empty_like(x)
-    ws_xn = torch.empty((b * n, d), dtype=torch.bfloat16, device=x.device)
-    ws_h = torch.empty((b * n, f), dtype=torch.bfloat16, device=x.device)
+    ws_xn = torch.empty((b * n, d), dtype=x.dtype, device=x.device)
+    ws_h = torch.empty((b * n, f), dtype=x.dtype, device=x.device)
     _build.call(
-        "basd_block_mlp_collect_fwd",
+        _build.entry("basd_block_mlp_collect_fwd", x.dtype),
         x.data_ptr(), mask.data_ptr(), ln_scale.data_ptr(),
         ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), buf_rows, ws_xn.data_ptr(),
         ws_h.data_ptr(), b, n, d, f, float(eps), _build.stream_ptr(x.device),
     )
+    fn.launches += 1
+    for ptrs, n_out, k in (((ws_xn, w1, ws_h), f, d), ((ws_h, w2, out), d, f)):
+        variant = gemm_nk_variant(x.dtype, n_out, k,
+                                  [t.data_ptr() for t in ptrs])
+        fn.gemm_variants[variant] += 1
+    return out
+
+
+def gemm_nk_plain(a, w, bias):
+    """``a (M, K) . w (N, K)^T + bias`` rounded once to a's dtype."""
+    return (_mm(a, w) + bias.float()).to(a.dtype)
+
+
+def gemm_nk(a, w, bias, tile_n: int = -1):
+    """One forward product through ``launch_gemm_nk``'s bias epilogue
+    (``csrc/block.cu:basd_gemm_nk``): a (M, K), w (N, K) bf16 CUDA tensors,
+    bias (N,) f32; ``tile_n`` -1 takes the rule's GEMM, 0 the WMMA tile,
+    64 or 128 the sm90 GEMM at that tile width. For holding the two GEMMs
+    against each other and timing them; no kernel path calls it."""
+    m, k = a.shape
+    n = w.shape[0]
+    for pname, t, dtype, shape in (("a", a, torch.bfloat16, (m, k)),
+                                   ("w", w, torch.bfloat16, (n, k)),
+                                   ("bias", bias, torch.float32, (n,))):
+        _check(pname, t, dtype, shape)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_nk: unsupported device {a.device}")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _build.call("basd_gemm_nk", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), m, n, k, tile_n, _build.stream_ptr(a.device))
     return out
 
 
@@ -145,9 +215,9 @@ def fused_ln_mlp_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
     ``[idx*B*N, (idx+1)*B*N)`` of ``buf`` (L*B*N, D) in place; other rows
     are untouched.
 
-    x, buf: bf16; mask: (B,) f32 stochastic-depth multipliers (ones for the
-    deterministic teacher); w1: (F, D), w2: (D, F) bf16; LN affine and
-    biases f32.
+    x, buf: bf16 or f32; mask: (B,) f32 stochastic-depth multipliers (ones
+    for the deterministic teacher); w1: (F, D), w2: (D, F) in x's dtype; LN
+    affine and biases f32.
     """
     b, n, d = x.shape
     m_rows = b * n
@@ -163,41 +233,38 @@ def fused_ln_mlp_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
         buf[idx * m_rows:(idx + 1) * m_rows] = out.reshape(m_rows, d)
         return out
     _check_mlp("fused_ln_mlp_collect", x, mask, ln_scale, ln_bias, w1, b1, w2,
-               b2, ("buf", buf, torch.bfloat16, tuple(buf.shape)))
+               b2, ("buf", buf, x.dtype, tuple(buf.shape)))
     buf_rows = buf.data_ptr() + idx * m_rows * d * buf.element_size()
-    out = _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows,
-                        eps)
-    fused_ln_mlp_collect.launches += 1
-    return out
+    return _mlp_fwd_call(fused_ln_mlp_collect, x, mask, ln_scale, ln_bias, w1,
+                         b1, w2, b2, buf_rows, eps)
 
 
 def fused_ln_mlp_fwd(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                      eps: float = 1e-6):
     """K4a: ``x + mask * fc2(gelu_tanh(fc1(LN(x))))`` (B, N, D) in x.dtype.
 
-    x: bf16; mask: (B,) f32 stochastic-depth multipliers; w1: (F, D),
-    w2: (D, F) bf16; LN affine and biases f32.
+    x: bf16 or f32; mask: (B,) f32 stochastic-depth multipliers; w1:
+    (F, D), w2: (D, F) in x's dtype; LN affine and biases f32.
     """
     if x.device.type == "cpu":
         return block_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     _check_mlp("fused_ln_mlp_fwd", x, mask, ln_scale, ln_bias, w1, b1, w2, b2)
-    out = _mlp_fwd_call(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, None, eps)
-    fused_ln_mlp_fwd.launches += 1
-    return out
+    return _mlp_fwd_call(fused_ln_mlp_fwd, x, mask, ln_scale, ln_bias, w1, b1,
+                         w2, b2, None, eps)
 
 
 def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
                      eps: float = 1e-6):
-    """K4b: ``(dx bf16, dw1, db1, dw2, db2, dln_scale, dln_bias)``, the
-    gradients f32 and summed over the batch."""
+    """K4b: ``(dx in x's dtype, dw1, db1, dw2, db2, dln_scale,
+    dln_bias)``, the gradients f32 and summed over the batch."""
     if x.device.type == "cpu":
         return block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1,
                                    w2, eps)
     b, n, d = x.shape
     f = w1.shape[0]
-    f32, bf = torch.float32, torch.bfloat16
+    f32, dt = torch.float32, x.dtype
     _check_mlp("fused_ln_mlp_bwd", x, mask, ln_scale, ln_bias, w1, b1, w2,
-               None, ("dout", dout, bf, (b, n, d)))
+               None, ("dout", dout, dt, (b, n, d)))
     m = b * n
     dev = x.device
     k_chunk = split_k_chunk(m, -(-f // 64) * -(-d // 64))
@@ -209,9 +276,9 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     dw2 = torch.empty((d, f), dtype=f32, device=dev)
     db2, dln_s, dln_b = (torch.empty((d,), dtype=f32, device=dev)
                          for _ in range(3))
-    ws_xn, ws_dyb = (torch.empty((m, d), dtype=bf, device=dev)
+    ws_xn, ws_dyb = (torch.empty((m, d), dtype=dt, device=dev)
                      for _ in range(2))
-    ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=bf, device=dev)
+    ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=dt, device=dev)
                              for _ in range(3))
     ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
     ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
@@ -219,7 +286,7 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
         (max(splits * f * d, -(-m // 64) * f, 2 * chunks * d),), dtype=f32,
         device=dev)
     _build.call(
-        "basd_block_mlp_bwd",
+        _build.entry("basd_block_mlp_bwd", dt),
         x.data_ptr(), mask.data_ptr(), dout.data_ptr(), ln_scale.data_ptr(),
         ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
@@ -236,6 +303,9 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
 fused_ln_mlp_collect.launches = 0
 fused_ln_mlp_fwd.launches = 0
 fused_ln_mlp_bwd.launches = 0
+# forward products by GEMM variant (gemm_nk_variant), two a launch
+fused_ln_mlp_collect.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
+fused_ln_mlp_fwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedLnMlp(torch.autograd.Function):

@@ -12,9 +12,25 @@ What bounds it on the H100: one read and one write of the activation slab
 3.35 TB/s), with a handful of flops per element. Each program normalises
 a block of rows held in registers, so the slab crosses device memory once
 in each direction, as the TPU kernel keeps it in VMEM. The TPU backward
-writes one partial row per program and sums them outside the kernel; here
-too each program writes its (D,) partials to a (programs, D) f32 scratch
-and a second kernel sums it in a fixed order (deterministic, no atomics).
+writes one partial row per program and sums them outside the kernel.
+
+The backward runs on a fixed grid of ``_BWD_PROGRAMS`` row programs (two
+per SM of an H100; a constant, so the partial layout and the summation
+order never depend on the card). Program p walks its contiguous range of
+rows (``ln_bwd_partition``) in steps of a few rows, keeps its dscale
+and dbias partials in registers across the walk and writes one (2, D) row
+at the end; one more launch sums the ``_BWD_PROGRAMS`` partial rows of
+both, in program order (deterministic, no atomics: two calls give equal
+bits), spread over ``2 D / _SUM_BLOCK`` programs.
+
+A step is ``_BWD_ELEMS // BLOCK_D`` rows (32 at D=192, 16 at D=384) on
+``_BWD_WARPS`` = 2 warps, 128 elements a thread of each operand: the
+fastest of 4 x 3 (rows, warps) choices at the student's (128, 197, 192)
+in device time on an H100 80GB HBM3 at 700 W (``basd_tpu_torch/tune.py``:
+0.0223 ms, 1.31 TB/s, against aten's 0.102 ms; 16 rows 0.0244, 4 warps
+0.028, 64 rows on 2 warps 0.48). ``BLOCK_D`` stays a power of two: at D=192 a
+quarter of the lanes is masked, yet the same sweep at D=256 moved bytes
+only 6% faster (1.39 against 1.31 TB/s), so the row is not split.
 
 The plain versions are the same two-pass arithmetic in PyTorch, taken for
 CPU tensors. ``layernorm_fwd``/``layernorm_bwd`` are the counted wrappers;
@@ -25,7 +41,11 @@ from __future__ import annotations
 
 import torch
 
-_ROWS = 16  # rows per program
+_ROWS = 16  # rows per program of the forward
+_BWD_PROGRAMS = 264  # the backward's row programs: 2 x the H100's 132 SMs
+_BWD_ELEMS = 8192  # elements of a backward step: rows x the padded row
+_BWD_WARPS = 2
+_SUM_BLOCK = 32  # columns per program of the partial sums' launch
 _TRITON: dict = {}
 
 
@@ -60,36 +80,48 @@ def _kernels() -> dict:
         tl.store(rstd_ptr + rows, rstd, mask=rmask)
 
     @triton.jit
-    def ln_bwd_kernel(x_ptr, w_ptr, mu_ptr, rstd_ptr, dy_ptr, dx_ptr, pw_ptr,
-                      pb_ptr, m, d, ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
+    def ln_bwd_kernel(x_ptr, w_ptr, mu_ptr, rstd_ptr, dy_ptr, dx_ptr, part_ptr,
+                      m, d, per, blocks, ROWS: tl.constexpr,
+                      BLOCK_D: tl.constexpr):
+        # rows [pid * per, min(m, (pid + 1) * per)) in blocks of ROWS; one
+        # (2, d) partial row (dscale, dbias) per program
         pid = tl.program_id(0)
-        rows = pid * ROWS + tl.arange(0, ROWS)
+        start = pid * per
+        end = tl.minimum(start + per, m)
         cols = tl.arange(0, BLOCK_D)
-        rmask = rows < m
         cmask = cols < d
-        m2 = rmask[:, None] & cmask[None, :]
-        offs = rows[:, None] * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-        mu = tl.load(mu_ptr + rows, mask=rmask, other=0.0)
-        rstd = tl.load(rstd_ptr + rows, mask=rmask, other=0.0)
-        xhat = tl.where(m2, (x - mu[:, None]) * rstd[:, None], 0.0)
         w = tl.load(w_ptr + cols, mask=cmask, other=0.0)
-        g = dy * w[None, :]
-        mg = tl.sum(g, axis=1) / d
-        mgx = tl.sum(g * xhat, axis=1) / d
-        dx = rstd[:, None] * (g - mg[:, None] - xhat * mgx[:, None])
-        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m2)
-        tl.store(pw_ptr + pid * d + cols, tl.sum(dy * xhat, axis=0), mask=cmask)
-        tl.store(pb_ptr + pid * d + cols, tl.sum(dy, axis=0), mask=cmask)
+        acc_w = tl.zeros((BLOCK_D,), dtype=tl.float32)
+        acc_b = tl.zeros((BLOCK_D,), dtype=tl.float32)
+        for i in range(0, blocks):
+            rows = start + i * ROWS + tl.arange(0, ROWS)
+            rmask = rows < end
+            m2 = rmask[:, None] & cmask[None, :]
+            offs = rows[:, None] * d + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=m2, other=0.0).to(tl.float32)
+            dy = tl.load(dy_ptr + offs, mask=m2, other=0.0).to(tl.float32)
+            mu = tl.load(mu_ptr + rows, mask=rmask, other=0.0)
+            rstd = tl.load(rstd_ptr + rows, mask=rmask, other=0.0)
+            xhat = tl.where(m2, (x - mu[:, None]) * rstd[:, None], 0.0)
+            g = dy * w[None, :]
+            mg = tl.sum(g, axis=1) / d
+            mgx = tl.sum(g * xhat, axis=1) / d
+            dx = rstd[:, None] * (g - mg[:, None] - xhat * mgx[:, None])
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=m2)
+            acc_w += tl.sum(dy * xhat, axis=0)
+            acc_b += tl.sum(dy, axis=0)
+        tl.store(part_ptr + pid * 2 * d + cols, acc_w, mask=cmask)
+        tl.store(part_ptr + pid * 2 * d + d + cols, acc_b, mask=cmask)
 
     @triton.jit
-    def colsum_kernel(part_ptr, out_ptr, s, d, BLOCK: tl.constexpr):
+    def colsum_kernel(part_ptr, out_ptr, n, PROGRAMS: tl.constexpr,
+                      BLOCK: tl.constexpr):
+        # out[j] = sum of part[p, j] over the PROGRAMS rows, p in order
         cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        cmask = cols < d
+        cmask = cols < n
         acc = tl.zeros((BLOCK,), dtype=tl.float32)
-        for i in range(0, s):  # programs in order
-            acc += tl.load(part_ptr + i * d + cols, mask=cmask, other=0.0)
+        for p in tl.static_range(PROGRAMS):
+            acc += tl.load(part_ptr + p * n + cols, mask=cmask, other=0.0)
         tl.store(out_ptr + cols, acc, mask=cmask)
 
     _TRITON.update(fwd=ln_fwd_kernel, bwd=ln_bwd_kernel, colsum=colsum_kernel)
@@ -98,6 +130,17 @@ def _kernels() -> dict:
 
 def _block_d(d: int) -> int:
     return 1 << max(0, (d - 1).bit_length())
+
+
+def ln_bwd_partition(m: int, programs: int,
+                     rows: int) -> tuple[int, int]:
+    """K5b's row partition: ``(per, blocks)``, program p owning rows
+    ``[p * per, min(m, (p + 1) * per))`` in ``blocks`` steps of ``rows``.
+    ``per`` is the least multiple of ``rows`` with ``programs * per >= m``,
+    so the programs cover rows 0..m-1 once each, in order; the last may own
+    none (their partial rows are zeros)."""
+    blocks = max(1, -(-m // (programs * rows)))
+    return blocks * rows, blocks
 
 
 def ln_stats_plain(x, eps: float = 1e-6):
@@ -169,24 +212,33 @@ def layernorm_bwd(x, scale, mu, rstd, dy):
     """K5b: (dx in x.dtype, dscale f32, dbias f32)."""
     if x.device.type == "cpu":
         return layernorm_plain_bwd(x, scale, mu, rstd, dy)
+    rows = max(1, _BWD_ELEMS // _block_d(x.shape[-1]))
+    out = _ln_bwd_launch(x, scale, mu, rstd, dy, rows, _BWD_WARPS)
+    layernorm_bwd.launches += 1
+    return out
+
+
+def _ln_bwd_launch(x, scale, mu, rstd, dy, rows: int, num_warps: int):
+    """K5b's two launches at ``rows`` rows a step and ``num_warps`` warps a
+    row program (``layernorm_bwd`` passes the tuned constants)."""
     scale = scale.float().contiguous()
     dy = dy.contiguous()
     _check_cuda("layernorm_bwd", x, scale, mu, rstd, dy)
     b, n, d = x.shape
     m = b * n
-    progs = -(-m // _ROWS)
+    per, blocks = ln_bwd_partition(m, _BWD_PROGRAMS, rows)
     dx = torch.empty_like(x)
-    part = torch.empty((2, progs, d), dtype=torch.float32, device=x.device)
-    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
-    db = torch.empty_like(dw)
+    part = torch.empty((_BWD_PROGRAMS, 2 * d), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((2 * d,), dtype=torch.float32, device=x.device)
     k = _kernels()
-    k["bwd"][(progs,)](x, scale, mu, rstd, dy, dx, part[0], part[1], m, d,
-                       ROWS=_ROWS, BLOCK_D=_block_d(d))
-    cgrid = (-(-d // 128),)
-    k["colsum"][cgrid](part[0], dw, progs, d, BLOCK=128)
-    k["colsum"][cgrid](part[1], db, progs, d, BLOCK=128)
-    layernorm_bwd.launches += 1
-    return dx, dw, db
+    k["bwd"][(_BWD_PROGRAMS,)](x, scale, mu, rstd, dy, dx, part, m, d, per,
+                               blocks, ROWS=rows, BLOCK_D=_block_d(d),
+                               num_warps=num_warps)
+    k["colsum"][(-(-2 * d // _SUM_BLOCK),)](part, sums, 2 * d,
+                                            PROGRAMS=_BWD_PROGRAMS,
+                                            BLOCK=_SUM_BLOCK, num_warps=1)
+    return dx, sums[:d], sums[d:]
 
 
 layernorm_fwd.launches = 0

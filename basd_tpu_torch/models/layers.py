@@ -18,12 +18,12 @@ buffer is given and K4 (``fused_ln_mlp``) otherwise. Off CUDA, ``auto``
 takes the module chain, as the JAX package does off the TPU. An explicit
 ``fused_block`` / ``fused_block_train`` / ``fused_ln`` forces the kernel
 path (on a CPU tensor, its plain version); ``module`` forces the module
-chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). K2 and K4
-are bf16 kernels: an explicit ``fused_ln`` on a block of another dtype
-raises ``NotImplementedError`` on CUDA (``block_mlp_path``) rather than
-taking the module chain, whose f32 erf-GELU is not the tanh-GELU of the
-reference's f32 ``fused_ln``; on the CPU its plain version runs in the
-block's dtype, as the reference's Pallas kernel does in interpret mode.
+chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). An explicit
+``fused_ln`` on an f32 block takes K2 / K4's f32 entries on CUDA (tanh-GELU,
+full-f32 GEMMs, as the reference's f32 Pallas kernel) and their plain
+version on the CPU, in the block's dtype, as the reference's Pallas kernel
+runs in interpret mode; ``auto`` at f32 takes the module chain, as the
+reference's does.
 
 Inside the module chain (``layers.py:140-290``), ``Attention`` takes
 ``attention_impl``: ``flash`` runs K10 on the packed qkv slab
@@ -80,16 +80,11 @@ def block_mlp_path(impl: str, is_cuda: bool, dtype: torch.dtype,
                    ndim: int) -> str:
     """``Block``'s MLP dispatch (``layers.py:503-517``): 'fused_ln' (K2 /
     K4) or the module chain. ``auto`` takes K2 / K4 for a bf16 3-D block
-    on CUDA. An explicit ``fused_ln`` at another dtype raises on CUDA: the
-    kernels are bf16-only, and the module chain would compute another
-    function (erf-GELU at f32, where the reference's f32 ``fused_ln`` uses
-    tanh-GELU)."""
+    on CUDA; an explicit ``fused_ln`` takes them at bf16 and f32 (their
+    ``_f32`` entries, tanh-GELU as the reference's f32 ``fused_ln``) on
+    either device."""
     if impl == "auto" and is_cuda and ndim == 3 and dtype == torch.bfloat16:
         impl = "fused_ln"
-    if impl == "fused_ln" and is_cuda and dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"f32 fused_ln on CUDA: K2/K4 are bf16 kernels (block dtype "
-            f"{dtype}); use mlp_impl='auto' or 'module'")
     return impl
 
 

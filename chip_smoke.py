@@ -33,13 +33,20 @@ the script exits non-zero without printing a result:
    and E=24, and K10b at f32 at (8, 257, 2304), 12 heads; K10a,
    K10b, K10c, K11a and K11b also on f32 tensors (B=8, N=197, the student's
    and the teacher's widths), each against its plain version and timed;
+   K2 (with its collection slab), K4a and K4b on f32 tensors likewise
+   (``f32_block_mlp_checks``); the forward GEMM of ``csrc/gemm_sm90.cuh``
+   at ragged shapes against the WMMA tile (``gemm_checks``), and
+   ``F.linear``'s time for each of K2's two products beside K2; K5b, like
+   K3b and K10b, called twice on the same inputs for the same bits;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
    backend: every kernel but K8, K10 and K11 must launch (K1-K4 a multiple
    of 12 times), those never, and the step losses must be finite; in this
    and the two runs below every launch of K1, K3a, K3b, K10a, K10b and K10c
-   must take the tensor-core attention kernels (``check_core_variants``);
+   must take the tensor-core attention kernels (``check_core_variants``),
+   and both forward products of every K2 and K4a launch the sm90 GEMM
+   (``check_gemm_variants``);
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
@@ -66,7 +73,9 @@ the script exits non-zero without printing a result:
    backward's kernels.
 
 The last three lines of standard output are the kernels' JSON (each
-kernel's launches from the train run that takes it), the card's name and
+kernel's launches from the train run that takes it: K8 the jacobi run;
+K5, K10 and K11 the flash run, which takes K5 in every block; the rest
+the gram run), the card's name and
 power limit, and the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,6 +112,8 @@ BLOCK_KERNELS = ("K3a fused_block_attn_train fwd", "K3b fused_block_attn_train b
 FLASH_KERNELS = ("K10a flash_attention fwd", "K10b flash_attention bwd",
                  "K10c flash_attention importance", "K11a fused_mlp fwd",
                  "K11b fused_mlp bwd")
+# the LayerNorms, which the flash path takes in every block
+LN_KERNELS = ("K5a fused_layernorm fwd", "K5b fused_layernorm bwd")
 # the tracer's own buffer activity, which the profiler lists as device time
 PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
@@ -249,6 +260,15 @@ def kernel_phase(torch, device):
            lambda: block_mlp.fused_ln_mlp_collect(*args2, buf, 5),
            lambda: block_mlp.block_mlp_plain(*args2),
            nbytes(*args2, out, out), 4 * m_rows * d * f, PEAK_BF16)
+    # a yardstick beside K2, never called by the port: F.linear for each
+    # of its two products at the same shapes
+    xn2 = rn(m_rows, d).to(bf)
+    h2 = rn(m_rows, f).to(bf)
+    print(f"kernel K2 products by F.linear: fc1 ({m_rows}, {d}) x ({f}, {d})^T "
+          f"ms={time_ms(torch, lambda: F.linear(xn2, tw['mlp'][0]))} fc2 "
+          f"({m_rows}, {f}) x ({d}, {f})^T "
+          f"ms={time_ms(torch, lambda: F.linear(h2, tw['mlp'][2]))}")
+    gemm_checks(torch, rn, block_mlp)
 
     # K3 and K4 at the student's shapes, with a stochastic-depth mask of
     # zeros and 1/keep values
@@ -316,6 +336,8 @@ def kernel_phase(torch, device):
     dy5 = dout
     grads = layernorm.layernorm_bwd(xs, ln_s, mu, rstd, dy5)
     refs = layernorm.layernorm_plain_bwd(xs, ln_s, mu, rstd, dy5)
+    check_repeatable(torch, "K5b", grads,
+                     layernorm.layernorm_bwd(xs, ln_s, mu, rstd, dy5))
     ws, wb = ln_s.to(bf), ln_b.to(bf)
     _, lib_mu, lib_rstd = torch.ops.aten.native_layer_norm(xs, [ds], ws, wb, 1e-6)
     record("K5b fused_layernorm bwd", check_grads("K5b", grads, refs),
@@ -482,6 +504,7 @@ def kernel_phase(torch, device):
           f"CUDA-core kernel): max_abs_err={err}")
     attention_bwd_checks(torch, rn, block_attn, flash_attention)
     f32_checks(torch, rn, flash_attention, fused_mlp)
+    f32_block_mlp_checks(torch, rn, block_mlp)
 
     # K11 at the student's MLP (D=192, F=768); no single PyTorch call
     # computes it
@@ -569,6 +592,89 @@ def f32_checks(torch, rn, flash_attention, fused_mlp, b: int = 8, n: int = 197):
                 line += (f" ms={time_ms(torch, pairs[name][0])} "
                          f"plain_ms={time_ms(torch, pairs[name][1])}")
             print(line)
+
+
+def f32_block_mlp_checks(torch, rn, block_mlp, b: int = 8, n: int = 197):
+    """K2 (with its collection slab), K4a and K4b on f32 tensors against
+    their plain versions, B=8, N=197, at the student's (D=192, F=768) and
+    the teacher's (D=384, F=1536) widths, with a stochastic-depth mask of
+    zeros and 1/keep: outputs within 1e-3 of max(|ref|, 1), gradients
+    within 1e-3 of their leaf's max. Both sides keep every value in f32
+    (full-f32 GEMMs, TF32 off) and differ in the order of their sums. Every
+    forward product takes the f32 CUDA-core tile. Prints each error and, at
+    the teacher's width, the kernel's and the plain version's times."""
+    bm = block_mlp
+    mask = torch.tensor([1.25, 0.0, 1.25, 1.25, 0.0, 1.25, 1.25, 1.25],
+                        device="cuda")[:b]
+    for d, f in ((192, 768), (384, 1536)):
+        x, dout = rn(b, n, d), rn(b, n, d)
+        params = (1.0 + 0.1 * rn(d), 0.1 * rn(d), rn(f, d, scale=d ** -0.5),
+                  0.1 * rn(f), rn(d, f, scale=f ** -0.5), 0.1 * rn(d))
+        args = (x, mask, *params)
+        rows = b * n
+        buf = torch.full((3 * rows, d), 3.0, device="cuda")
+        before = dict(bm.fused_ln_mlp_collect.gemm_variants)
+        out = bm.fused_ln_mlp_collect(*args, buf, 1)
+        ref = bm.block_mlp_plain(*args)
+        check(bm.fused_ln_mlp_collect.gemm_variants["f32"] == before["f32"] + 2,
+              "f32 K2 must take the f32 tile")
+        errs = {"K2": check_close(f"f32 K2 D={d} out", out, ref, 1e-3, 1.0)}
+        torch.cuda.synchronize()
+        check(torch.equal(buf[rows:2 * rows], out.reshape(rows, d))
+              and bool((buf[:rows] == 3.0).all() and (buf[2 * rows:] == 3.0).all()),
+              f"f32 K2 D={d}: collection slab")
+        errs["K4a"] = check_close(f"f32 K4a D={d} out", bm.fused_ln_mlp_fwd(*args),
+                                  ref, 1e-3, 1.0)
+        args_b = (x, mask, dout, *params[:5])
+        errs["K4b"] = max(
+            check_close(f"f32 K4b D={d} output {i}", a, r_, 1e-3, 1.0 if i == 0 else 0.0)
+            for i, (a, r_) in enumerate(zip(bm.fused_ln_mlp_bwd(*args_b),
+                                            bm.block_mlp_plain_bwd(*args_b))))
+        torch.cuda.synchronize()
+        pairs = {
+            "K2": (lambda: bm.fused_ln_mlp_collect(*args, buf, 1),
+                   lambda: bm.block_mlp_plain(*args)),
+            "K4a": (lambda: bm.fused_ln_mlp_fwd(*args),
+                    lambda: bm.block_mlp_plain(*args)),
+            "K4b": (lambda: bm.fused_ln_mlp_bwd(*args_b),
+                    lambda: bm.block_mlp_plain_bwd(*args_b)),
+        }
+        for name, err in errs.items():
+            line = f"kernel f32 {name} at D={d}, B={b}, N={n}: max_abs_err={err}"
+            if d == 384:
+                line += (f" ms={time_ms(torch, pairs[name][0])} "
+                         f"plain_ms={time_ms(torch, pairs[name][1])}")
+            print(line)
+
+
+def gemm_checks(torch, rn, block_mlp):
+    """The forward GEMM (``block_mlp.gemm_nk``, bias epilogue) at ragged
+    shapes and at K2's fc1: the sm90 GEMM at tile widths 64 and 128 and the
+    rule's choice against the WMMA tile and the plain product, each within
+    2^-6 of max(|ref|, 1) (one bf16 rounding of the output; the two sides
+    add in other orders)."""
+    for m, n, k in ((1000, 200, 200), (300, 64, 8), (129, 65, 24),
+                    (130, 136, 72), (25216, 1536, 384)):
+        a = rn(m, k).to(torch.bfloat16)
+        w = rn(n, k, scale=k ** -0.5).to(torch.bfloat16)
+        bias = 0.1 * rn(n)
+        ref = block_mlp.gemm_nk_plain(a, w, bias)
+        errs = {t: check_close(f"gemm_nk ({m}, {n}, {k}) tile {t}",
+                               block_mlp.gemm_nk(a, w, bias, t), ref, 2 ** -6, 1.0)
+                for t in (0, 64, 128, -1)}
+        print(f"gemm_nk ({m}, {n}, {k}) max_abs_err by tile (0: WMMA, -1: the "
+              f"rule) {errs}")
+
+
+def check_gemm_variants(label, counts, variants) -> None:
+    """Every forward product of every K2 and K4a launch of a train run took
+    the sm90 GEMM (two a launch), none the WMMA or the f32 tile."""
+    print(f"forward GEMM variants {label} {variants}")
+    for name, v in variants.items():
+        check(v["sm90"] == 2 * counts[name] and v["wmma"] == 0 and v["f32"] == 0,
+              f"{label} path: {name}'s {counts[name]} launches took the sm90 "
+              f"GEMM {v['sm90']} times, the WMMA tile {v['wmma']}, the f32 "
+              f"tile {v['f32']}")
 
 
 def check_repeatable(torch, name, outs, again) -> None:
@@ -860,6 +966,7 @@ def train_run(torch, device, kernels, root: str, label: str, extra: list):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_core_variants(label, counts, kernels.variant_counts())
+    check_gemm_variants(label, counts, kernels.gemm_variant_counts())
     metrics = out_dir / trainer.config.run.name / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     print(f"launches {label} {counts}")
@@ -1146,7 +1253,8 @@ def main(argv=None) -> int:
     entries = []
     for name, route, source, replaces, _fn in kernels.KERNELS:
         path_counts = (jcounts if name == "K8 jacobi_eigh"
-                       else fcounts if name in FLASH_KERNELS else counts)
+                       else fcounts if name in FLASH_KERNELS + LN_KERNELS
+                       else counts)
         entries.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": path_counts[name],
                         **results[name]})

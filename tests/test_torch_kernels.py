@@ -96,6 +96,64 @@ def test_k2_plain_matches_jax_fused_ln_mlp_collect():
                                   a.reshape(m, d))
 
 
+# (N, K) of every forward product of the main path (K1/K2 teacher qkv,
+# proj, fc1, fc2 at D=384; K3a/K4a/K11a student at D=192) and ragged ones
+@pytest.mark.parametrize("n,k,dtype,ptrs,variant,tile_n", [
+    (1152, 384, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (384, 384, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (1536, 384, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (384, 1536, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (576, 192, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (192, 192, torch.bfloat16, (0, 512, 1024), "sm90", 64),
+    (768, 192, torch.bfloat16, (0, 512, 1024), "sm90", 128),
+    (192, 768, torch.bfloat16, (0, 512, 1024), "sm90", 64),
+    (200, 200, torch.bfloat16, (16, 32, 48), "sm90", 64),   # ragged N, K
+    (256, 200, torch.bfloat16, (16, 32, 48), "sm90", 128),
+    (64, 8, torch.bfloat16, (0, 0, 0), "sm90", 64),
+    (200, 196, torch.bfloat16, (0, 512, 1024), "wmma", 64),  # K % 8 != 0
+    (384, 384, torch.bfloat16, (8, 512, 1024), "wmma", 128),  # A unaligned
+    (384, 384, torch.bfloat16, (0, 520, 1024), "wmma", 128),  # W unaligned
+    (384, 384, torch.bfloat16, (0, 512, 1026), "wmma", 128),  # out unaligned
+    (1536, 384, torch.float32, (0, 512, 1024), "f32", 128),
+])
+def test_gemm_nk_variant(n, k, dtype, ptrs, variant, tile_n):
+    """The forward GEMM's dispatch (csrc/gemm_sm90.cuh:gemm_nk_tile_n):
+    bf16 with K % 8 == 0 and A, W and out 16-byte aligned take the sm90
+    GEMM at a tile width of 128 where N >= 256, else 64."""
+    assert block_mlp.gemm_nk_variant(dtype, n, k, ptrs) == variant
+    assert block_mlp.gemm_nk_tile_n(n) == tile_n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_block_mlp_dtype_rule(dtype):
+    """K2/K4's CUDA path takes bf16 and f32 (the weights and the collection
+    buffer in x's dtype, the rest f32) and names the entry of each; other
+    types raise. A CPU tensor never reaches a kernel."""
+    from basd_tpu_torch.kernels import _build
+
+    b, n, d, f = 2, 5, 16, 64
+    x = torch.zeros((b, n, d), dtype=dtype)
+    w1, w2 = torch.zeros((f, d), dtype=dtype), torch.zeros((d, f), dtype=dtype)
+    vec = [torch.zeros(s) for s in (b, d, d, f, d)]
+    args = (x, vec[0], vec[1], vec[2], w1, vec[3], w2, vec[4])
+    with pytest.raises(ValueError, match="unsupported device"):
+        block_mlp._check_mlp("K2", *args)
+    if dtype == torch.float16:
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            block_mlp._mlp_dims("K2", *args)
+        return
+    buf = ("buf", torch.zeros((3 * b * n, d), dtype=dtype), dtype, (3 * b * n, d))
+    block_mlp._mlp_dims("K2", *args, buf)
+    for name in ("basd_block_mlp_collect_fwd", "basd_block_mlp_bwd"):
+        entry = _build.entry(name, dtype)
+        assert entry in _build._SIGNATURES
+        assert entry.endswith("_f32") == (dtype == torch.float32)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="expected"):
+        block_mlp._mlp_dims("K2", x, *args[1:4], w1.to(other), *args[5:])
+
+
 L, M, D, P = 12, 512, 48, 4
 
 

@@ -223,6 +223,26 @@ def test_k5_matches_jax_fused_layernorm(dtype):
     _close(leaves[2].grad, j_db, 1e-3, what="K5 dbias")
 
 
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 263, 264 * 16 - 1, 264 * 16,
+                               264 * 16 + 1, 25216, 100003])
+@pytest.mark.parametrize("rows", [8, 16, 32])
+def test_k5b_row_partition(m, rows):
+    """K5b's fixed grid: the programs' contiguous row ranges, walked in
+    blocks of ``rows``, cover rows 0..m-1 exactly once and in order, for
+    ragged M; the partial layout does not depend on the card."""
+    programs = layernorm._BWD_PROGRAMS
+    per, blocks = layernorm.ln_bwd_partition(m, programs, rows)
+    assert per == blocks * rows and programs * per >= m
+    assert programs * (per - rows) < m or per == rows  # no spare block
+    covered = []
+    for p in range(programs):
+        start, end = p * per, min(m, (p + 1) * per)
+        for i in range(blocks):
+            covered.extend(r for r in range(start + i * rows,
+                                            start + (i + 1) * rows) if r < end)
+    assert covered == list(range(m))
+
+
 # (op id, big rotation): every geometric TAW op, rotation on both sides of
 # the 180-degree pre-flip
 @pytest.mark.parametrize("op,big", [(1, False), (2, False), (3, False),
