@@ -194,7 +194,68 @@ extern "C" int basd_gemm_nk(const void* A, const void* W, const float* bias,
   g.rows_per_mask = 1;
   if (tile_n == 0) return launch_gemm<false, true, EPI_BIAS>(g, K, st);
   if (gemm_nk_tile_n(N, K, A, W, out) == 0) return (int)cudaErrorInvalidValue;
-  if (tile_n == 128) return sm90::launch<EPI_BIAS, 128>(g, st);
-  if (tile_n == 64) return sm90::launch<EPI_BIAS, 64>(g, st);
+  if (tile_n == 128) return sm90::launch<EPI_BIAS, 128, false, false>(g, K, st);
+  if (tile_n == 64) return sm90::launch<EPI_BIAS, 64, false, false>(g, K, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// One backward product through launch_gemm_bwd, on the variant `tile_n`
+// names: -1 the rule's choice (gemm_bwd_tile_n), 0 the WMMA tile, 64 or
+// 128 the sm90 GEMM at that tile width (which must then pass the rule).
+// B (K, N) and every other matrix are bf16 and contiguous; `epi` picks
+// the product and its epilogue:
+//   EPI_F32 (5):     outf (M, N) = A (M, K) . B               (input_grad)
+//   EPI_ROUND (7):   out (M, N) = bf16(A (M, K) . B)          (K11b's dx)
+//   EPI_DGELU (4):   d = (A (M, K) . B) * gelu'(aux (M, N)), out = bf16(d),
+//                    outf (N) = the column sums of d, through ws_part of
+//                    ceil(M / 64) * N floats                   (dgelu_grad)
+//   EPI_PARTIAL (6): outf (M, N) = A^T B, A (K, M), the split-K partials
+//                    of k_chunk rows (-1: split_k_chunk's) in ws_part of
+//                    splits * M * N floats, added in split order
+//                                                              (weight_grad)
+// It lets a test hold the variants against each other at any shape; the
+// kernels above reach the same code through their own entries.
+extern "C" int basd_gemm_bwd(const void* A, const void* B, const void* aux,
+                             void* out, float* outf, float* ws_part, int M,
+                             int N, int K, int epi, int tile_n, int k_chunk,
+                             void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Gemm g{};
+  g.A = static_cast<const bf16*>(A);
+  g.B = static_cast<const bf16*>(B);
+  g.aux = static_cast<const bf16*>(aux);
+  g.out = static_cast<bf16*>(out);
+  g.lda = epi == EPI_PARTIAL ? M : K;
+  g.ldb = N;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.outf = epi == EPI_F32 ? outf : ws_part;
+  const int rule = gemm_bwd_tile_n(g, epi == EPI_PARTIAL);
+  if (tile_n < 0) tile_n = rule;
+  if (tile_n > 0 && rule == 0) return (int)cudaErrorInvalidValue;
+  if (tile_n != 0 && tile_n != 64 && tile_n != 128)
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  switch (epi) {
+    case EPI_F32:
+      return launch_gemm_bwd<false, EPI_F32>(g, tile_n, 0, st);
+    case EPI_ROUND:
+      return launch_gemm_bwd<false, EPI_ROUND>(g, tile_n, 0, st);
+    case EPI_DGELU:
+      rc = launch_gemm_bwd<false, EPI_DGELU>(g, tile_n, 0, st);
+      if (rc) return rc;
+      return launch_reduce(ws_part, outf, (M + gemm_tile_m(tile_n) - 1) /
+                                              gemm_tile_m(tile_n), N, st);
+    case EPI_PARTIAL:
+      if (k_chunk < 0) k_chunk = split_k_chunk(K, M, N);
+      if (k_chunk <= 0 || k_chunk % 64 != 0) return (int)cudaErrorInvalidValue;
+      rc = launch_gemm_bwd<true, EPI_PARTIAL>(g, tile_n, k_chunk, st);
+      if (rc) return rc;
+      return launch_reduce(ws_part, outf, (K + k_chunk - 1) / k_chunk, M * N,
+                           st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

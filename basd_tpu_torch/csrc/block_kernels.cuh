@@ -1,22 +1,25 @@
 // Device code shared by the block kernels of csrc/block.cu (K1, K2 and the
 // K3a/K4a forwards), csrc/block_train.cu (the K3b/K4b backwards) and
-// csrc/fused_mlp.cu (K11): the row LayerNorm, the tiled GEMMs with the
-// epilogues the Pallas kernels round through, the column sums of an
-// incoming gradient, the split-K weight gradient and the fixed-order
-// reduction of partial sums. Everything launches on the caller's stream
-// and returns the first launch error, or 0.
+// csrc/fused_mlp.cu (K11): the tiled GEMMs with the epilogues the Pallas
+// kernels round through, the column sums of an incoming gradient, the
+// split-K weight gradient and the fixed-order reduction of partial sums;
+// the row LayerNorm is layernorm.cuh's. Everything launches on the
+// caller's stream and returns the first launch error, or 0.
 //
-// The GEMM takes bf16 operands on the tensor cores (WMMA, common.cuh's
-// tile_mma_k) or, for the f32 paths of K2/K4 and K11, f32 operands on CUDA
-// cores (gemm_f32_kernel: full-f32 fused multiply-adds in order over k, no
-// TF32, which the f32 paths of the reference keep off). The forward
-// products (launch_gemm_nk) take gemm_sm90.cuh's wgmma GEMM instead of the
-// WMMA tile where its rule allows. All three leave the f32 tile in shared
-// memory for one epilogue, templated on the element type T and on the
-// tile's size: every rounding to T there is the identity at f32.
+// The GEMM takes bf16 operands on the tensor cores or, for the f32 paths
+// of K2/K4 and K11, f32 operands on CUDA cores (gemm_f32_kernel: full-f32
+// fused multiply-adds in order over k, no TF32, which the f32 paths of the
+// reference keep off). bf16 products take gemm_sm90.cuh's wgmma GEMM where
+// its rule allows: the forward products (launch_gemm_nk, both operands
+// K-major) and the backward ones (launch_gemm_bwd: B read as K x N, A as
+// M x K or, for the weight gradients, K x M). Other bf16 operands take
+// common.cuh's WMMA tile (tile_mma_k). All three leave the f32 tile in
+// shared memory for one epilogue, templated on the element type T and on
+// the tile's size: every rounding to T there is the identity at f32.
 #pragma once
 
 #include "common.cuh"
+#include "layernorm.cuh"
 
 namespace basd {
 
@@ -33,43 +36,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float p) {
   const float t = tanhf(GELU_C * (p + GELU_A * p * p * p));
   return 0.5f * (1.f + t) +
          0.5f * p * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_A * p * p);
-}
-
-// One warp per row: f32 two-pass statistics, out = T(xhat * s + b) (the
-// identity rounding at f32). With mu/rstd not null the row statistics are
-// stored too (the backward kernels recompute the LayerNorm and reuse them
-// for its VJP).
-template <typename T>
-static __global__ void layernorm_kernel(const T* __restrict__ x,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ bias,
-                                        T* __restrict__ out,
-                                        float* __restrict__ mu_out,
-                                        float* __restrict__ rstd_out, int rows,
-                                        int d, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * d;
-  T* orow = out + (size_t)row * d;
-  const float inv_d = 1.f / (float)d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += to_f(xr[i]);
-  const float mu = warp_sum(s) * inv_d;
-  float sq = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float c = to_f(xr[i]) - mu;
-    sq += c * c;
-  }
-  const float var = warp_sum(sq) * inv_d;
-  const float rstd = rsqrtf(var + eps);
-  for (int i = lane; i < d; i += 32) {
-    orow[i] = from_f<T>((to_f(xr[i]) - mu) * rstd * scale[i] + bias[i]);
-  }
-  if (mu_out != nullptr && lane == 0) {
-    mu_out[row] = mu;
-    rstd_out[row] = rstd;
-  }
 }
 
 enum Epilogue {  // T: the GEMM's element type (bf16, or f32 for K11's f32 path)
@@ -92,7 +58,8 @@ struct GemmT {
   int lda, ldb;
   bool a_vec, b_vec;
   int M, N, K;
-  int k_chunk;  // contraction rows per blockIdx.z (a multiple of BK)
+  int k_chunk;  // contraction rows per blockIdx.z (a multiple of BK; of 64
+                // on the sm90 GEMM)
   const float* bias;
   T* out;
   T* out2;
@@ -103,12 +70,6 @@ struct GemmT {
   bool epi_vec;        // 16-byte epilogue accesses are legal (epi_vec_ok)
 };
 using Gemm = GemmT<bf16>;
-
-// Elements of T in 16 bytes: the bias epilogues' vector width.
-template <typename T>
-__host__ __device__ constexpr int epi_width() {
-  return 16 / (int)sizeof(T);
-}
 
 // The bias epilogues may move 16 bytes at a time: N a multiple of the
 // width and every pointer they touch 16-byte aligned.
@@ -141,12 +102,6 @@ __device__ __forceinline__ void bias_epilogue(float acc, float bias, float aux,
   }
 }
 
-// W elements of T in one 16-byte access.
-template <typename T>
-struct alignas(16) Vec16 {
-  T v[epi_width<T>()];
-};
-
 // The epilogue of one TM x TN tile at (m0, n0) whose f32 sums sit in
 // shared memory at c (row stride LD): the WMMA and f32 tiles' BM x BN and
 // the sm90 GEMM's 128 x TN. Must be called by every thread of the block.
@@ -154,26 +109,64 @@ template <int EPI, typename T, int TM = BM, int TN = BN, int LD = C_LD>
 __device__ void gemm_epilogue(const GemmT<T>& g, float* c, int m0, int n0) {
   if constexpr (EPI == EPI_DGELU) {
     // d = acc * gelu'(pre) in place in the tile, then each of the first TN
-    // threads sums its column over the tile's rows in order: one partial
-    // row per row tile, summed in a fixed order by reduce_partials.
-    for (int i = threadIdx.x; i < TM * TN; i += blockDim.x) {
-      const int r = i / TN;
-      const int cc = i % TN;
+    // threads sums its column over the tile's TM rows in order: one
+    // partial row per row tile, summed in a fixed order by
+    // reduce_partials. W columns a thread (16-byte accesses) where
+    // epi_vec_ok allows; the same values either way.
+    constexpr int W = epi_width<T>();
+    const bool vec = TN % W == 0 && g.epi_vec;
+    const int step = vec ? W : 1;
+    for (int i = threadIdx.x; i < TM * (TN / step); i += blockDim.x) {
+      const int r = i / (TN / step);
+      const int cc = (i % (TN / step)) * step;
       const int gr = m0 + r;
       const int gc = n0 + cc;
-      float d = 0.f;
-      if (gr < g.M && gc < g.N) {
-        const size_t o = (size_t)gr * g.N + gc;
-        d = c[r * LD + cc] * gelu_tanh_grad(to_f(g.aux[o]));
-        g.out[o] = from_f<T>(d);
+      float* t = c + r * LD + cc;
+      const size_t o = (size_t)gr * g.N + gc;
+      if (vec) {
+        float d[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j) d[j] = 0.f;
+        if (gr < g.M && gc < g.N) {  // N % W == 0: all W columns are in
+          const Vec16<T> pre = *reinterpret_cast<const Vec16<T>*>(g.aux + o);
+          Vec16<T> out;
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            d[j] = t[j] * gelu_tanh_grad(to_f(pre.v[j]));
+            out.v[j] = from_f<T>(d[j]);
+          }
+          *reinterpret_cast<Vec16<T>*>(g.out + o) = out;
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) t[j] = d[j];
+      } else {
+        float d = 0.f;
+        if (gr < g.M && gc < g.N) {
+          d = t[0] * gelu_tanh_grad(to_f(g.aux[o]));
+          g.out[o] = from_f<T>(d);
+        }
+        t[0] = d;
       }
-      c[r * LD + cc] = d;
+    }
+    // the column sums: `parts` threads a column each add a band of rows
+    // in order, then the first TN threads add the bands in order
+    __syncthreads();
+    const int parts = blockDim.x / TN;  // 2 or 4
+    const int band = (TM + parts - 1) / parts;
+    const int col = threadIdx.x % TN;
+    const int part = threadIdx.x / TN;
+    float s = 0.f;
+    if (part < parts) {
+      for (int r = part * band; r < min(TM, (part + 1) * band); ++r)
+        s += c[r * LD + col];
     }
     __syncthreads();
+    if (part < parts) c[part * LD + col] = s;
+    __syncthreads();
     if (threadIdx.x < TN && n0 + threadIdx.x < g.N) {
-      float s = 0.f;
-      for (int r = 0; r < TM; ++r) s += c[r * LD + threadIdx.x];
-      g.outf[(size_t)blockIdx.y * g.N + n0 + threadIdx.x] = s;
+      float t = 0.f;
+      for (int p = 0; p < parts; ++p) t += c[p * LD + threadIdx.x];
+      g.outf[(size_t)blockIdx.y * g.N + n0 + threadIdx.x] = t;
     }
     return;
   }
@@ -395,22 +388,57 @@ static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
   g.rows_per_mask = rows_per_mask;
   if constexpr (std::is_same_v<T, bf16>) {
     const int tile_n = gemm_nk_tile_n(N, K, A, W, out);
-    if (tile_n == 128) return sm90::launch<EPI, 128>(g, st);
-    if (tile_n == 64) return sm90::launch<EPI, 64>(g, st);
+    if (tile_n == 128) return sm90::launch<EPI, 128, false, false>(g, K, st);
+    if (tile_n == 64) return sm90::launch<EPI, 64, false, false>(g, K, st);
   }
   return launch_gemm<false, true, EPI>(g, K, st);
 }
 
+// The backward products' variant, decided before launch like
+// gemm_nk_tile_n: the sm90 GEMM for bf16 operands whose leading
+// dimensions are multiples of 8 and whose operand and output addresses are
+// 16-byte aligned, else 0 (the WMMA tile at bf16, the CUDA-core tile at
+// f32). The sm90 tile is sm90_tile_n(N) wide, and 64 for a split-K weight
+// gradient (SPLIT_TILE_N). kernels/gemm.py:gemm_bwd_variant mirrors it.
 template <typename T>
-static int launch_layernorm(const T* x, const float* s, const float* b,
-                            T* out, float* mu, float* rstd, int rows, int d,
-                            float eps, cudaStream_t st) {
-  const int threads = 256;
-  const int blocks = (int)(((size_t)rows * 32 + threads - 1) / threads);
-  layernorm_kernel<T><<<blocks, threads, 0, st>>>(x, s, b, out, mu, rstd,
-                                                  rows, d, eps);
-  BASD_CHECK_LAUNCH();
+inline int gemm_bwd_tile_n(const GemmT<T>& g, bool split_k) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (sm90_ok({g.lda, g.ldb}, {g.A, g.B, g.out, g.outf, g.aux}))
+      return split_k ? SPLIT_TILE_N : sm90_tile_n(g.N);
+  }
   return 0;
+}
+
+// The rows of one output tile of a variant (tile_n 0: the WMMA or f32
+// tile): the EPI_DGELU column partials come one row per row tile.
+inline int gemm_tile_m(int tile_n) { return tile_n ? sm90::TM : BM; }
+
+// A backward product out[M, N] = epilogue(A . B) with B read as K x N (N
+// contiguous: a weight in torch's (out, in) layout in dY W, or X in
+// dY^T X) and A as M x K or, with A_KM, as K x M (dY in dY^T X), on the
+// variant tile_n names (gemm_bwd_tile_n's choice, or a test's): the sm90
+// GEMM with an MN-major B (and A with A_KM) at tile width 64 or 128, else
+// the WMMA tile (bf16) or the CUDA-core tile (f32). k_chunk > 0 only with
+// EPI_PARTIAL (a multiple of 64: the sm90 stage).
+template <bool A_KM, int EPI, typename T>
+static int launch_gemm_bwd(GemmT<T> g, int tile_n, int k_chunk,
+                           cudaStream_t st) {
+  if (k_chunk <= 0) k_chunk = g.K;
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (tile_n == 128) return sm90::launch<EPI, 128, A_KM, true>(g, k_chunk, st);
+    if (tile_n == 64) return sm90::launch<EPI, 64, A_KM, true>(g, k_chunk, st);
+  }
+  return launch_gemm<A_KM, false, EPI>(g, k_chunk, st);
+}
+
+// The rule's backward product: the variant gemm_bwd_tile_n picks; the
+// rows of its tile through tile_m when asked.
+template <bool A_KM, int EPI, typename T>
+static int gemm_bwd(GemmT<T> g, int k_chunk, cudaStream_t st,
+                    int* tile_m = nullptr) {
+  const int tile_n = gemm_bwd_tile_n(g, EPI == EPI_PARTIAL);
+  if (tile_m) *tile_m = gemm_tile_m(tile_n);
+  return launch_gemm_bwd<A_KM, EPI>(g, tile_n, k_chunk, st);
 }
 
 static int launch_reduce(const float* part, float* out, int S, int n,
@@ -454,10 +482,11 @@ static int launch_dy(const T* dout, const float* mask, no_deduce_t<T*> dyb,
 }
 
 // dW (m x n) = A^T B summed over `rows` rows, A (rows x m), B (rows x n):
-// split-K partials into part, then their fixed-order sum.
+// split-K partials (split_k_chunk's rows each) into part, then their sum
+// in split order. part holds splits * m * n floats.
 template <typename T>
 static int weight_grad(const T* A, int m, const T* B, int n, int rows,
-                       int k_chunk, float* part, float* dw, cudaStream_t st) {
+                       float* part, float* dw, cudaStream_t st) {
   GemmT<T> g{};
   g.A = A;
   g.lda = m;
@@ -467,9 +496,54 @@ static int weight_grad(const T* A, int m, const T* B, int n, int rows,
   g.N = n;
   g.K = rows;
   g.outf = part;
-  int rc = launch_gemm<true, false, EPI_PARTIAL>(g, k_chunk, st);
+  const int k_chunk = split_k_chunk(rows, m, n);
+  int rc = gemm_bwd<true, EPI_PARTIAL>(g, k_chunk, st);
   if (rc) return rc;
   return launch_reduce(part, dw, (rows + k_chunk - 1) / k_chunk, m * n, st);
+}
+
+// dpre (M x N) = T(d), d = (dy . W) * gelu'(pre) with W (K x N) read as
+// K x N (torch's (out = K, in = N) layout); db (N) = the column sums of d
+// in f32: one partial row per row tile of the product into part, added in
+// order. part holds ceil(M / 64) * N floats.
+template <typename T>
+static int dgelu_grad(const T* dy, const T* W, const T* pre, int M, int N,
+                      int K, T* dpre, float* part, float* db,
+                      cudaStream_t st) {
+  GemmT<T> g{};
+  g.A = dy;
+  g.lda = K;
+  g.B = W;
+  g.ldb = N;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.out = dpre;
+  g.aux = pre;
+  g.outf = part;
+  int tile_m = BM;
+  int rc = gemm_bwd<false, EPI_DGELU>(g, 0, st, &tile_m);
+  if (rc) return rc;
+  return launch_reduce(part, db, (M + tile_m - 1) / tile_m, N, st);
+}
+
+// out (rows x n) = A (rows x k) . W (k x n), W in torch's (out, in)
+// layout read as K x N: the input gradient of a forward x W^T, in f32
+// (EPI_F32, outf) or rounded to T (EPI_ROUND, out).
+template <int EPI, typename T>
+static int input_grad(const T* A, const T* W, int rows, int k, int n,
+                      no_deduce_t<T*> out, float* outf, cudaStream_t st) {
+  GemmT<T> g{};
+  g.A = A;
+  g.lda = k;
+  g.B = W;
+  g.ldb = n;
+  g.M = rows;
+  g.N = n;
+  g.K = k;
+  g.out = out;
+  g.outf = outf;
+  return gemm_bwd<false, EPI>(g, 0, st);
 }
 
 }  // namespace basd

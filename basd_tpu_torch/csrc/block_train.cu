@@ -17,19 +17,23 @@
 // The TPU kernels add their weight, bias and LN gradients into one f32
 // block across a sequential grid. Hopper's blocks run in no order, so here
 // every cross-row sum is two passes: per-block partials into a scratch
-// buffer (split-K slices of the weight-gradient GEMMs, 64-row tiles of the
-// GELU-gradient epilogue, row chunks of the column sums, (image, tile)
+// buffer (split-K slices of the weight-gradient GEMMs, sized by the shapes
+// alone (split_k_chunk); the row tiles of the GELU-gradient epilogue, 128
+// rows on the sm90 GEMM; row chunks of the column sums; (image, tile)
 // blocks of the attention backward), then reduce_partials_kernel adds them
-// in a fixed order. No atomics: the result is deterministic.
+// in a fixed order. No atomics: two calls give equal bits.
 //
 // What bounds them on the H100: at the student's shapes (B*N = 25216 rows,
 // D = 192, F = 768, 3 heads, B=128) K3b is ~36 GFLOP and K4b ~45 GFLOP
 // (counted from the shapes; 0.04-0.05 ms at the bf16 tensor-core peak)
-// against ~0.1 GB of unavoidable traffic (0.03 ms at 3.35 TB/s). This
-// version is bound by neither: the simple WMMA tiles of the backward
-// products and the round trips of the recomputed slabs through device
-// memory bind it. The recomputed forward products (qkv; fc1) run on
-// gemm_sm90.cuh's wgmma GEMM. K3b's attention
+// against ~0.1 GB of unavoidable traffic (0.03 ms at 3.35 TB/s). Every
+// bf16 product runs on gemm_sm90.cuh's wgmma GEMM: the recomputed forward
+// ones (qkv; fc1) with both operands K-major, the backward ones through
+// block_kernels.cuh's input_grad, dgelu_grad and weight_grad with the
+// weight (or, in the weight gradients, both operands) MN-major. What is
+// left binds it: the round trips of the recomputed slabs and of the f32
+// gradients through device memory, and the launches between them (about
+// a dozen a block). K3b's attention
 // is the tensor-core backward core of csrc/attention_bwd.cuh (K10b's too):
 // a query-tiled launch for attn, delta and dq, a key-tiled one for dk and
 // dv, each staging 64-row blocks, so nothing of the N x N scores reaches
@@ -123,23 +127,6 @@ static int ln_backward(const T* x, const T* dout, const float* dxn,
   return launch_reduce(part + (size_t)chunks * D, dln_b, chunks, D, st);
 }
 
-// outf (rows x n) = A (rows x k) . W (k x n) in f32, W in torch's (out, in)
-// layout read as K x N: the input gradient of a forward x W^T.
-template <typename T>
-static int input_grad(const T* A, const T* W, int rows, int k, int n,
-                      float* outf, cudaStream_t st) {
-  GemmT<T> g{};
-  g.A = A;
-  g.lda = k;
-  g.B = W;
-  g.ldb = n;
-  g.M = rows;
-  g.N = n;
-  g.K = k;
-  g.outf = outf;
-  return launch_gemm<false, false, EPI_F32>(g, k, st);
-}
-
 // K4b's chain in T (bf16, or f32 on the CUDA-core GEMM).
 template <typename T>
 static int mlp_bwd(const void* x, const float* mask, const void* dout,
@@ -148,8 +135,8 @@ static int mlp_bwd(const void* x, const float* mask, const void* dout,
                    float* db1, float* dw2, float* db2, float* dln_s,
                    float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre,
                    void* ws_h, void* ws_dyb, void* ws_dpre, float* ws_f32,
-                   float* ws_part, int B, int N, int D, int F, int k_chunk,
-                   int row_chunk, float eps, void* stream) {
+                   float* ws_part, int B, int N, int D, int F, int row_chunk,
+                   float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   const T* xb = static_cast<const T*>(x);
@@ -173,29 +160,14 @@ static int mlp_bwd(const void* x, const float* mask, const void* dout,
   if (rc) return rc;
   rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
   if (rc) return rc;
-  rc = weight_grad(dyb, D, hid, F, M, k_chunk, ws_part, dw2, st);
+  rc = weight_grad(dyb, D, hid, F, M, ws_part, dw2, st);
   if (rc) return rc;
-
-  // dpre = (dyb W2) * gelu'(pre), its copy in T and per-tile column sums
-  GemmT<T> g{};
-  g.A = dyb;
-  g.lda = D;
-  g.B = w2b;
-  g.ldb = F;
-  g.M = M;
-  g.N = F;
-  g.K = D;
-  g.out = dpre;
-  g.aux = pre;
-  g.outf = ws_part;
-  rc = launch_gemm<false, false, EPI_DGELU>(g, D, st);
+  // dpre = (dyb W2) * gelu'(pre), its copy in T, db1 its column sums
+  rc = dgelu_grad(dyb, w2b, pre, M, F, D, dpre, ws_part, db1, st);
   if (rc) return rc;
-  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
+  rc = weight_grad(dpre, F, xn, D, M, ws_part, dw1, st);
   if (rc) return rc;
-
-  rc = weight_grad(dpre, F, xn, D, M, k_chunk, ws_part, dw1, st);
-  if (rc) return rc;
-  rc = input_grad(dpre, w1b, M, F, D, ws_f32, st);  // dxn
+  rc = input_grad<EPI_F32>(dpre, w1b, M, F, D, nullptr, ws_f32, st);  // dxn
   if (rc) return rc;
   return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<T*>(dx),
                      dln_s, dln_b, ws_part, M, D, row_chunk, st);
@@ -210,8 +182,9 @@ using basd::bf16;
 // f32: dw_qkv (3D, D), db_qkv (3D), dw_proj (D, D), db_proj, dln_s, dln_b
 // (D). Workspaces: ws_xn, ws_dyb, ws_attn (B*N, D) bf16; ws_qkv, ws_dqkv
 // (B*N, 3D) bf16; ws_stats (2 B*N) f32; ws_f32 (B*N, D) f32; ws_part f32
-// of max(splits * 3D * D, B * ceil(N / 64) * 3D, 2 * row chunks * D)
-// elements; ws_delta (B, H, N) f32.
+// of max(splits * m * n over dW_proj and dW_qkv (split_k_chunk),
+// B * ceil(N / 64) * 3D, 2 * row chunks * D) elements; ws_delta (B, H, N)
+// f32.
 extern "C" int basd_block_attn_train_bwd(
     const void* x, const float* mask, const void* dout, const float* lse,
     const float* ln_s, const float* ln_b, const void* w_qkv,
@@ -219,7 +192,7 @@ extern "C" int basd_block_attn_train_bwd(
     float* db_qkv, float* dw_proj, float* db_proj, float* dln_s, float* dln_b,
     void* ws_xn, float* ws_stats, void* ws_qkv, void* ws_dyb, float* ws_f32,
     void* ws_attn, void* ws_dqkv, float* ws_part, float* ws_delta, int B,
-    int N, int D, int H, int k_chunk, int row_chunk, float eps, float scale,
+    int N, int D, int H, int row_chunk, float eps, float scale,
     void* stream) {
   using namespace basd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -245,7 +218,7 @@ extern "C" int basd_block_attn_train_bwd(
   if (rc) return rc;
   rc = launch_reduce(ws_part, db_proj, (M + row_chunk - 1) / row_chunk, D, st);
   if (rc) return rc;
-  rc = input_grad(dyb, wp, M, D, D, ws_f32, st);  // dattn
+  rc = input_grad<EPI_F32>(dyb, wp, M, D, D, nullptr, ws_f32, st);  // dattn
   if (rc) return rc;
 
   // the attention backward (csrc/attention_bwd.cuh): attn, dqkv and the
@@ -269,11 +242,11 @@ extern "C" int basd_block_attn_train_bwd(
   rc = launch_reduce(ws_part, db_qkv, part_rows, 3 * D, st);
   if (rc) return rc;
 
-  rc = weight_grad(dyb, D, attn, D, M, k_chunk, ws_part, dw_proj, st);
+  rc = weight_grad(dyb, D, attn, D, M, ws_part, dw_proj, st);
   if (rc) return rc;
-  rc = weight_grad(dqkv, 3 * D, xn, D, M, k_chunk, ws_part, dw_qkv, st);
+  rc = weight_grad(dqkv, 3 * D, xn, D, M, ws_part, dw_qkv, st);
   if (rc) return rc;
-  rc = input_grad(dqkv, wq, M, 3 * D, D, ws_f32, st);  // dxn
+  rc = input_grad<EPI_F32>(dqkv, wq, M, 3 * D, D, nullptr, ws_f32, st);  // dxn
   if (rc) return rc;
   return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<bf16*>(dx),
                      dln_s, dln_b, ws_part, M, D, row_chunk, st);
@@ -283,19 +256,20 @@ extern "C" int basd_block_attn_train_bwd(
 // f32; w1 (F, D), w2 (D, F) in x's type; LN affine and b1 f32. Outputs in
 // f32: dw1 (F, D), db1 (F), dw2 (D, F), db2, dln_s, dln_b (D). Workspaces
 // in x's type: ws_xn, ws_dyb (B*N, D); ws_pre, ws_h, ws_dpre (B*N, F); in
-// f32: ws_stats (2 B*N), ws_f32 (B*N, D), ws_part of max(splits * F * D,
-// row tiles * F, 2 * row chunks * D) elements.
+// f32: ws_stats (2 B*N), ws_f32 (B*N, D), ws_part of max(splits * F * D
+// over dW2 and dW1 (split_k_chunk), GELU-gradient row tiles * F,
+// 2 * row chunks * D) elements.
 extern "C" int basd_block_mlp_bwd(
     const void* x, const float* mask, const void* dout, const float* ln_s,
     const float* ln_b, const void* w1, const float* b1, const void* w2,
     void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
     float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
     void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
-    int D, int F, int k_chunk, int row_chunk, float eps, void* stream) {
+    int D, int F, int row_chunk, float eps, void* stream) {
   return basd::mlp_bwd<bf16>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
                              db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
                              ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part, B,
-                             N, D, F, k_chunk, row_chunk, eps, stream);
+                             N, D, F, row_chunk, eps, stream);
 }
 extern "C" int basd_block_mlp_bwd_f32(
     const void* x, const float* mask, const void* dout, const float* ln_s,
@@ -303,9 +277,9 @@ extern "C" int basd_block_mlp_bwd_f32(
     void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
     float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
     void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
-    int D, int F, int k_chunk, int row_chunk, float eps, void* stream) {
+    int D, int F, int row_chunk, float eps, void* stream) {
   return basd::mlp_bwd<float>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
                               db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
                               ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part,
-                              B, N, D, F, k_chunk, row_chunk, eps, stream);
+                              B, N, D, F, row_chunk, eps, stream);
 }

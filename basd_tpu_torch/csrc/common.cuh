@@ -13,8 +13,9 @@
 // bf16 rounding at the same points as the Pallas kernels.
 //
 // It is simple on purpose: no TMA, no wgmma, no multi-stage pipeline. The
-// forward products with bf16 operands take gemm_sm90.cuh's GEMM, which has
-// them; the backward products still take this tile.
+// block kernels' bf16 products take gemm_sm90.cuh's GEMM, which has them,
+// wherever its rule allows; this tile serves the operands it refuses
+// (leading dimensions not a multiple of 8, unaligned addresses).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +23,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace basd {
@@ -87,6 +89,18 @@ struct no_deduce {
 };
 template <typename T>
 using no_deduce_t = typename no_deduce<T>::type;
+
+// Elements of T in 16 bytes: the width of the kernels' vector accesses.
+template <typename T>
+__host__ __device__ constexpr int epi_width() {
+  return 16 / (int)sizeof(T);
+}
+
+// epi_width<T>() elements of T in one 16-byte access.
+template <typename T>
+struct alignas(16) Vec16 {
+  T v[epi_width<T>()];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

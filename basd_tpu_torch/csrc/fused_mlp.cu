@@ -14,17 +14,21 @@
 // K4b's backward (csrc/block_train.cu) without the LayerNorm, the mask and
 // the residual. The TPU kernel adds its weight and bias gradients into one
 // f32 block across a sequential grid; here every cross-row sum is per-block
-// partials (split-K slices, 64-row tiles of the GELU-gradient epilogue, row
-// chunks of the column sums) added in a fixed order: no atomics.
+// partials (split-K slices sized by the shapes alone, the row tiles of the
+// GELU-gradient epilogue, row chunks of the column sums) added in a fixed
+// order: no atomics, so two calls give equal bits. Every bf16 product runs
+// on gemm_sm90.cuh's wgmma GEMM: the forward ones K-major, the backward
+// ones (block_kernels.cuh's weight_grad, dgelu_grad, input_grad) with the
+// weight, or both operands of a weight gradient, MN-major.
 //
 // What bounds them on the H100: at the student's shapes (B*N = 25216 rows,
 // D = 192, F = 768) K11a is 4 M D F = 14.9 GFLOP and K11b 10 M D F = 37.2
 // GFLOP (15 and 38 us at the bf16 tensor-core peak) against ~20 MB and
 // ~30 MB of unavoidable traffic (6 and 9 us at 3.35 TB/s): operations
-// bound them. This version is bound by neither: the simple WMMA tiles of
-// the backward products and the round trips of the (M, F) hidden state,
-// pre-activation and dpre through device memory, which the TPU kernel
-// keeps in VMEM, do.
+// bound them. This version is bound by neither: the round trips of the
+// (M, F) hidden state, pre-activation and dpre through device memory,
+// which the TPU kernel keeps in VMEM, and the f32 weight-gradient
+// partials do.
 //
 // The _f32 entries are the same chains on f32 tensors (the JAX package's
 // f32 path), through the CUDA-core f32 GEMM of csrc/block_kernels.cuh with
@@ -61,8 +65,7 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
                          const float* b1, const void* w2, void* dx, float* dw1,
                          float* db1, float* dw2, float* db2, void* ws_pre,
                          void* ws_h, void* ws_dpre, float* ws_part, int M,
-                         int D, int F, int Do, int k_chunk, int row_chunk,
-                         void* stream) {
+                         int D, int F, int Do, int row_chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xb = static_cast<const T*>(x);
   const T* dob = static_cast<const T*>(dout);
@@ -78,41 +81,19 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
   if (rc) return rc;
   rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, Do, st);
   if (rc) return rc;
-  rc = weight_grad(dob, Do, static_cast<const T*>(hid), F, M, k_chunk,
-                   ws_part, dw2, st);
+  rc = weight_grad(dob, Do, static_cast<const T*>(hid), F, M, ws_part, dw2,
+                   st);
   if (rc) return rc;
-
-  // dpre = (do W2) * gelu'(pre), its copy in T and per-tile column sums
-  GemmT<T> g{};
-  g.A = dob;
-  g.lda = Do;
-  g.B = static_cast<const T*>(w2);
-  g.ldb = F;
-  g.M = M;
-  g.N = F;
-  g.K = Do;
-  g.out = dpre;
-  g.aux = pre;
-  g.outf = ws_part;
-  rc = launch_gemm<false, false, EPI_DGELU>(g, Do, st);
+  // dpre = (do W2) * gelu'(pre), its copy in T, db1 its column sums
+  rc = dgelu_grad(dob, static_cast<const T*>(w2), static_cast<const T*>(pre),
+                  M, F, Do, dpre, ws_part, db1, st);
   if (rc) return rc;
-  rc = launch_reduce(ws_part, db1, (M + BM - 1) / BM, F, st);
-  if (rc) return rc;
-
-  rc = weight_grad(static_cast<const T*>(dpre), F, xb, D, M, k_chunk, ws_part,
-                   dw1, st);
+  rc = weight_grad(static_cast<const T*>(dpre), F, xb, D, M, ws_part, dw1,
+                   st);
   if (rc) return rc;
   // dx = T(dpre W1), W1 (F, D) read as K x N
-  GemmT<T> gx{};
-  gx.A = dpre;
-  gx.lda = F;
-  gx.B = w1b;
-  gx.ldb = D;
-  gx.M = M;
-  gx.N = D;
-  gx.K = F;
-  gx.out = static_cast<T*>(dx);
-  return launch_gemm<false, false, EPI_ROUND>(gx, F, st);
+  return input_grad<EPI_ROUND>(static_cast<const T*>(dpre), w1b, M, F, D,
+                               static_cast<T*>(dx), nullptr, st);
 }
 
 }  // namespace basd
@@ -140,18 +121,18 @@ extern "C" int basd_fused_mlp_fwd_f32(const void* x, const void* w1,
 // K11b. x (M, D), dout (M, Do), dx (M, D); w1 (F, D), w2 (Do, F), all bf16
 // (f32 for the _f32 entry); b1 f32. Outputs in f32: dw1 (F, D), db1 (F),
 // dw2 (Do, F), db2 (Do). Workspaces: ws_pre, ws_h, ws_dpre (M, F) in x's
-// type; ws_part f32 of max(splits * F * max(D, Do), row tiles * F,
-// row chunks * Do) elements.
+// type; ws_part f32 of max(splits * m * n over dW2 and dW1 (split_k_chunk),
+// GELU-gradient row tiles * F, row chunks * Do) elements.
 extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
                                   const void* w1, const float* b1,
                                   const void* w2, void* dx, float* dw1,
                                   float* db1, float* dw2, float* db2,
                                   void* ws_pre, void* ws_h, void* ws_dpre,
                                   float* ws_part, int M, int D, int F, int Do,
-                                  int k_chunk, int row_chunk, void* stream) {
+                                  int row_chunk, void* stream) {
   return basd::fused_mlp_bwd<bf16>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
                                    db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
-                                   F, Do, k_chunk, row_chunk, stream);
+                                   F, Do, row_chunk, stream);
 }
 extern "C" int basd_fused_mlp_bwd_f32(const void* x, const void* dout,
                                       const void* w1, const float* b1,
@@ -159,9 +140,8 @@ extern "C" int basd_fused_mlp_bwd_f32(const void* x, const void* dout,
                                       float* db1, float* dw2, float* db2,
                                       void* ws_pre, void* ws_h, void* ws_dpre,
                                       float* ws_part, int M, int D, int F,
-                                      int Do, int k_chunk, int row_chunk,
-                                      void* stream) {
+                                      int Do, int row_chunk, void* stream) {
   return basd::fused_mlp_bwd<float>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
                                     db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
-                                    F, Do, k_chunk, row_chunk, stream);
+                                    F, Do, row_chunk, stream);
 }

@@ -8,8 +8,9 @@ replaces and its source. The six wrappers of the attention cores
 K3b and K10b) also count each of its two variants, ``tc_launches`` (tensor
 cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
 (``GEMM_NK``) count their forward products by GEMM variant in
-``gemm_variants`` (``block_mlp.gemm_nk_variant``: ``sm90``, ``wmma``,
-``f32``), two a launch.
+``gemm_variants`` (``gemm.gemm_nk_variant``: ``sm90``, ``wmma``, ``f32``),
+two a launch; those of K3b, K4b and K11b (``GEMM_BWD``) their backward
+products (``gemm.gemm_bwd_variant``), four a launch.
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -51,7 +52,7 @@ KERNELS = (
      _PALLAS + "fused_block_mlp.py:170", fused_ln_mlp_fwd),
     ("K4b fused_ln_mlp bwd", "cuda", _CSRC + "block_train.cu",
      _PALLAS + "fused_block_mlp.py:202", fused_ln_mlp_bwd),
-    ("K5a fused_layernorm fwd", "triton", "basd_tpu_torch/kernels/layernorm.py",
+    ("K5a fused_layernorm fwd", "cuda", _CSRC + "layernorm.cu",
      _PALLAS + "layernorm.py:105", layernorm_fwd),
     ("K5b fused_layernorm bwd", "triton", "basd_tpu_torch/kernels/layernorm.py",
      _PALLAS + "layernorm.py:136", layernorm_bwd),
@@ -85,8 +86,11 @@ ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
                   "K10b flash_attention bwd", "K10c flash_attention importance")
 
 
-# the wrappers that count their forward products by GEMM variant
+# the wrappers that count their forward products by GEMM variant, and
+# those that count their backward products
 GEMM_NK = ("K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd")
+GEMM_BWD = ("K3b fused_block_attn_train bwd", "K4b fused_ln_mlp bwd",
+            "K11b fused_mlp bwd")
 
 
 def reset_launch_counts() -> None:
@@ -94,7 +98,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if name in ATTENTION_CORE:
             fn.tc_launches = fn.simt_launches = 0
-        if name in GEMM_NK:
+        if name in GEMM_NK + GEMM_BWD:
             fn.gemm_variants = dict.fromkeys(fn.gemm_variants, 0)
 
 
@@ -108,7 +112,8 @@ def variant_counts() -> dict[str, dict[str, int]]:
             for name, *_, fn in KERNELS if name in ATTENTION_CORE}
 
 
-def gemm_variant_counts() -> dict[str, dict[str, int]]:
-    """Forward products of each ``GEMM_NK`` wrapper by GEMM variant."""
+def gemm_variant_counts(group=GEMM_NK) -> dict[str, dict[str, int]]:
+    """Products of each wrapper of ``group`` (``GEMM_NK``: the forward
+    ones; ``GEMM_BWD``: the backward ones) by GEMM variant."""
     return {name: dict(fn.gemm_variants) for name, *_, fn in KERNELS
-            if name in GEMM_NK}
+            if name in group}

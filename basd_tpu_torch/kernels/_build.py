@@ -42,24 +42,28 @@ _SIGNATURES = {
         [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P]
     ),
     "basd_block_attn_train_bwd": (
-        [_P] * 25 + [_I] * 6 + [_F, _F, _P]
+        [_P] * 25 + [_I] * 5 + [_F, _F, _P]
     ),
     "basd_block_mlp_bwd": (
-        [_P] * 23 + [_I] * 6 + [_F, _P]
+        [_P] * 23 + [_I] * 5 + [_F, _P]
     ),
     "basd_flash_attn_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_imp": [_P] * 4 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_bwd": [_P] * 6 + [_I] * 4 + [_F, _P],
     "basd_gemm_nk": [_P] * 4 + [_I] * 4 + [_P],
+    "basd_gemm_bwd": [_P] * 6 + [_I] * 6 + [_P],
+    "basd_layernorm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
     "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
+    "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
 }
-# the f32 twins of K2/K4's, K10's and K11's entries take the same arguments
+# the f32 twins of K2/K4's, K5a's, K10's and K11's entries take the same
+# arguments
 _SIGNATURES.update({
     name + "_f32": _SIGNATURES[name]
     for name in ("basd_block_mlp_collect_fwd", "basd_block_mlp_bwd",
+                 "basd_layernorm_fwd",
                  "basd_flash_attn_fwd", "basd_flash_attn_imp",
                  "basd_flash_attn_bwd", "basd_fused_mlp_fwd",
                  "basd_fused_mlp_bwd")
@@ -162,6 +166,10 @@ def entry(name: str, dtype) -> str:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of the current CUDA stream of ``device`` (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -37,7 +37,9 @@ needs. K3b's attention is the backward core of ``csrc/attention_bwd.cuh``,
 which K10b shares, with the same rule (``attn_bwd_variant``) and two
 launches of either variant (``_attn_bwd_smem``). Each of the six wrappers
 counts its launches of each variant in ``tc_launches`` and
-``simt_launches`` beside ``launches``.
+``simt_launches`` beside ``launches``. K3b also counts its four backward
+products (dattn, dW_proj, dW_qkv, dxn) by GEMM variant in
+``gemm_variants`` (``gemm.gemm_bwd_variant``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
+from basd_tpu_torch.kernels.gemm import count_products, weight_grad_floats
 from basd_tpu_torch.kernels.layernorm import (
     layernorm_plain_fwd,
     ln_stats_plain,
@@ -53,7 +56,6 @@ from basd_tpu_torch.kernels.layernorm import (
 
 _SMEM_PER_BLOCK = 232448  # an H100 block's dynamic shared-memory limit
 _ROW_CHUNK = 256  # rows per partial of the backward's column sums
-_TARGET_BLOCKS = 528  # split-K target: four blocks per SM of an H100
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -327,15 +329,6 @@ def fused_block_attn(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     return out, imp
 
 
-def split_k_chunk(rows: int, tiles: int) -> int:
-    """Contraction rows per split-K slice of a weight-gradient GEMM with
-    ``tiles`` 64x64 output tiles: enough slices for about four blocks per
-    SM, each a multiple of the 32-row K step."""
-    splits = max(1, min(-(-rows // 32), -(-_TARGET_BLOCKS // tiles)))
-    per_split = -(-rows // splits)
-    return -(-per_split // 32) * 32
-
-
 def fused_block_attn_train_fwd(x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
                                w_proj, b_proj, num_heads: int,
                                eps: float = 1e-6):
@@ -397,8 +390,6 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
                                         e, ())
     m = b * n
     dev = x.device
-    k_chunk = split_k_chunk(m, -(-3 * d // 64) * -(-d // 64))
-    splits = -(-m // k_chunk)
     chunks = -(-m // _ROW_CHUNK)
     dx = torch.empty_like(x)
     dw_qkv = torch.empty((3 * d, d), dtype=f32, device=dev)
@@ -412,10 +403,12 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
                        for _ in range(2))
     ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
     ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
-    # the attention's column sums: one row per (image, 64-query tile)
+    # the weight gradients' split-K partials; the attention's column sums:
+    # one row per (image, 64-query tile)
     tiles = -(-n // 64)
-    ws_part = torch.empty((max(splits * 3 * d * d, b * tiles * 3 * d,
-                               2 * chunks * d),), dtype=f32, device=dev)
+    ws_part = torch.empty((max(weight_grad_floats(m, ((d, d), (3 * d, d))),
+                               b * tiles * 3 * d, 2 * chunks * d),),
+                          dtype=f32, device=dev)
     ws_delta = torch.empty((b, h, n), dtype=f32, device=dev)
     _build.call(
         "basd_block_attn_train_bwd",
@@ -426,10 +419,17 @@ def fused_block_attn_train_bwd(x, mask, dout, lse, ln_scale, ln_bias, w_qkv,
         dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
         ws_stats.data_ptr(), ws_qkv.data_ptr(), ws_dyb.data_ptr(),
         ws_f32.data_ptr(), ws_attn.data_ptr(), ws_dqkv.data_ptr(),
-        ws_part.data_ptr(), ws_delta.data_ptr(), b, n, d, h, k_chunk,
-        _ROW_CHUNK, float(eps), float(e) ** -0.5, _build.stream_ptr(dev),
+        ws_part.data_ptr(), ws_delta.data_ptr(), b, n, d, h, _ROW_CHUNK,
+        float(eps), float(e) ** -0.5, _build.stream_ptr(dev),
     )
     _count_attn_launch(fused_block_attn_train_bwd, variant)
+    # dattn = dy W_proj, dW_proj = dy^T attn, dW_qkv = dqkv^T xn, dxn =
+    # dqkv W_qkv (csrc/block_train.cu)
+    count_products(fused_block_attn_train_bwd, bf, (
+        ((d, d), (ws_dyb, w_proj, ws_f32)),
+        ((d, d), (ws_dyb, ws_attn, ws_part)),
+        ((3 * d, d), (ws_dqkv, ws_xn, ws_part)),
+        ((3 * d, d), (ws_dqkv, w_qkv, ws_f32))))
     return dx, dw_qkv, db_qkv, dw_proj, db_proj, dln_s, dln_b
 
 
@@ -439,6 +439,8 @@ fused_block_attn_train_bwd.launches = 0
 for _fn in (fused_block_attn, fused_block_attn_train_fwd,
             fused_block_attn_train_bwd):
     _fn.tc_launches = _fn.simt_launches = 0
+# backward products by GEMM variant (gemm.gemm_bwd_variant), four a launch
+fused_block_attn_train_bwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedBlockAttnTrain(torch.autograd.Function):

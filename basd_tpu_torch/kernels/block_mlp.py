@@ -27,8 +27,11 @@ are in torch's (out, in) layout.
 
 At bf16 the two forward products of K2 and K4a (and of every other
 ``launch_gemm_nk`` caller) take ``csrc/gemm_sm90.cuh``'s wgmma GEMM when
-``gemm_nk_variant`` says so; the wrappers count the products of each
-variant in ``gemm_variants``.
+``gemm.gemm_nk_variant`` says so, and K4b's four backward products (dW2,
+the GELU gradient, dW1, dxn) when ``gemm.gemm_bwd_variant`` says so; the
+wrappers count the products of each variant in ``gemm_variants``.
+``gemm_nk`` and ``gemm_bwd`` run one product on a chosen variant, for
+holding the GEMMs against each other and timing them.
 """
 
 from __future__ import annotations
@@ -36,11 +39,14 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
-from basd_tpu_torch.kernels.block_attn import (
-    _ROW_CHUNK,
-    _check,
-    _mm,
+from basd_tpu_torch.kernels.block_attn import _ROW_CHUNK, _check, _mm
+from basd_tpu_torch.kernels.gemm import (
+    count_products,
+    gemm_bwd_variant,
+    gemm_nk_variant,
+    gemm_tile_m,
     split_k_chunk,
+    weight_grad_floats,
 )
 from basd_tpu_torch.kernels.layernorm import (
     layernorm_plain_fwd,
@@ -107,25 +113,6 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     dx = (dof + dxln).to(dt)
     return (dx, dw1, dpre.sum(sum_bn), dw2, dy.sum(sum_bn),
             (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
-
-
-def gemm_nk_variant(dtype, n: int, k: int, ptrs) -> str:
-    """The GEMM a forward product ``out (M, n) = A (M, k) . W (n, k)^T``
-    takes, by ``csrc/gemm_sm90.cuh:gemm_nk_tile_n``'s rule (``n`` does not
-    enter it; it sets the tile width, ``gemm_nk_tile_n``): ``'sm90'`` (the
-    wgmma GEMM) for bf16 with k % 8 == 0 and every address in ``ptrs``
-    (A, W and out) 16-byte aligned; ``'wmma'`` (common.cuh's tile) for
-    other bf16 operands; ``'f32'`` (the CUDA-core tile) for f32."""
-    if dtype == torch.float32:
-        return "f32"
-    if k > 0 and k % 8 == 0 and all(p % 16 == 0 for p in ptrs):
-        return "sm90"
-    return "wmma"
-
-
-def gemm_nk_tile_n(n: int) -> int:
-    """The sm90 GEMM's tile width for ``n`` output columns."""
-    return 128 if n >= 256 else 64
 
 
 def _check_mlp(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
@@ -209,6 +196,70 @@ def gemm_nk(a, w, bias, tile_n: int = -1):
     return out
 
 
+# the epilogues of csrc/block_kernels.cuh that basd_gemm_bwd takes
+_BWD_EPI = {"dgelu": 4, "f32": 5, "partial": 6, "round": 7}
+
+
+def gemm_bwd_plain(a, b, epi: str, aux=None):
+    """``gemm_bwd``'s function in plain PyTorch (f32 sums)."""
+    if epi == "partial":
+        return torch.matmul(a.float().t(), b.float())
+    acc = torch.matmul(a.float(), b.float())
+    if epi == "f32":
+        return acc
+    if epi == "round":
+        return acc.to(a.dtype)
+    d = acc * gelu_tanh_grad(aux.float())
+    return d.to(a.dtype), d.sum(0)
+
+
+def gemm_bwd(a, b, epi: str, aux=None, tile_n: int = -1, k_chunk: int = -1):
+    """One backward product through ``launch_gemm_bwd``
+    (``csrc/block.cu:basd_gemm_bwd``) on bf16 CUDA tensors, b (K, N):
+
+    - ``'f32'``: a (M, K) . b in f32 (``input_grad``);
+    - ``'round'``: the same rounded to bf16 (K11b's dx);
+    - ``'dgelu'``: ``(bf16(d), d.sum(0))``, d = (a . b) * gelu'(aux), aux
+      (M, N) (``dgelu_grad``);
+    - ``'partial'``: a (K, M)^T . b in f32 through split-K partials of
+      ``k_chunk`` rows (-1: ``gemm.split_k_chunk``'s), added in split order
+      (``weight_grad``).
+
+    ``tile_n`` -1 takes the rule's GEMM, 0 the WMMA tile, 64 or 128 the
+    sm90 GEMM at that tile width. No kernel path calls it."""
+    k = a.shape[0] if epi == "partial" else a.shape[1]
+    m = a.shape[1] if epi == "partial" else a.shape[0]
+    n = b.shape[1]
+    bf = torch.bfloat16
+    checks = [("a", a, bf, tuple(a.shape)), ("b", b, bf, (k, n))]
+    if epi == "dgelu":
+        checks.append(("aux", aux, bf, (m, n)))
+    for pname, t, dtype, shape in checks:
+        _check(pname, t, dtype, shape)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_bwd: unsupported device {a.device}")
+    dev, f32 = a.device, torch.float32
+    out = outf = part = None
+    if epi in ("f32", "partial"):
+        outf = torch.empty((m, n), dtype=f32, device=dev)
+    if epi in ("round", "dgelu"):
+        out = torch.empty((m, n), dtype=bf, device=dev)
+    if epi == "dgelu":
+        outf = torch.empty((n,), dtype=f32, device=dev)
+        part = torch.empty((-(-m // 64) * n,), dtype=f32, device=dev)
+    if epi == "partial":
+        chunk = split_k_chunk(k, m, n) if k_chunk < 0 else k_chunk
+        part = torch.empty((-(-k // max(chunk, 1)) * m * n,), dtype=f32,
+                           device=dev)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    _build.call("basd_gemm_bwd", a.data_ptr(), b.data_ptr(), ptr(aux),
+                ptr(out), ptr(outf), ptr(part), m, n, k, _BWD_EPI[epi], tile_n,
+                k_chunk, _build.stream_ptr(dev))
+    if epi == "dgelu":
+        return out, outf
+    return out if epi == "round" else outf
+
+
 def fused_ln_mlp_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                          buf, idx: int, eps: float = 1e-6):
     """Returns ``out`` (B, N, D) and writes it into rows
@@ -267,8 +318,6 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
                None, ("dout", dout, dt, (b, n, d)))
     m = b * n
     dev = x.device
-    k_chunk = split_k_chunk(m, -(-f // 64) * -(-d // 64))
-    splits = -(-m // k_chunk)
     chunks = -(-m // _ROW_CHUNK)
     dx = torch.empty_like(x)
     dw1 = torch.empty((f, d), dtype=f32, device=dev)
@@ -282,9 +331,14 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
                              for _ in range(3))
     ws_stats = torch.empty((2 * m,), dtype=f32, device=dev)
     ws_f32 = torch.empty((m, d), dtype=f32, device=dev)
+    # the GELU-gradient product writes one column-sum row per row tile of
+    # its variant (a fresh workspace is aligned: it does not enter the rule)
+    dgelu = gemm_bwd_variant(dt, (d, f), [t.data_ptr() for t in
+                                          (ws_dyb, w2, ws_dpre, ws_pre)])
     ws_part = torch.empty(
-        (max(splits * f * d, -(-m // 64) * f, 2 * chunks * d),), dtype=f32,
-        device=dev)
+        (max(weight_grad_floats(m, ((d, f), (f, d))),
+             -(-m // gemm_tile_m(dgelu)) * f, 2 * chunks * d),),
+        dtype=f32, device=dev)
     _build.call(
         _build.entry("basd_block_mlp_bwd", dt),
         x.data_ptr(), mask.data_ptr(), dout.data_ptr(), ln_scale.data_ptr(),
@@ -293,19 +347,28 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
         db2.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
         ws_stats.data_ptr(), ws_pre.data_ptr(), ws_h.data_ptr(),
         ws_dyb.data_ptr(), ws_dpre.data_ptr(), ws_f32.data_ptr(),
-        ws_part.data_ptr(), b, n, d, f, k_chunk, _ROW_CHUNK, float(eps),
+        ws_part.data_ptr(), b, n, d, f, _ROW_CHUNK, float(eps),
         _build.stream_ptr(dev),
     )
     fused_ln_mlp_bwd.launches += 1
+    # dW2 = dyb^T h, dpre = (dyb W2) gelu'(pre), dW1 = dpre^T xn, dxn =
+    # dpre W1 (csrc/block_train.cu)
+    count_products(fused_ln_mlp_bwd, dt, (
+        ((d, f), (ws_dyb, ws_h, ws_part)),
+        ((d, f), (ws_dyb, w2, ws_dpre, ws_part, ws_pre)),
+        ((f, d), (ws_dpre, ws_xn, ws_part)),
+        ((f, d), (ws_dpre, w1, ws_f32))))
     return dx, dw1, db1, dw2, db2, dln_s, dln_b
 
 
 fused_ln_mlp_collect.launches = 0
 fused_ln_mlp_fwd.launches = 0
 fused_ln_mlp_bwd.launches = 0
-# forward products by GEMM variant (gemm_nk_variant), two a launch
+# forward products by GEMM variant (gemm.gemm_nk_variant), two a launch;
+# K4b's backward products (gemm.gemm_bwd_variant), four a launch
 fused_ln_mlp_collect.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 fused_ln_mlp_fwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
+fused_ln_mlp_bwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedLnMlp(torch.autograd.Function):

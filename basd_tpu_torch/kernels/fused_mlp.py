@@ -7,9 +7,11 @@ over the rows. ``FusedMlp`` wraps them as a ``torch.autograd.Function``
 that saves only x and the weights; as the JAX package's VJP it returns the
 weight gradients in the weights' dtype and both bias gradients in b1's.
 
-The CUDA kernels (``csrc/fused_mlp.cu``) run for bf16 CUDA tensors (WMMA
-tensor-core GEMMs) and f32 CUDA tensors (CUDA-core f32 GEMMs with the same
-epilogues, full f32, no TF32) and raise on any other CUDA dtype; the
+The CUDA kernels (``csrc/fused_mlp.cu``) run for bf16 CUDA tensors (the
+wgmma GEMM of ``csrc/gemm_sm90.cuh`` where its rule allows; K11b counts
+its four backward products by variant in ``gemm_variants``) and f32 CUDA
+tensors (CUDA-core f32 GEMMs with the same epilogues, full f32, no TF32)
+and raise on any other CUDA dtype; the
 ``*_plain`` functions are the same arithmetic in plain PyTorch, taken for
 CPU tensors of any float dtype.
 Rounding follows the TPU kernel: operands in x's dtype, f32 accumulation,
@@ -25,8 +27,14 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
-from basd_tpu_torch.kernels.block_attn import _ROW_CHUNK, _check, _mm, split_k_chunk
+from basd_tpu_torch.kernels.block_attn import _ROW_CHUNK, _check, _mm
 from basd_tpu_torch.kernels.block_mlp import gelu_tanh, gelu_tanh_grad
+from basd_tpu_torch.kernels.gemm import (
+    count_products,
+    gemm_bwd_variant,
+    gemm_tile_m,
+    weight_grad_floats,
+)
 
 
 def fused_mlp_plain_fwd(x, w1, b1, w2, b2):
@@ -120,8 +128,6 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
         ("dout", dout, x.dtype, x.shape[:-1] + (w2.shape[0],)))
     dev = x.device
     f32 = torch.float32
-    k_chunk = split_k_chunk(m, -(-f // 64) * -(-max(d, do_) // 64))
-    splits = -(-m // k_chunk)
     chunks = -(-m // _ROW_CHUNK)
     dx = torch.empty_like(x)
     dw1 = torch.empty((f, d), dtype=f32, device=dev)
@@ -130,8 +136,12 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
     db2 = torch.empty((do_,), dtype=f32, device=dev)
     ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=x.dtype, device=dev)
                              for _ in range(3))
+    # one column-sum row per row tile of the GELU-gradient product
+    dgelu = gemm_bwd_variant(x.dtype, (do_, f), [t.data_ptr() for t in
+                                                 (dout, w2, ws_dpre, ws_pre)])
     ws_part = torch.empty(
-        (max(splits * f * max(d, do_), -(-m // 64) * f, chunks * do_),),
+        (max(weight_grad_floats(m, ((do_, f), (f, d))),
+             -(-m // gemm_tile_m(dgelu)) * f, chunks * do_),),
         dtype=f32, device=dev)
     _build.call(
         _build.entry("basd_fused_mlp_bwd", x.dtype), x.data_ptr(),
@@ -139,14 +149,23 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
         b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws_pre.data_ptr(),
         ws_h.data_ptr(), ws_dpre.data_ptr(), ws_part.data_ptr(), m, d, f, do_,
-        k_chunk, _ROW_CHUNK, _build.stream_ptr(dev),
+        _ROW_CHUNK, _build.stream_ptr(dev),
     )
     fused_mlp_bwd.launches += 1
+    # dW2 = do^T h, dpre = (do W2) gelu'(pre), dW1 = dpre^T x, dx = dpre W1
+    # (csrc/fused_mlp.cu)
+    count_products(fused_mlp_bwd, x.dtype, (
+        ((do_, f), (dout, ws_h, ws_part)),
+        ((do_, f), (dout, w2, ws_dpre, ws_part, ws_pre)),
+        ((f, d), (ws_dpre, x, ws_part)),
+        ((f, d), (ws_dpre, w1, dx))))
     return dx, dw1, db1, dw2, db2
 
 
 fused_mlp_fwd.launches = 0
 fused_mlp_bwd.launches = 0
+# backward products by GEMM variant (gemm.gemm_bwd_variant), four a launch
+fused_mlp_bwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedMlp(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""K5: LayerNorm over the last axis of (B, N, D) with its VJP, in Triton.
+"""K5: LayerNorm over the last axis of (B, N, D) with its VJP.
 
 Replaces ``basd_tpu/ops/pallas/layernorm.py:fused_layernorm``: the forward
 ``_fwd`` (``_fwd_kernel``: f32 two-pass statistics, output in x.dtype, the
@@ -7,21 +7,26 @@ row mean and rstd (B, N) f32 kept for the backward) and the backward
 ``dx = rstd * (g - mean(g) - xhat * mean(g * xhat))``, ``g = dy * scale``,
 and dscale/dbias as per-program partials summed afterwards).
 
-What bounds it on the H100: one read and one write of the activation slab
-(student (128, 197, 192) bf16, 9.7 MB each way; a few microseconds at
-3.35 TB/s), with a handful of flops per element. Each program normalises
-a block of rows held in registers, so the slab crosses device memory once
-in each direction, as the TPU kernel keeps it in VMEM. The TPU backward
-writes one partial row per program and sums them outside the kernel.
+What bounds both on the H100: one read and one write of the activation
+slab (student (128, 197, 192) bf16, 9.7 MB each way; a few microseconds at
+3.35 TB/s), with a handful of flops per element.
 
-The backward runs on a fixed grid of ``_BWD_PROGRAMS`` row programs (two
-per SM of an H100; a constant, so the partial layout and the summation
-order never depend on the card). Program p walks its contiguous range of
-rows (``ln_bwd_partition``) in steps of a few rows, keeps its dscale
-and dbias partials in registers across the walk and writes one (2, D) row
-at the end; one more launch sums the ``_BWD_PROGRAMS`` partial rows of
-both, in program order (deterministic, no atomics: two calls give equal
-bits), spread over ``2 D / _SUM_BLOCK`` programs.
+K5a is CUDA (``csrc/layernorm.cuh``, entries ``basd_layernorm_fwd`` and its
+``_f32`` twin in ``csrc/layernorm.cu``): the one LayerNorm forward of the
+port, which the block kernels K1-K4 launch too. A fixed group of lanes
+owns a row, holds it in registers between the two passes and moves it in
+16-byte accesses (at D=192 in bf16, 4 lanes of 6 chunks each); rows whose
+width is not a whole number of 16-byte chunks take a scalar loop of the
+same kernel. No Triton launcher sits in front of it.
+
+K5b is Triton. It runs on a fixed grid of ``_BWD_PROGRAMS`` row programs
+(two per SM of an H100; a constant, so the partial layout and the
+summation order never depend on the card). Program p walks its contiguous
+range of rows (``ln_bwd_partition``) in steps of a few rows, keeps its
+dscale and dbias partials in registers across the walk and writes one
+(2, D) row at the end; one more launch sums the ``_BWD_PROGRAMS`` partial
+rows of both, in program order (deterministic, no atomics: two calls give
+equal bits), spread over ``2 D / _SUM_BLOCK`` programs.
 
 A step is ``_BWD_ELEMS // BLOCK_D`` rows (32 at D=192, 16 at D=384) on
 ``_BWD_WARPS`` = 2 warps, 128 elements a thread of each operand: the
@@ -41,7 +46,8 @@ from __future__ import annotations
 
 import torch
 
-_ROWS = 16  # rows per program of the forward
+from basd_tpu_torch.kernels import _build
+
 _BWD_PROGRAMS = 264  # the backward's row programs: 2 x the H100's 132 SMs
 _BWD_ELEMS = 8192  # elements of a backward step: rows x the padded row
 _BWD_WARPS = 2
@@ -56,28 +62,6 @@ def _kernels() -> dict:
     global triton, tl
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, o_ptr, mu_ptr, rstd_ptr, m, d, eps,
-                      ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK_D)
-        rmask = rows < m
-        cmask = cols < d
-        m2 = rmask[:, None] & cmask[None, :]
-        offs = rows[:, None] * d + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-        mu = tl.sum(x, axis=1) / d
-        xc = tl.where(m2, x - mu[:, None], 0.0)
-        var = tl.sum(xc * xc, axis=1) / d
-        rstd = tl.rsqrt(var + eps)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        y = xc * rstd[:, None] * w[None, :] + b[None, :]
-        tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=m2)
-        tl.store(mu_ptr + rows, mu, mask=rmask)
-        tl.store(rstd_ptr + rows, rstd, mask=rmask)
 
     @triton.jit
     def ln_bwd_kernel(x_ptr, w_ptr, mu_ptr, rstd_ptr, dy_ptr, dx_ptr, part_ptr,
@@ -124,7 +108,7 @@ def _kernels() -> dict:
             acc += tl.load(part_ptr + p * n + cols, mask=cmask, other=0.0)
         tl.store(out_ptr + cols, acc, mask=cmask)
 
-    _TRITON.update(fwd=ln_fwd_kernel, bwd=ln_bwd_kernel, colsum=colsum_kernel)
+    _TRITON.update(bwd=ln_bwd_kernel, colsum=colsum_kernel)
     return _TRITON
 
 
@@ -194,17 +178,25 @@ def layernorm_fwd(x, scale, bias, eps: float = 1e-6):
     """K5a: (out in x.dtype, mu (B, N) f32, rstd (B, N) f32)."""
     if x.device.type == "cpu":
         return layernorm_plain_fwd(x, scale, bias, eps)
+    out = _ln_fwd_launch(x, scale, bias, eps, 0)
+    layernorm_fwd.launches += 1
+    return out
+
+
+def _ln_fwd_launch(x, scale, bias, eps: float, chunks: int):
+    """K5a's launch; ``chunks`` the 16-byte chunks a lane aims for, 0 for
+    the kernel's own (``csrc/layernorm.cuh:LN_CHUNKS``; ``tune.py`` sweeps
+    others)."""
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     _check_cuda("layernorm_fwd", x, scale, bias)
     b, n, d = x.shape
-    m = b * n
     out = torch.empty_like(x)
     mu = torch.empty((b, n), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
-    grid = (-(-m // _ROWS),)
-    _kernels()["fwd"][grid](x, scale, bias, out, mu, rstd, m, d, float(eps),
-                            ROWS=_ROWS, BLOCK_D=_block_d(d))
-    layernorm_fwd.launches += 1
+    _build.call(_build.entry("basd_layernorm_fwd", x.dtype), x.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                mu.data_ptr(), rstd.data_ptr(), b * n, d, float(eps), chunks,
+                _build.stream_ptr(x.device))
     return out, mu, rstd
 
 

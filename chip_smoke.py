@@ -36,8 +36,13 @@ the script exits non-zero without printing a result:
    K2 (with its collection slab), K4a and K4b on f32 tensors likewise
    (``f32_block_mlp_checks``); the forward GEMM of ``csrc/gemm_sm90.cuh``
    at ragged shapes against the WMMA tile (``gemm_checks``), and
-   ``F.linear``'s time for each of K2's two products beside K2; K5b, like
-   K3b and K10b, called twice on the same inputs for the same bits;
+   ``F.linear``'s time for each of K2's two products beside K2; its
+   backward products of every layout and epilogue (the input gradient,
+   the GELU gradient with its column sums, K11b's rounded dx, the split-K
+   weight gradient) at ragged shapes and at K4b's, against the WMMA tile
+   and the plain product (``bwd_gemm_checks``); K5a also at f32 and at a
+   width not a multiple of 8 (``ln_checks``); K4b, K5b and K11b, like K3b
+   and K10b, called twice on the same inputs for the same bits;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
@@ -45,8 +50,9 @@ the script exits non-zero without printing a result:
    of 12 times), those never, and the step losses must be finite; in this
    and the two runs below every launch of K1, K3a, K3b, K10a, K10b and K10c
    must take the tensor-core attention kernels (``check_core_variants``),
-   and both forward products of every K2 and K4a launch the sm90 GEMM
-   (``check_gemm_variants``);
+   both forward products of every K2 and K4a launch the sm90 GEMM
+   (``check_gemm_variants``), and the four backward products of every
+   K3b, K4b and K11b launch too (``check_bwd_gemm_variants``);
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
@@ -269,6 +275,14 @@ def kernel_phase(torch, device):
           f"({m_rows}, {f}) x ({d}, {f})^T "
           f"ms={time_ms(torch, lambda: F.linear(h2, tw['mlp'][2]))}")
     gemm_checks(torch, rn, block_mlp)
+    # the checks added beside the backward GEMM and K5a draw from a
+    # generator of their own: the inputs of every other check stay the same
+    g_new = torch.Generator(device=device).manual_seed(8)
+
+    def rn_new(*shape, scale=1.0):
+        return torch.randn(shape, generator=g_new, device=device) * scale
+
+    bwd_gemm_checks(torch, rn_new, block_mlp)
 
     # K3 and K4 at the student's shapes, with a stochastic-depth mask of
     # zeros and 1/keep values
@@ -312,6 +326,7 @@ def kernel_phase(torch, device):
     args4b = (xs, mask, dout, *sw["ln"], *sw["mlp"][:3])
     grads = block_mlp.fused_ln_mlp_bwd(*args4b)
     refs = block_mlp.block_mlp_plain_bwd(*args4b)
+    check_repeatable(torch, "K4b", grads, block_mlp.fused_ln_mlp_bwd(*args4b))
     record("K4b fused_ln_mlp bwd", check_grads("K4b", grads, refs),
            lambda: block_mlp.fused_ln_mlp_bwd(*args4b),
            lambda: block_mlp.block_mlp_plain_bwd(*args4b),
@@ -328,6 +343,7 @@ def kernel_phase(torch, device):
     err = max(err, check_close("K5a teacher out", t_out,
                                layernorm.layernorm_plain_fwd(x, *tw["ln"])[0],
                                2 ** -5, 1.0))
+    ln_checks(torch, rn_new, layernorm)
     record("K5a fused_layernorm fwd", err,
            lambda: layernorm.layernorm_fwd(xs, ln_s, ln_b),
            lambda: layernorm.layernorm_plain_fwd(xs, ln_s, ln_b),
@@ -520,6 +536,7 @@ def kernel_phase(torch, device):
     args11b = (xs, dout, *w11[:3])
     grads = fused_mlp.fused_mlp_bwd(*args11b)
     refs = fused_mlp.fused_mlp_plain_bwd(*args11b)
+    check_repeatable(torch, "K11b", grads, fused_mlp.fused_mlp_bwd(*args11b))
     record("K11b fused_mlp bwd", check_grads("K11b", grads, refs),
            lambda: fused_mlp.fused_mlp_bwd(*args11b),
            lambda: fused_mlp.fused_mlp_plain_bwd(*args11b),
@@ -666,12 +683,94 @@ def gemm_checks(torch, rn, block_mlp):
               f"rule) {errs}")
 
 
+def bwd_gemm_checks(torch, rn, block_mlp):
+    """The backward products (``block_mlp.gemm_bwd``) of every layout and
+    epilogue at ragged shapes (M, N, K) and at K4b's: the input gradient
+    (f32 out), K11b's rounded dx, the GELU gradient (bf16 dpre and its f32
+    column sums, one partial row per row tile) with an MN-major B, and the
+    split-K weight gradient A^T B (both MN-major; the rule's split and
+    64-row splits, added in split order). Where the rule admits the sm90
+    GEMM, at tile widths 64 and 128 and the rule's choice, else the WMMA
+    tile and the rule's choice (which must then be it), each against the
+    WMMA tile and the plain product within 2^-6 of max(|ref|, 1), as
+    ``gemm_checks``; the rule's weight gradient called twice for equal
+    bits."""
+    from basd_tpu_torch.kernels import gemm
+
+    bf = torch.bfloat16
+    shapes = ((1000, 200, 200), (129, 65, 24), (130, 136, 72), (136, 72, 130))
+    main = {"f32": (25216, 192, 768), "round": (25216, 192, 768),
+            "dgelu": (25216, 768, 192), "partial": (192, 768, 25216)}
+    for epi, big in main.items():
+        for m, n, k in shapes + (big,):
+            a = (rn(k, m) if epi == "partial" else rn(m, k)).to(bf)
+            b = rn(k, n, scale=k ** -0.5).to(bf)
+            aux = rn(m, n).to(bf) if epi == "dgelu" else None
+            lds = (m if epi == "partial" else k, n)
+            tiles = ((64, 128, -1) if gemm.gemm_bwd_variant(bf, lds, ()) == "sm90"
+                     else (-1,))
+            ref = block_mlp.gemm_bwd_plain(a, b, epi, aux)
+            wmma = block_mlp.gemm_bwd(a, b, epi, aux, 0)
+            chunks = (-1, 64) if epi == "partial" else (-1,)
+            errs = {}
+            for t in tiles:
+                for c in chunks:
+                    out = block_mlp.gemm_bwd(a, b, epi, aux, t, c)
+                    where = f"gemm_bwd {epi} ({m}, {n}, {k}) tile {t} chunk {c}"
+                    outs = out if epi == "dgelu" else (out,)
+                    refs = ref if epi == "dgelu" else (ref,)
+                    wrefs = wmma if epi == "dgelu" else (wmma,)
+                    errs[(t, c)] = max(
+                        max(check_close(where, o, r, 2 ** -6, 1.0),
+                            check_close(where + " vs WMMA", o, w, 2 ** -6, 1.0))
+                        for o, r, w in zip(outs, refs, wrefs))
+            if epi == "partial":
+                check_repeatable(torch, f"gemm_bwd partial ({m}, {n}, {k})",
+                                 (block_mlp.gemm_bwd(a, b, epi),),
+                                 (block_mlp.gemm_bwd(a, b, epi),))
+            print(f"gemm_bwd {epi} ({m}, {n}, {k}) max_abs_err by (tile, "
+                  f"chunk) (-1: the rule) {errs}")
+
+
+def ln_checks(torch, rn, layernorm, b: int = 8, n: int = 197):
+    """K5a (``csrc/layernorm.cuh``) beyond the step's widths, against its
+    plain version: bf16 at D=100 (not a multiple of 8: the scalar loop),
+    f32 at D=192, 384 (16-byte chunks on lane groups), 100 (25 chunks on
+    uneven lanes) and 98 (the scalar loop); out within 2^-5 of max(|ref|,
+    1) at bf16 and 1e-4 at f32, mu and rstd within 1e-4 of max(|ref|, 1)."""
+    for d, dt in ((100, torch.bfloat16), (192, torch.float32),
+                  (384, torch.float32), (100, torch.float32),
+                  (98, torch.float32)):
+        x = rn(b, n, d, scale=2.0).to(dt) + 0.5
+        s_, b_ = 1.0 + 0.1 * rn(d), 0.1 * rn(d)
+        out, mu, rstd = layernorm.layernorm_fwd(x, s_, b_)
+        ref, ref_mu, ref_rstd = layernorm.layernorm_plain_fwd(x, s_, b_)
+        where = f"K5a {dt} ({b}, {n}, {d})"
+        err = max(check_close(f"{where} out", out, ref,
+                              2 ** -5 if dt == torch.bfloat16 else 1e-4, 1.0),
+                  check_close(f"{where} mu", mu, ref_mu, 1e-4, 1.0),
+                  check_close(f"{where} rstd", rstd, ref_rstd, 1e-4, 1.0))
+        print(f"kernel {where}: max_abs_err={err}")
+
+
 def check_gemm_variants(label, counts, variants) -> None:
     """Every forward product of every K2 and K4a launch of a train run took
     the sm90 GEMM (two a launch), none the WMMA or the f32 tile."""
     print(f"forward GEMM variants {label} {variants}")
     for name, v in variants.items():
         check(v["sm90"] == 2 * counts[name] and v["wmma"] == 0 and v["f32"] == 0,
+              f"{label} path: {name}'s {counts[name]} launches took the sm90 "
+              f"GEMM {v['sm90']} times, the WMMA tile {v['wmma']}, the f32 "
+              f"tile {v['f32']}")
+
+
+def check_bwd_gemm_variants(label, counts, variants) -> None:
+    """Every backward product of every K3b, K4b and K11b launch of a train
+    run took the sm90 GEMM (four a launch), none the WMMA or the f32
+    tile."""
+    print(f"backward GEMM variants {label} {variants}")
+    for name, v in variants.items():
+        check(v["sm90"] == 4 * counts[name] and v["wmma"] == 0 and v["f32"] == 0,
               f"{label} path: {name}'s {counts[name]} launches took the sm90 "
               f"GEMM {v['sm90']} times, the WMMA tile {v['wmma']}, the f32 "
               f"tile {v['f32']}")
@@ -967,6 +1066,8 @@ def train_run(torch, device, kernels, root: str, label: str, extra: list):
     counts = kernels.launch_counts()
     check_core_variants(label, counts, kernels.variant_counts())
     check_gemm_variants(label, counts, kernels.gemm_variant_counts())
+    check_bwd_gemm_variants(label, counts,
+                            kernels.gemm_variant_counts(kernels.GEMM_BWD))
     metrics = out_dir / trainer.config.run.name / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     print(f"launches {label} {counts}")

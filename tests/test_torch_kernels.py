@@ -12,7 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from basd_tpu_torch.kernels import block_attn, block_mlp, mix_stack, ns_polar
+from basd_tpu_torch.kernels import block_attn, block_mlp, gemm, mix_stack, ns_polar
 
 RNG = np.random.default_rng(7)
 
@@ -120,8 +120,76 @@ def test_gemm_nk_variant(n, k, dtype, ptrs, variant, tile_n):
     """The forward GEMM's dispatch (csrc/gemm_sm90.cuh:gemm_nk_tile_n):
     bf16 with K % 8 == 0 and A, W and out 16-byte aligned take the sm90
     GEMM at a tile width of 128 where N >= 256, else 64."""
-    assert block_mlp.gemm_nk_variant(dtype, n, k, ptrs) == variant
-    assert block_mlp.gemm_nk_tile_n(n) == tile_n
+    assert gemm.gemm_nk_variant(dtype, n, k, ptrs) == variant
+    assert gemm.sm90_tile_n(n) == tile_n
+
+
+# the backward products of the main path (K3b: dattn, dW_proj, dW_qkv, dxn
+# at D=192; K4b/K11b: dW2, the GELU gradient, dW1, dxn/dx at F=768) and
+# other leading dimensions, alignments and dtypes
+@pytest.mark.parametrize("dtype,lds,ptrs,variant", [
+    (torch.bfloat16, (192, 192), (0, 512, 1024), "sm90"),
+    (torch.bfloat16, (576, 192), (0, 512, 1024), "sm90"),
+    (torch.bfloat16, (192, 768), (0, 512, 1024), "sm90"),
+    (torch.bfloat16, (768, 192), (0, 512, 1024), "sm90"),
+    (torch.bfloat16, (192, 768), (0, 512, 1024, 2048, 4096), "sm90"),
+    (torch.bfloat16, (192, 768), (0, 512, 0, 2048, 0), "sm90"),  # null ptrs
+    (torch.bfloat16, (200, 136), (16, 32, 48), "sm90"),
+    (torch.bfloat16, (8, 8), (0, 0, 0), "sm90"),
+    (torch.bfloat16, (196, 768), (0, 512, 1024), "wmma"),  # lda % 8 != 0
+    (torch.bfloat16, (192, 100), (0, 512, 1024), "wmma"),  # ldb % 8 != 0
+    (torch.bfloat16, (0, 192), (0, 512, 1024), "wmma"),
+    (torch.bfloat16, (192, 768), (8, 512, 1024), "wmma"),  # A unaligned
+    (torch.bfloat16, (192, 768), (0, 520, 1024), "wmma"),  # B unaligned
+    (torch.bfloat16, (192, 768), (0, 512, 1028), "wmma"),  # out unaligned
+    (torch.bfloat16, (192, 768), (0, 512, 1024, 2048, 4098), "wmma"),  # aux
+    (torch.float32, (192, 768), (0, 512, 1024), "f32"),
+    (torch.float32, (196, 100), (4, 8, 12), "f32"),
+])
+def test_gemm_bwd_variant(dtype, lds, ptrs, variant):
+    """The backward products' dispatch (csrc/block_kernels.cuh:
+    gemm_bwd_tile_n): bf16 with both leading dimensions multiples of 8 and
+    every operand, output and epilogue address 16-byte aligned take the
+    sm90 GEMM, other bf16 the WMMA tile, f32 the CUDA-core tile; the
+    GELU-gradient's column-sum rows follow the variant's tile."""
+    assert gemm.gemm_bwd_variant(dtype, lds, ptrs) == variant
+    assert gemm.gemm_tile_m(variant) == (128 if variant == "sm90" else 64)
+
+
+@pytest.mark.parametrize("rows,m,n", [
+    (25216, 192, 192), (25216, 576, 192), (25216, 192, 768),
+    (25216, 768, 192), (50432, 384, 1536), (1576, 192, 768),
+    (1000, 200, 200), (129, 65, 24), (64, 8, 8), (1, 8, 8),
+    (65, 4096, 4096),
+])
+def test_split_k_chunk(rows, m, n):
+    """The weight gradients' split (csrc/gemm_sm90.cuh:split_k_chunk): each
+    chunk a multiple of the 64-row stage, the chunks covering rows
+    0..rows-1 once each, in order; no more splits than about SPLIT_TARGET
+    CTAs need, at least one, and no empty split; a function of the shapes
+    alone."""
+    chunk = gemm.split_k_chunk(rows, m, n)
+    assert chunk > 0 and chunk % gemm.SM90_TK == 0
+    splits = -(-rows // chunk)
+    starts = [s * chunk for s in range(splits)]
+    ends = [min(rows, s + chunk) for s in starts]
+    assert starts[0] == 0 and ends[-1] == rows
+    assert all(e == s for e, s in zip(ends[:-1], starts[1:]))
+    assert all(s < e for s, e in zip(starts, ends))
+    tiles = -(-m // gemm.SM90_TM) * -(-n // gemm.SPLIT_TILE_N)
+    assert splits <= max(1, -(-gemm.SPLIT_TARGET // tiles))
+    assert gemm.split_k_chunk(rows, m, n) == chunk
+    assert gemm.weight_grad_floats(rows, ((m, n),)) == splits * m * n
+
+
+def test_split_k_chunk_main_path():
+    """The splits of the main path's weight gradients (B*N = 25216 rows):
+    dW_proj 33 splits of 768 rows, dW_qkv 14 of 1856, dW2 (192 x 768) 9
+    of 2816, dW1 (768 x 192) 11 of 2304, about SPLIT_TARGET CTAs each."""
+    got = {(m, n): gemm.split_k_chunk(25216, m, n)
+           for m, n in ((192, 192), (576, 192), (192, 768), (768, 192))}
+    assert got == {(192, 192): 768, (576, 192): 1856, (192, 768): 2816,
+                   (768, 192): 2304}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
