@@ -72,6 +72,8 @@
 
 #include <initializer_list>
 
+#include "wgmma.cuh"
+
 namespace basd {
 namespace sm90 {
 
@@ -95,10 +97,6 @@ struct Cfg {
   // 1024 bytes of slack to align the ring for the 128-byte swizzle
   static constexpr int SMEM = 1024 + BARS + 2 * STAGES * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -150,101 +148,10 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a K-major operand tile in shared memory with the
-// 128-byte swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart
-// (stride byte offset), the leading byte offset unused (1). A k16 step
-// advances the start address by 32 bytes.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// wgmma descriptor of an MN-major operand tile with the 128-byte swizzle
-// (the canonical layout ((8, 8, m), (8, k)) : ((1, 8, LBO), (64, SBO)) in
-// bf16 elements): 64 MN-elements a 128-byte row, one row per K index,
-// the next 64 MN-elements a box further (the leading byte offset,
-// BOX_BYTES), the next 8 K-rows 1024 bytes further (the stride byte
-// offset). A k16 step advances the start address by 16 rows, 2048 bytes.
-__device__ __forceinline__ uint64_t smem_desc_mn(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(BOX_BYTES >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
 template <bool MN>
 __device__ __forceinline__ uint64_t operand_desc(const uint8_t* tile, int kk) {
-  return MN ? smem_desc_mn(tile + kk * 16 * 128) : smem_desc(tile + kk * 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// d[64 x TN] += A[64 x 16] . B[16 x TN] from shared memory, A K-major
-// (TA = 0) or M-major (TA = 1), B K-major (TB = 0) or N-major (TB = 1);
-// f32 accumulators in the m64nTN layout (thread t of the warpgroup holds
-// rows 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and columns
-// 8 (i / 4) + 2 (t % 4) + i % 2 for its registers i).
-template <int TN, int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b) {
-  static_assert(TN == 64 || TN == 128, "tile width 64 or 128");
-  if constexpr (TN == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
-  }
+  return MN ? smem_desc_mn(tile + kk * 16 * 128, BOX_BYTES)
+            : smem_desc(tile + kk * 32);
 }
 
 // Copies one stage: the 128 x 64 slice of A and the TN x 64 slice of B at

@@ -6,22 +6,46 @@
 //     G = X X^T,  H = b G + c G G^T,  X <- a X + H X
 // and 2 cubic steps  X <- 1.5 X - 0.5 (X X^T) X, with bf16 operands, f32
 // accumulation and every intermediate rounded to bf16, as the TPU kernel
-// does.
+// does: G, G G^T, H and each new X are rounded to bf16; the a X, b G,
+// 1.5 X and 0.5 (.) terms are combined in f32 (no fused multiply-add)
+// before the rounding. Only the order of accumulation inside a product
+// differs from the reference.
 //
 // What bounds it on the H100: at the Procrustes batch (P*B = 512 matrices
 // of 192 x 384 at B=128) the iteration is ~240 GFLOP (counted from the
-// shapes), ~0.25 ms at the bf16 tensor-core peak; the per-matrix operands
-// (X 147 KB, G and H 74 KB each in bf16) do not fit one block's 227 KB of
-// shared memory together. This first version gives each matrix one block
-// that walks the whole iteration, keeping X (ping-pong), G and H in a
-// per-matrix device-memory workspace that the caller allocates (~0.44 MB
-// a matrix, read back through L2) and staging 64 x 64
-// tiles through shared memory for the WMMA products. One launch for the
-// whole iteration; 512 independent blocks fill the 132 SMs. Keeping the
-// operands on chip (clusters with distributed shared memory, or fp32
-// accumulators in registers across steps) is later work.
+// shapes), ~0.24 ms at the bf16 tensor-core peak, against 151 MB of input
+// and 75 MB of output (0.07 ms at 3.35 TB/s): operations, as the TPU
+// kernel's point is that device memory sees one read of x and one write
+// of the polar factor.
+//
+// Two variants, chosen before launch from the shapes by the caller
+// (kernels/ns_polar.py:ns_polar_variant):
+// - on-chip (ns_polar_onchip_kernel): the whole iteration in one CTA's
+//   shared memory. The rows are padded with zeros to RP = 64, 128 or 192
+//   (zero rows stay zero through every step and touch no real entry);
+//   X (RP x c bf16) and G/H (RP x RP bf16) are stored as the 128-byte-
+//   swizzled blocks of 64 columns that wgmma.cuh describes: 221,184 bytes
+//   at (192, 384), of the 232,448 a block may use. RP / 64 consumer
+//   warpgroups each own one 64-row panel and issue wgmma with both
+//   operands in shared memory: G = X X^T (m64nRPk16, X K-major as A and
+//   as B), G G^T (the same on G), and Y = M X for M = H or G in column
+//   chunks of 128 (m64n128k16, X MN-major as B: the same blocks read
+//   across their rows, the leading byte offset one block). Accumulators
+//   stay in registers across a CTA barrier, after which H overwrites G in
+//   place and each chunk of Y overwrites its chunk of X (the other
+//   warpgroups have finished reading it). The prescale reads x twice from
+//   device memory (the norm, then scale and round into the swizzled X);
+//   the CTA writes the final X once. One CTA an SM (its shared memory),
+//   512 CTAs over ~3.9 waves of the 132 SMs.
+// - workspace (ns_polar_hybrid_kernel), for shapes whose X and G do not
+//   fit (r > 192, or 2 RP (RP + c) bytes over the limit, e.g. (384, 768),
+//   a DeiT-S student under a DeiT-B teacher): one 128-thread CTA a matrix
+//   walks the iteration on common.cuh's WMMA tile, keeping X (ping-pong),
+//   G and H in a per-matrix device-memory workspace (~0.44 MB a matrix at
+//   (192, 384), read back through L2).
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace basd {
 
@@ -120,10 +144,226 @@ __global__ void __launch_bounds__(TILE_THREADS)
   for (size_t i = threadIdx.x; i < rc; i += blockDim.x) om[i] = xa[i];
 }
 
+// ---- the on-chip variant ----
+
+constexpr int ONCHIP_MAX_RP = 192;
+constexpr int NS_CHUNK = 128;  // columns of Y a product: m64n128k16
+
+// Dynamic shared memory of the on-chip variant: 1024 bytes of alignment
+// slack, X, G/H and one float a warp for the norm's reduction.
+// kernels/ns_polar.py:onchip_smem_bytes mirrors it.
+inline long long onchip_smem_bytes(int rp, int c) {
+  return 1024LL + 2LL * rp * c + 2LL * rp * rp + 4LL * (2 * rp / 32);
+}
+
+// acc[0:N/2] = A[64 x K] . B[K x N] for warpgroup `wg`'s 64-row panel of
+// a matrix A stored as swizzled blocks of RP rows (K-major), with B read
+// through `b_desc(k16 step)`.
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products (no instruction is emitted).
+template <int N>
+__device__ __forceinline__ void acc_fence(float* acc) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+template <int N, int TB, typename BDesc>
+__device__ __forceinline__ void panel_product(float* acc, const uint8_t* a,
+                                              int a_block, int k_steps, int wg,
+                                              BDesc b_desc) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  acc_fence<N>(acc);
+  sm90::wgmma_fence();
+  for (int ks = 0; ks < k_steps; ++ks) {
+    const uint8_t* ap = a + (ks >> 2) * a_block + wg * 64 * 128 + (ks & 3) * 32;
+    sm90::wgmma_bf16<N, 0, TB>(acc, sm90::smem_desc(ap), b_desc(ks));
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  acc_fence<N>(acc);
+}
+
+// Row (within the 64-row panel) and column (within the N-wide product) of
+// accumulator pair i / 2 (i even) of thread t of a warpgroup.
+__device__ __forceinline__ int acc_row(int t, int i) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int t, int i) {
+  return 8 * (i / 4) + 2 * (t % 4);
+}
+
+__device__ __forceinline__ __nv_bfloat162* bf2_at(uint8_t* base, int row,
+                                                  int col, int block) {
+  return reinterpret_cast<__nv_bfloat162*>(
+      base + sm90::swizzle_offset(row, col, block));
+}
+
+// M M^T of a matrix M (RP x K bf16, swizzled blocks `block` bytes apart):
+// this warpgroup's 64 x RP panel.
+template <int RP>
+__device__ __forceinline__ void gram_panel(float* acc, const uint8_t* m,
+                                           int block, int k, int wg) {
+  panel_product<RP, 0>(acc, m, block, k / 16, wg, [&](int ks) {
+    return sm90::smem_desc(m + (ks >> 2) * block + (ks & 3) * 32);
+  });
+}
+
+// Rounds this warpgroup's panel of an RP-wide product to bf16 into dst
+// (RP x RP, swizzled), as G.
+template <int RP>
+__device__ __forceinline__ void store_panel(const float* acc, uint8_t* dst,
+                                            int wg, int t) {
+#pragma unroll
+  for (int i = 0; i < RP / 2; i += 2) {
+    *bf2_at(dst, wg * 64 + acc_row(t, i), acc_col(t, i), RP * 128) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+// Y = coef_x X + coef_m (M X) for every column chunk of X, M = H (quintic:
+// coef_x = a, coef_m = 1) or G (cubic: 1.5, -0.5), each chunk of Y written
+// over its chunk of X once every warpgroup has read it.
+template <int RP>
+__device__ __forceinline__ void update_x(uint8_t* x, const uint8_t* m, int c,
+                                        int wg, int t, float coef_x,
+                                        float coef_m, bool quintic) {
+  float acc[NS_CHUNK / 2];
+  const int x_block = RP * 128;
+  for (int j = 0; j < c / NS_CHUNK; ++j) {
+    const uint8_t* xb = x + (2 * j) * x_block;
+    panel_product<NS_CHUNK, 1>(acc, m, RP * 128, RP / 16, wg, [&](int ks) {
+      return sm90::smem_desc_mn(xb + ks * 16 * 128, x_block);
+    });
+    __syncthreads();  // every warpgroup has read X[:, chunk j]
+#pragma unroll
+    for (int i = 0; i < NS_CHUNK / 2; i += 2) {
+      __nv_bfloat162* p = bf2_at(x, wg * 64 + acc_row(t, i),
+                                 NS_CHUNK * j + acc_col(t, i), x_block);
+      const float2 xv = __bfloat1622float2(*p);
+      float y0, y1;
+      if (quintic) {  // a X + H X
+        y0 = __fadd_rn(__fmul_rn(coef_x, xv.x), acc[i]);
+        y1 = __fadd_rn(__fmul_rn(coef_x, xv.y), acc[i + 1]);
+      } else {  // 1.5 X - 0.5 (G X)
+        y0 = __fadd_rn(__fmul_rn(coef_x, xv.x), __fmul_rn(coef_m, acc[i]));
+        y1 = __fadd_rn(__fmul_rn(coef_x, xv.y), __fmul_rn(coef_m, acc[i + 1]));
+      }
+      *p = __floats2bfloat162_rn(y0, y1);
+    }
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();  // the new X is whole before the next product reads it
+}
+
+template <int RP>
+__global__ void __launch_bounds__(2 * RP, 1)
+    ns_polar_onchip_kernel(const float* __restrict__ x, bf16* __restrict__ out,
+                           int r, int c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* xs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* gs = xs + (size_t)2 * RP * c;
+  float* red = reinterpret_cast<float*>(gs + 2 * RP * RP);
+  constexpr int THREADS = 2 * RP;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int x_block = RP * 128;
+  const size_t rc = (size_t)r * c;
+  const float* xm = x + blockIdx.x * rc;
+
+  // f32 Frobenius prescale: the norm, then scale and round into X
+  float s = 0.f;
+  for (size_t i = 4 * (size_t)tid; i < rc; i += 4 * THREADS) {
+    const float4 v = *reinterpret_cast<const float4*>(xm + i);
+    s += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  s = warp_sum(s);
+  if (tid % 32 == 0) red[tid / 32] = s;
+  __syncthreads();
+  float norm2 = 0.f;
+  for (int w = 0; w < THREADS / 32; ++w) norm2 += red[w];
+  const float inv = rsqrtf(norm2 + 1e-30f);
+  const int chunks = c / 8;
+  for (int i = tid; i < RP * chunks; i += THREADS) {
+    const int row = i / chunks;
+    const int col = (i % chunks) * 8;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (row < r) {
+      const float4 lo = *reinterpret_cast<const float4*>(xm + (size_t)row * c + col);
+      const float4 hi = *reinterpret_cast<const float4*>(xm + (size_t)row * c + col + 4);
+      __nv_bfloat162 h[4] = {
+          __floats2bfloat162_rn(__fmul_rn(lo.x, inv), __fmul_rn(lo.y, inv)),
+          __floats2bfloat162_rn(__fmul_rn(lo.z, inv), __fmul_rn(lo.w, inv)),
+          __floats2bfloat162_rn(__fmul_rn(hi.x, inv), __fmul_rn(hi.y, inv)),
+          __floats2bfloat162_rn(__fmul_rn(hi.z, inv), __fmul_rn(hi.w, inv))};
+      packed = *reinterpret_cast<uint4*>(h);
+    }
+    *reinterpret_cast<uint4*>(xs + sm90::swizzle_offset(row, col, x_block)) = packed;
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  float acc[RP / 2];
+  for (int step = 0; step < 5 + NUM_CUBIC; ++step) {
+    // G = X X^T, rounded to bf16 (the previous step's reads of G/H ended
+    // at update_x's barriers)
+    gram_panel<RP>(acc, xs, x_block, c, wg);
+    store_panel<RP>(acc, gs, wg, t);
+    sm90::fence_proxy_async();
+    __syncthreads();
+    if (step < 5) {
+      const float a = QUINTIC[step][0];
+      const float b = QUINTIC[step][1];
+      const float cq = QUINTIC[step][2];
+      // G G^T; H = b G + c bf16(G G^T) over G once every panel is done
+      gram_panel<RP>(acc, gs, RP * 128, RP, wg);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < RP / 2; i += 2) {
+        __nv_bfloat162* p = bf2_at(gs, wg * 64 + acc_row(t, i), acc_col(t, i),
+                                   RP * 128);
+        const float2 g = __bfloat1622float2(*p);
+        const float2 g2 = __bfloat1622float2(__floats2bfloat162_rn(acc[i], acc[i + 1]));
+        *p = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(b, g.x), __fmul_rn(cq, g2.x)),
+            __fadd_rn(__fmul_rn(b, g.y), __fmul_rn(cq, g2.y)));
+      }
+      sm90::fence_proxy_async();
+      __syncthreads();
+      update_x<RP>(xs, gs, c, wg, t, a, 1.f, true);
+    } else {
+      update_x<RP>(xs, gs, c, wg, t, 1.5f, -0.5f, false);
+    }
+  }
+
+  bf16* om = out + blockIdx.x * rc;
+  for (int i = tid; i < r * chunks; i += THREADS) {
+    const int row = i / chunks;
+    const int col = (i % chunks) * 8;
+    *reinterpret_cast<uint4*>(om + (size_t)row * c + col) =
+        *reinterpret_cast<const uint4*>(xs + sm90::swizzle_offset(row, col, x_block));
+  }
+}
+
+template <int RP>
+int launch_onchip(const float* x, bf16* out, int batch, int r, int c,
+                  cudaStream_t st) {
+  const long long smem = onchip_smem_bytes(RP, c);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ns_polar_onchip_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ns_polar_onchip_kernel<RP><<<batch, 2 * RP, smem, st>>>(x, out, r, c);
+  BASD_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace basd
 
-// x: (batch, r, c) f32 with r <= c, r % 8 == 0, c % 8 == 0; out: (batch,
-// r, c) bf16; ws: batch * (2 r c + 2 r r) bf16.
+// The workspace variant. x: (batch, r, c) f32 with r <= c, r % 8 == 0,
+// c % 8 == 0; out: (batch, r, c) bf16; ws: batch * (2 r c + 2 r r) bf16.
 extern "C" int basd_ns_polar_hybrid(const float* x, void* out, void* ws,
                                     int batch, int r, int c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -131,4 +371,21 @@ extern "C" int basd_ns_polar_hybrid(const float* x, void* out, void* ws,
       x, static_cast<basd::bf16*>(out), static_cast<basd::bf16*>(ws), r, c);
   BASD_CHECK_LAUNCH();
   return 0;
+}
+
+// The on-chip variant. x: (batch, r, c) f32 with r <= 192, r <= c,
+// r % 8 == 0, c % 128 == 0, 16-byte aligned; out: (batch, r, c) bf16.
+extern "C" int basd_ns_polar_onchip(const float* x, void* out, int batch,
+                                    int r, int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  basd::bf16* o = static_cast<basd::bf16*>(out);
+  const int rp = (r + 63) / 64 * 64;
+  if (r <= 0 || r > c || r % 8 != 0 || c % basd::NS_CHUNK != 0 ||
+      rp > basd::ONCHIP_MAX_RP ||
+      basd::onchip_smem_bytes(rp, c) > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  if (rp == 64) return basd::launch_onchip<64>(x, o, batch, r, c, st);
+  if (rp == 128) return basd::launch_onchip<128>(x, o, batch, r, c, st);
+  return basd::launch_onchip<192>(x, o, batch, r, c, st);
 }

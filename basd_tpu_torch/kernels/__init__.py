@@ -10,7 +10,10 @@ cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
 (``GEMM_NK``) count their forward products by GEMM variant in
 ``gemm_variants`` (``gemm.gemm_nk_variant``: ``sm90``, ``wmma``, ``f32``),
 two a launch; those of K3b, K4b and K11b (``GEMM_BWD``) their backward
-products (``gemm.gemm_bwd_variant``), four a launch.
+products (``gemm.gemm_bwd_variant``), four a launch. ``PARTS`` lists the
+variants and launches of K7 and K8 that count on their own: K7's two
+variants (``ns_polar_hybrid.variants``), K8's rounds by variant
+(``jacobi_rounds.variants``) and its vectors pass (``jacobi_vectors``).
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -30,7 +33,11 @@ from basd_tpu_torch.kernels.flash_attention import (
 )
 from basd_tpu_torch.kernels.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
 from basd_tpu_torch.kernels.geom_shift import geom_shift3
-from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
+from basd_tpu_torch.kernels.jacobi_eigh import (
+    jacobi_eigh,
+    jacobi_rounds,
+    jacobi_vectors,
+)
 from basd_tpu_torch.kernels.layernorm import layernorm_bwd, layernorm_fwd
 from basd_tpu_torch.kernels.mix_stack import mix_stack_dw, mix_stack_fwd
 from basd_tpu_torch.kernels.ns_polar import ns_polar_hybrid
@@ -79,6 +86,23 @@ KERNELS = (
 )
 
 
+# the variants and launches of K7 and K8 that count on their own: (name,
+# route, source, TPU kernel replaced, wrapper, variant key or None for the
+# wrapper's launches)
+PARTS = (
+    ("K7 ns_polar_hybrid: onchip", "cuda", _CSRC + "ns_polar.cu",
+     _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "onchip"),
+    ("K7 ns_polar_hybrid: workspace", "cuda", _CSRC + "ns_polar.cu",
+     _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "workspace"),
+    ("K8 jacobi_eigh: rounds smem", "cuda", _CSRC + "jacobi_eigh.cu",
+     _PALLAS + "jacobi_eigh.py:215", jacobi_rounds, "smem"),
+    ("K8 jacobi_eigh: rounds global", "cuda", _CSRC + "jacobi_eigh.cu",
+     _PALLAS + "jacobi_eigh.py:215", jacobi_rounds, "global"),
+    ("K8 jacobi_eigh: vectors", "cuda", _CSRC + "jacobi_eigh.cu",
+     _PALLAS + "jacobi_eigh.py:215", jacobi_vectors, None),
+)
+
+
 # the wrappers that launch the attention cores: csrc/attention.cuh's
 # forward and csrc/attention_bwd.cuh's backward
 ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
@@ -100,10 +124,20 @@ def reset_launch_counts() -> None:
             fn.tc_launches = fn.simt_launches = 0
         if name in GEMM_NK + GEMM_BWD:
             fn.gemm_variants = dict.fromkeys(fn.gemm_variants, 0)
+    for *_, fn, key in PARTS:
+        fn.launches = 0
+        if key is not None:
+            fn.variants = dict.fromkeys(fn.variants, 0)
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, *_, fn in KERNELS}
+
+
+def part_counts() -> dict[str, int]:
+    """Launches of each entry of ``PARTS``."""
+    return {name: fn.launches if key is None else fn.variants[key]
+            for name, *_, fn, key in PARTS}
 
 
 def variant_counts() -> dict[str, dict[str, int]]:

@@ -56,7 +56,9 @@ _SIGNATURES = {
     "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
-    "basd_jacobi_eigh": [_P] * 5 + [_I, _I, _I, _P],
+    "basd_ns_polar_onchip": [_P, _P, _I, _I, _I, _P],
+    "basd_jacobi_rounds": [_P] * 5 + [_I] * 4 + [_P],
+    "basd_jacobi_vectors": [_P] * 3 + [_I] * 3 + [_P],
 }
 # the f32 twins of K2/K4's, K5a's, K10's and K11's entries take the same
 # arguments

@@ -3,11 +3,15 @@
 Replaces ``basd_tpu/ops/pallas/ns_polar.py:ns_polar_hybrid``
 (``_ns_kernel``): an f32 Frobenius prescale, 5 accelerated quintic steps
 (``QUINTIC_SCHEDULE``) and 2 cubic steps, bf16 operands with f32
-accumulation and every intermediate rounded to bf16. The CUDA kernel
-(``csrc/ns_polar.cu``, ``basd_ns_polar_hybrid``) runs for a CUDA tensor;
-``ns_polar_plain`` is the same function in plain PyTorch, taken for a CPU
-tensor. Forward-only: the polar factor is the nuclear-norm subgradient,
-never differentiated through.
+accumulation and every intermediate rounded to bf16. For a CUDA tensor
+one of the two CUDA kernels of ``csrc/ns_polar.cu`` runs, picked before the
+launch from the shapes (``ns_polar_variant``): ``onchip``
+(``basd_ns_polar_onchip``: the whole iteration in one CTA's shared memory
+on wgmma, for r <= 192 where X and G fit) or ``workspace``
+(``basd_ns_polar_hybrid``: X, G and H in device memory, on the WMMA
+tile). ``ns_polar_plain`` is the same function in plain PyTorch, taken for
+a CPU tensor. Forward-only: the polar factor is the nuclear-norm
+subgradient, never differentiated through.
 """
 
 from __future__ import annotations
@@ -64,6 +68,29 @@ def kernel_eligible(r: int, c: int) -> bool:
     return r % 8 == 0 and c % 128 == 0
 
 
+# a block's dynamic shared memory on sm_90, and the widest row padding
+# (three warpgroups of 64 rows) of the on-chip variant
+_SMEM_BYTES = 232448
+_ONCHIP_MAX_ROWS = 192
+
+
+def onchip_smem_bytes(rows_padded: int, c: int) -> int:
+    """Shared memory of the on-chip variant (``csrc/ns_polar.cu``:
+    ``onchip_smem_bytes``): alignment slack, X and G in bf16, one float a
+    warp."""
+    return 1024 + 2 * rows_padded * (c + rows_padded) + 4 * (2 * rows_padded // 32)
+
+
+def ns_polar_variant(r: int, c: int) -> str:
+    """``onchip`` where X and G fit one block's shared memory with the rows
+    padded to a multiple of 64 (at most 192, three warpgroups), else
+    ``workspace``."""
+    rp = -(-r // 64) * 64
+    if rp <= _ONCHIP_MAX_ROWS and onchip_smem_bytes(rp, c) <= _SMEM_BYTES:
+        return "onchip"
+    return "workspace"
+
+
 def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
     """Polar factor of ``x`` (B, r, c) f32, r <= c, r % 8 == 0,
     c % 128 == 0 (callers transpose tall inputs). Returns bf16."""
@@ -82,12 +109,22 @@ def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("ns_polar_hybrid: x must be contiguous float32")
     out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
-                     device=x.device)
-    _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
+    variant = ns_polar_variant(r, c)
+    if variant == "onchip":
+        if x.data_ptr() % 16:
+            raise ValueError("ns_polar_hybrid: x must be 16-byte aligned")
+        _build.call("basd_ns_polar_onchip", x.data_ptr(), out.data_ptr(), b,
+                    r, c, _build.stream_ptr(x.device))
+    else:
+        ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
+                         device=x.device)
+        _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
+                    ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
     ns_polar_hybrid.launches += 1
+    ns_polar_hybrid.variants[variant] += 1
     return out
 
 
 ns_polar_hybrid.launches = 0
+# launches by variant
+ns_polar_hybrid.variants = {"onchip": 0, "workspace": 0}

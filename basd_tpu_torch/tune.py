@@ -24,6 +24,15 @@ measurement, and with ``--out`` writes them as JSON:
    the Triton forward the CUDA kernel replaced (kept here only to be
    timed), the CUDA kernel at 2-8 chunks a lane (``LN_CHUNKS``), and
    ``torch.nn.functional.layer_norm``.
+5. K7 (``ns_polar``) at the Procrustes batch (512, 192, 384), its on-chip
+   variant, and at (8, 384, 768), its workspace variant: the kernel, the
+   plain version and, as context (never called by the port, and not a
+   one-call equivalent), the same 19 bf16 products as ``torch.bmm`` /
+   ``torch.baddbmm`` calls with K7's rounding points (``_ns_polar_bmm``).
+6. K8 (``eigh``) at the principal-angle batches (48, 96, 96) and (48, 192,
+   192), 6 sweeps: the whole call, its rounds and its vectors pass alone,
+   and ``torch.linalg.eigh`` (eager only: cuSOLVER's batched Jacobi fails
+   inside a CUDA-graph capture).
 
 Each configuration is timed two ways: ``device_ms``, a CUDA graph of 20
 calls replayed 5 times (the median replay over 20: device time without the
@@ -267,8 +276,75 @@ def ln_fwd_sweep(torch, device) -> list:
     return out
 
 
+def _ns_polar_bmm(torch, x):
+    """K7's iteration as 19 bf16 cuBLAS products (context for K7's time):
+    G, G G^T and every Y rounded to bf16 where K7 rounds them, the a X and
+    1.5 X terms added in the product's f32 epilogue (``baddbmm``)."""
+    from basd_tpu_torch.kernels.ns_polar import NUM_CUBIC, QUINTIC_SCHEDULE
+
+    norm2 = (x * x).sum(dim=(-2, -1), keepdim=True)
+    xb = (x * torch.rsqrt(norm2 + 1e-30)).to(torch.bfloat16)
+    for a, b, c in QUINTIC_SCHEDULE:
+        g = torch.bmm(xb, xb.transpose(1, 2))
+        g2 = torch.bmm(g, g.transpose(1, 2))
+        h = (b * g.float() + c * g2.float()).to(torch.bfloat16)
+        xb = torch.baddbmm(xb, h, xb, beta=a, alpha=1.0)
+    for _ in range(NUM_CUBIC):
+        g = torch.bmm(xb, xb.transpose(1, 2))
+        xb = torch.baddbmm(xb, g, xb, beta=1.5, alpha=-0.5)
+    return xb
+
+
+def polar_sweep(torch, device) -> list:
+    from basd_tpu_torch.kernels import ns_polar
+
+    out = []
+    g = torch.Generator(device=device).manual_seed(4)
+    for nb, r, c in ((512, 192, 384), (8, 384, 768)):
+        u = torch.linalg.qr(torch.randn((nb, r, r), generator=g, device=device))[0]
+        v = torch.linalg.qr(torch.randn((nb, c, c), generator=g, device=device))[0][:, :, :r]
+        s = torch.logspace(0, -2, r, device=device)
+        x = torch.einsum("bik,k,bjk->bij", u, s, v).contiguous()
+        flops = nb * (5 * (4 * r * r * c + 2 * r ** 3) + 2 * 4 * r * r * c)
+        ref = ns_polar.ns_polar_plain(x)
+        variant = ns_polar.ns_polar_variant(r, c)
+        for name, fn in ((f"K7 {variant}", lambda: ns_polar.ns_polar_hybrid(x)),
+                         ("K7 plain", lambda: ns_polar.ns_polar_plain(x)),
+                         ("19 bf16 bmm (context)", lambda: _ns_polar_bmm(torch, x))):
+            err = (fn().float() - ref.float()).abs().max().item()
+            rec = {"kernel": name, "shape": [nb, r, c], "max_abs_err": err,
+                   **_times(torch, fn)}
+            rec["device_tflop_s"] = flops / rec["device_ms"] / 1e9
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+    return out
+
+
+def eigh_sweep(torch, device, sweeps: int = 6) -> list:
+    import importlib
+
+    je = importlib.import_module("basd_tpu_torch.kernels.jacobi_eigh")
+    out = []
+    g = torch.Generator(device=device).manual_seed(5)
+    for bsz, n in ((48, 96), (48, 192)):
+        x = torch.randn((bsz, n, n), generator=g, device=device)
+        a = ((x + x.transpose(1, 2)) / (2 * (2 * n) ** 0.5)).contiguous()
+        _, log = je.jacobi_rounds(a, sweeps)
+        for name, fn in (("K8 jacobi_eigh", lambda: je.jacobi_eigh(a, sweeps)),
+                         (f"K8 rounds {je.rounds_variant(n)}",
+                          lambda: je.jacobi_rounds(a, sweeps)),
+                         ("K8 vectors", lambda: je.jacobi_vectors(log, n)),
+                         ("torch.linalg.eigh", lambda: torch.linalg.eigh(a))):
+            times = ({"device_ms": None, "eager_ms": _eager_ms(torch, fn)}
+                     if name == "torch.linalg.eigh" else _times(torch, fn))
+            rec = {"kernel": name, "shape": [bsz, n, n], "sweeps": sweeps, **times}
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+    return out
+
+
 SWEEPS = {"ln_bwd": ln_bwd_sweep, "gemm": gemm_sweep, "bwd_gemm": bwd_gemm_sweep,
-          "ln_fwd": ln_fwd_sweep}
+          "ln_fwd": ln_fwd_sweep, "polar": polar_sweep, "eigh": eigh_sweep}
 
 
 def main(argv=None) -> int:
