@@ -1,7 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma) on shared-memory operands:
 // the descriptors of the 128-byte-swizzled layouts and the bf16 products
-// with f32 accumulators. Shared by the block kernels' GEMM
-// (gemm_sm90.cuh) and K7's on-chip Newton-Schulz iteration (ns_polar.cu).
+// with f32 accumulators, and the mbarrier helpers that count TMA and bulk
+// copies. Shared by the block kernels' GEMM (gemm_sm90.cuh), K7's on-chip
+// Newton-Schulz iteration (ns_polar.cu) and K9's image loads
+// (geom_shift.cu).
 //
 // The swizzled layout: an operand is stored as blocks of 64 bf16 columns
 // (128 bytes a row), each block 1024-byte aligned; within a block, row r's
@@ -19,6 +21,45 @@ namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers in shared memory: the completion counts of TMA and bulk copies.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+// A phase that never completes (a copy that never lands) traps after
+// ~2^34 cycles (~10 s) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  }
 }
 
 // Byte offset of element (row, col) of a bf16 matrix stored as swizzled

@@ -14,8 +14,9 @@ Each random draw is separate from its application: ``draw_train_views`` /
 ``draw_mixup`` draw from an explicit ``torch.Generator``; the application
 functions take the draws, so tests can inject the JAX package's. The TAW
 geometric ops are per-line integer shifts (``augment.py:295-391``), applied
-by K9 (``kernels.geom_shift.geom_shift3``): the kernel on a CUDA tensor,
-its plain three-pass gather chain on a CPU tensor.
+by K9 (``kernels.geom_shift.geom_shift3``, the big rotations' pre-flip
+folded in) once over the batch's whole geometric slice: the kernel on a
+CUDA tensor, its plain flip and three-pass gather chain on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -229,7 +230,7 @@ def geom_shifts(op: torch.Tensor, mag: torch.Tensor, h: int, w: int):
     2 ShearY, 3 TranslateX, 4 TranslateY, 5 Rotate): rows r1 (G, H), cols
     r2 (G, W), rows r3 (G, H); rotation by the 3-shear decomposition, with
     ``big`` (G,) marking the |angle| > 90 images that take a 180-degree
-    pre-flip. op, mag: (G,). Returns (big, r1, r2, r3)."""
+    pre-flip. op, mag: (G,). Returns (big, r1, r2, r3), the shifts int32."""
     dev = mag.device
     ys = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) * 0.5
     xs = torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) * 0.5
@@ -242,22 +243,22 @@ def geom_shifts(op: torch.Tensor, mag: torch.Tensor, h: int, w: int):
     is_rot = op == 5
     coef1 = torch.where(op == 1, -mag, torch.where(is_rot, a_rot, zero))
     t1 = torch.where(op == 3, mag, zero)
-    r1 = -torch.round(coef1[:, None] * ys[None, :] - t1[:, None]).long()
+    r1 = -torch.round(coef1[:, None] * ys[None, :] - t1[:, None]).to(torch.int32)
     coef2 = torch.where(op == 2, -mag, torch.where(is_rot, b_rot, zero))
     t2 = torch.where(op == 4, mag, zero)
-    r2 = -torch.round(coef2[:, None] * xs[None, :] - t2[:, None]).long()
+    r2 = -torch.round(coef2[:, None] * xs[None, :] - t2[:, None]).to(torch.int32)
     coef3 = torch.where(is_rot, a_rot, zero)
-    r3 = -torch.round(coef3[:, None] * ys[None, :]).long()
+    r3 = -torch.round(coef3[:, None] * ys[None, :]).to(torch.int32)
     return big, r1, r2, r3
 
 
 def geom_three_pass(x: torch.Tensor, op: torch.Tensor, mag: torch.Tensor):
     """The five geometric TAW ops as per-line integer shifts (rows, cols,
-    rows; ``geom_shifts``) applied by K9 after the big-rotation pre-flip.
-    x: (G, H, W, C); op, mag: (G,)."""
+    rows; ``geom_shifts``) applied by one K9 launch, which reads the big
+    rotations' images flipped. x: (G, H, W, C), copied where it is not
+    contiguous (a crop's output is a permuted view); op, mag: (G,)."""
     big, r1, r2, r3 = geom_shifts(op, mag, x.shape[1], x.shape[2])
-    flipped = torch.where(big[:, None, None, None], x.flip(1, 2), x)
-    return geom_shift3(flipped, r1, r2, r3)
+    return geom_shift3(x.contiguous(), r1, r2, r3, big)
 
 
 def _sharpness(xs: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -337,7 +338,9 @@ def trivial_augment_wide_stratified(imgs: torch.Tensor, perm: torch.Tensor,
                                     mag_idx: torch.Tensor, sign: torch.Tensor):
     """Stratified batched TrivialAugmentWide: ``perm`` assigns the images
     to 14 contiguous position blocks, one per op (static slices); magnitude
-    bins and signs are drawn per position. uint8 in and out."""
+    bins and signs are drawn per position. Ops 1-5 run as one geometric
+    slice (one K9 launch), as the reference does (``augment.py:533-539``).
+    uint8 in and out."""
     b = imgs.shape[0]
     if imgs.dtype != torch.uint8:
         imgs = _q(imgs)
@@ -348,9 +351,13 @@ def trivial_augment_wide_stratified(imgs: torch.Tensor, perm: torch.Tensor,
     mags = torch.as_tensor(TAW_MAGS, device=imgs.device)[pos_op, mag_idx]
     signed = torch.as_tensor(TAW_SIGNED, device=imgs.device)[pos_op] > 0
     mag = mags * torch.where(signed & sign, -1.0, 1.0)
-    parts = [taw_apply(x[bounds[o]:bounds[o + 1]], o,
-                       mag[bounds[o]:bounds[o + 1]])
-             for o in range(_NUM_OPS) if bounds[o + 1] > bounds[o]]
+    geo = slice(bounds[1], bounds[6])
+    parts = [x[:bounds[1]]]
+    if bounds[6] > bounds[1]:
+        parts.append(geom_three_pass(x[geo], pos_op[geo], mag[geo]))
+    parts += [taw_apply(x[bounds[o]:bounds[o + 1]], o,
+                        mag[bounds[o]:bounds[o + 1]])
+              for o in range(6, _NUM_OPS) if bounds[o + 1] > bounds[o]]
     return torch.cat(parts, 0)[inv]
 
 

@@ -11,9 +11,10 @@ cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
 ``gemm_variants`` (``gemm.gemm_nk_variant``: ``sm90``, ``wmma``, ``f32``),
 two a launch; those of K3b, K4b and K11b (``GEMM_BWD``) their backward
 products (``gemm.gemm_bwd_variant``), four a launch. ``PARTS`` lists the
-variants and launches of K7 and K8 that count on their own: K7's two
+variants and launches of K7, K8 and K9 that count on their own: K7's two
 variants (``ns_polar_hybrid.variants``), K8's rounds by variant
-(``jacobi_rounds.variants``) and its vectors pass (``jacobi_vectors``).
+(``jacobi_rounds.variants``) and its vectors pass (``jacobi_vectors``),
+K9's two variants (``geom_shift3.variants``).
 """
 
 from basd_tpu_torch.kernels.block_attn import (
@@ -71,7 +72,7 @@ KERNELS = (
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid),
     ("K8 jacobi_eigh", "cuda", _CSRC + "jacobi_eigh.cu",
      _PALLAS + "jacobi_eigh.py:215", jacobi_eigh),
-    ("K9 geom_shift3", "triton", "basd_tpu_torch/kernels/geom_shift.py",
+    ("K9 geom_shift3", "cuda", _CSRC + "geom_shift.cu",
      _PALLAS + "geom_shift.py:103", geom_shift3),
     ("K10a flash_attention fwd", "cuda", _CSRC + "flash_attention.cu",
      _PALLAS + "flash_attention.py:239", flash_attention_fwd),
@@ -86,7 +87,7 @@ KERNELS = (
 )
 
 
-# the variants and launches of K7 and K8 that count on their own: (name,
+# the variants and launches of K7, K8 and K9 that count on their own: (name,
 # route, source, TPU kernel replaced, wrapper, variant key or None for the
 # wrapper's launches)
 PARTS = (
@@ -100,6 +101,10 @@ PARTS = (
      _PALLAS + "jacobi_eigh.py:215", jacobi_rounds, "global"),
     ("K8 jacobi_eigh: vectors", "cuda", _CSRC + "jacobi_eigh.cu",
      _PALLAS + "jacobi_eigh.py:215", jacobi_vectors, None),
+    ("K9 geom_shift3: smem", "cuda", _CSRC + "geom_shift.cu",
+     _PALLAS + "geom_shift.py:103", geom_shift3, "smem"),
+    ("K9 geom_shift3: global", "cuda", _CSRC + "geom_shift.cu",
+     _PALLAS + "geom_shift.py:103", geom_shift3, "global"),
 )
 
 

@@ -11,7 +11,8 @@ the script exits non-zero without printing a result:
    ``basd_tpu_torch/csrc`` (one nvcc process per source, run together);
 2. kernels: each hand-written kernel of the train steps (teacher K1, K2;
    student K3a/b, K4a/b, K5a/b; K6 forward and dw; K7; K8 on the
-   principal-angle batch; K9 on a B=128 view batch; the flash path's K10a/b
+   principal-angle batch; K9 on the step's geometric slice of a B=128 view
+   batch (``k9_checks``); the flash path's K10a/b
    on the student's qkv slab, K10c on the teacher's, K11a/b on the
    student's MLP) against its plain PyTorch version on the same inputs on
    the card, at the shapes the train step gives it (B=128); kernel, plain
@@ -46,7 +47,11 @@ the script exits non-zero without printing a result:
    weight gradient) at ragged shapes and at K4b's, against the WMMA tile
    and the plain product (``bwd_gemm_checks``); K5a also at f32 and at a
    width not a multiple of 8 (``ln_checks``); K4b, K5b and K11b, like K3b
-   and K10b, called twice on the same inputs for the same bits;
+   and K10b, called twice on the same inputs for the same bits; K9 bit for
+   bit at (46, 224, 224, 3), (128, 224, 224, 3) and, on its device-memory
+   variant, (8, 320, 320, 3), timed with L2 flushed (``time_cold_ms``: at
+   46 images its 13.9 MB would stay in the 50 MB L2 back to back), the
+   back-to-back time printed beside it;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
@@ -57,8 +62,9 @@ the script exits non-zero without printing a result:
    both forward products of every K2 and K4a launch the sm90 GEMM
    (``check_gemm_variants``), the four backward products of every K3b,
    K4b and K11b launch too (``check_bwd_gemm_variants``), every K7 launch
-   its on-chip variant and every K8 launch its shared-memory rounds and
-   the vectors pass (``check_parts``);
+   its on-chip variant, every K8 launch its shared-memory rounds and the
+   vectors pass, and K9 exactly once per step (3) on its shared-memory
+   variant, one launch over the whole geometric slice (``check_parts``);
 3b. jacobi train: the same run with ``basd.spectral_backend=jacobi
    basd.max_rank=96``, the JAX package's benchmarked configuration: K8 once
    per step (the principal-angle eigenvalues, (48, 96, 96)), finite
@@ -87,7 +93,8 @@ the script exits non-zero without printing a result:
 The last three lines of standard output are the kernels' JSON (each
 kernel's launches from the train run that takes it: K8 the jacobi run;
 K5, K10 and K11 the flash run, which takes K5 in every block; the rest
-the gram run; then K7's variants and K8's launches, ``kernels.PARTS``,
+the gram run; then K7's and K9's variants and K8's launches,
+``kernels.PARTS``,
 each timed where it runs), the card's name and
 power limit, and the contract line ``{"ok": true, "device": {...}}``.
 """
@@ -134,6 +141,10 @@ PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 HBM_BYTES_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# more than the H100's 50 MB L2, written between cold-timed calls, and a
+# device sleep of ~1 ms at the card's clock
+L2_FLUSH_BYTES = 128 * 2 ** 20
+SLEEP_CYCLES = 2_000_000
 
 
 def phase(name: str) -> None:
@@ -159,6 +170,27 @@ def time_ms(torch, fn, reps: int = 7) -> float:
     fn()
     k = max(1, min(20, int(5.0 / max(run(1), 1e-3))))
     return statistics.median(run(k) for _ in range(reps))
+
+
+def time_cold_ms(torch, fn, reps: int = 7) -> float:
+    """Median CUDA-event time of one call of ``fn`` that finds its inputs
+    in device memory, not in L2: before each call the card writes a
+    ``L2_FLUSH_BYTES`` buffer and then sleeps ~1 ms, so that the host has
+    queued the call before the card reaches it."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def check(ok: bool, what: str) -> None:
@@ -240,11 +272,12 @@ def kernel_phase(torch, device):
     ones = torch.ones(b, device=device)
     results = {}
 
-    def record(name, err, fn, plain, moved, flops, peak, library=None):
+    def record(name, err, fn, plain, moved, flops, peak, library=None,
+               timer=time_ms):
         bound_ms, bound_by = bound(moved, flops, peak)
         results[name] = dict(
-            max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
-            library_ms=None if library is None else time_ms(torch, library),
+            max_abs_err=err, ms=timer(torch, fn), plain_ms=timer(torch, plain),
+            library_ms=None if library is None else timer(torch, library),
             bound_ms=bound_ms, bound_by=bound_by)
 
     # K1
@@ -419,26 +452,15 @@ def kernel_phase(torch, device):
     parts["rounds global"] = k8_large(torch, device, g)
     results.update({f"K8 jacobi_eigh: {k}": v for k, v in parts.items()})
 
-    # K9 on a B=128 batch of 224 px RandomResizedCrop views of a synthetic
-    # canvas, with geometric TAW draws: op 1-5 and signed magnitude bins
+    # K9 on 224 px RandomResizedCrop views of a synthetic canvas, B=128,
+    # with geometric TAW draws: the train step's geometric slice
     canvas = torch.randint(0, 256, (b, 256, 256, 3), generator=g,
                            device=device, dtype=torch.uint8)
     draws = aug.draw_train_views(g, b, device)
     boxes = aug.rrc_boxes(draws.u_area, draws.logr, draws.u_ij, 256, 256)
-    views = aug._q(aug.random_resized_crop(canvas, boxes, draws.flip, 224))
-    op = torch.randint(1, 6, (b,), generator=g, device=device)
-    mags = torch.as_tensor(aug.TAW_MAGS, device=device)[op, draws.mag_idx]
-    mag = mags * torch.where(draws.sign, -1.0, 1.0)
-    big, r1, r2, r3 = aug.geom_shifts(op, mag, 224, 224)
-    imgs = torch.where(big[:, None, None, None], views.flip(1, 2), views)
-    out = geom_shift.geom_shift3(imgs, r1, r2, r3)
-    ref = geom_shift.geom_shift3_plain(imgs, r1, r2, r3)
-    check(torch.equal(out, ref), "K9 differs from the plain shift chain")
-    record("K9 geom_shift3", max_err(out, ref),
-           lambda: geom_shift.geom_shift3(imgs, r1, r2, r3),
-           lambda: geom_shift.geom_shift3_plain(imgs, r1, r2, r3),
-           nbytes(imgs, out) + 4 * (r1.numel() + r2.numel() + r3.numel()), 0,
-           PEAK_F32)
+    views = aug._q(aug.random_resized_crop(canvas, boxes, draws.flip,
+                                           224)).contiguous()
+    k9_checks(torch, g, aug, geom_shift, views, draws, record)
 
     # K10 on the slabs the flash path gives it: the student's qkv (B, N,
     # 3 * 192), 3 heads, and the DeiT-S teacher's (B, N, 3 * 384), 6 heads;
@@ -831,11 +853,80 @@ def attention_bwd_checks(torch, rn, block_attn, flash_attention, b: int = 8,
               f"max_abs_err={err}")
 
 
+def geo_slice(torch, aug, views, draws):
+    """The train step's geometric TAW slice of a view batch, as
+    ``trivial_augment_wide_stratified`` forms it: the permuted images of
+    ops 1-5 (46 at B=128), their ops and signed magnitudes. The op-5 bins
+    are spread over 6-30, so that rotations on both sides of the 90-degree
+    pre-flip are among them."""
+    b, dev = views.shape[0], views.device
+    bounds = aug.op_bounds(b)
+    pos_op = torch.as_tensor(aug.position_ops(b), device=dev)
+    mag_idx = draws.mag_idx.clone()
+    mag_idx[bounds[5]:bounds[6]] = torch.linspace(
+        6, 30, bounds[6] - bounds[5], device=dev).round().long()
+    mags = torch.as_tensor(aug.TAW_MAGS, device=dev)[pos_op, mag_idx]
+    signed = torch.as_tensor(aug.TAW_SIGNED, device=dev)[pos_op] > 0
+    mag = mags * torch.where(signed & draws.sign, -1.0, 1.0)
+    geo = slice(bounds[1], bounds[6])
+    return views[draws.perm][geo].contiguous(), pos_op[geo], mag[geo]
+
+
+def k9_checks(torch, g, aug, geom_shift, views, draws, record) -> None:
+    """K9 bit for bit against its plain version (``torch.equal``), each
+    timed with a cold L2 (``time_cold_ms``; the back-to-back time, with the
+    inputs left in L2, is printed beside it): at the train step's geometric
+    slice (46, 224, 224, 3) uint8, big rotations among its images (K9's
+    row); at the whole view batch
+    (128, 224, 224, 3), ops 1-5 drawn per image (the shared-memory
+    variant's row); and at (8, 320, 320, 3), where an image does not fit a
+    CTA's shared memory (the device-memory variant's row)."""
+    def one(name, variant, x, op, mag, mixed=False, **kw):
+        big, r1, r2, r3 = aug.geom_shifts(op, mag, x.shape[1], x.shape[2])
+        check(not mixed or 0 < int(big.sum()) < len(big),
+              f"{name}: expected big rotations among other images")
+        taken = geom_shift.geom_shift3.variants[variant]
+        out = geom_shift.geom_shift3(x, r1, r2, r3, big, **kw)
+        torch.cuda.synchronize()
+        check(geom_shift.geom_shift3.variants[variant] == taken + 1,
+              f"{name}: K9 did not take its {variant} variant")
+        check(torch.equal(out, geom_shift.geom_shift3_plain(x, r1, r2, r3, big)),
+              f"{name}: K9 differs from its plain version")
+        fn = lambda: geom_shift.geom_shift3(x, r1, r2, r3, big, **kw)  # noqa: E731
+        print(f"kernel {name} at {tuple(x.shape)} {kw or ''}: big images "
+              f"{int(big.sum())} of {len(big)}, back-to-back (L2-resident) "
+              f"ms={time_ms(torch, fn)}")
+        return (fn, lambda: geom_shift.geom_shift3_plain(x, r1, r2, r3, big),
+                nbytes(x, out, r1, r2, r3, big))
+
+    xg, op, mag = geo_slice(torch, aug, views, draws)
+    fn, plain, moved = one("K9 geom_shift3", "smem", xg, op, mag, mixed=True)
+    record("K9 geom_shift3", 0.0, fn, plain, moved, 0, PEAK_F32,
+           timer=time_cold_ms)
+    b = views.shape[0]
+    op = torch.randint(1, 6, (b,), generator=g, device=views.device)
+    mags = torch.as_tensor(aug.TAW_MAGS, device=views.device)[op, draws.mag_idx]
+    mag = mags * torch.where(draws.sign, -1.0, 1.0)
+    fn, plain, moved = one("K9 geom_shift3: smem", "smem", views, op, mag)
+    record("K9 geom_shift3: smem", 0.0, fn, plain, moved, 0, PEAK_F32,
+           timer=time_cold_ms)
+    # from a generator of its own: the later checks' inputs stay the same
+    g_320 = torch.Generator(device=views.device).manual_seed(10)
+    big_views = torch.randint(0, 256, (8, 320, 320, 3), generator=g_320,
+                              device=views.device, dtype=torch.uint8)
+    fn, plain, moved = one("K9 geom_shift3: global", "global", big_views,
+                           op[:8], mag[:8])
+    record("K9 geom_shift3: global", 0.0, fn, plain, moved, 0, PEAK_F32,
+           timer=time_cold_ms)
+
+
 def check_parts(label, counts, parts) -> None:
-    """Every K7 launch of a train run took the on-chip variant, and every
-    K8 launch ran the rounds with A in shared memory (n = 96) and the
-    vectors pass."""
+    """Every K7 launch of a train run took the on-chip variant, every K8
+    launch ran the rounds with A in shared memory (n = 96) and the vectors
+    pass, and K9 launched once per step (3), each with the image in shared
+    memory (224 px)."""
     k7, k8 = counts["K7 ns_polar_hybrid"], counts["K8 jacobi_eigh"]
+    k9 = counts["K9 geom_shift3"]
     check(parts["K7 ns_polar_hybrid: onchip"] == k7
           and parts["K7 ns_polar_hybrid: workspace"] == 0,
           f"{label}: K7 launched {k7} times, variants {parts}")
@@ -843,6 +934,10 @@ def check_parts(label, counts, parts) -> None:
           and parts["K8 jacobi_eigh: vectors"] == k8
           and parts["K8 jacobi_eigh: rounds global"] == 0,
           f"{label}: K8 launched {k8} times, launches {parts}")
+    check(k9 == 3 and parts["K9 geom_shift3: smem"] == k9
+          and parts["K9 geom_shift3: global"] == 0,
+          f"{label}: K9 must launch once per train step on its shared-memory "
+          f"variant, got {k9}, variants {parts}")
 
 
 def check_core_variants(label, counts, variants) -> None:

@@ -67,9 +67,26 @@ def _out_rel(dtype):
     return 5e-6 if dtype == "float32" else 2 ** -5
 
 
+def _attention_f64(qkv, h: int, scale: float):
+    """softmax(scale q k^T) v over the (B, N, 3D) slab in float64 numpy,
+    unrounded: a third party to the port and the JAX kernel, each of which
+    lies one f32 (or bf16) rounding from it."""
+    b, n, d3 = qkv.shape
+    q, k, v = (t.reshape(b, n, h, -1).transpose(0, 2, 1, 3)
+               for t in np.split(np.asarray(qkv, np.float64), 3, axis=-1))
+    s = q @ k.transpose(0, 1, 3, 2) * scale
+    p = np.exp(s - s.max(-1, keepdims=True))
+    o = (p @ v) / p.sum(-1, keepdims=True)
+    return o.transpose(0, 2, 1, 3).reshape(b, n, d3 // 3)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,h", WIDTHS)
 def test_plain_fwd_matches_jax_full_width(dtype, d, h):
+    """Each side is first held to the float64 attention of the same inputs,
+    at the same tolerance, so that a disagreement names the side that moved
+    (one parallel run of the suite read 2.8e-5 here once, at f32, D=192,
+    and no rerun has shown it again)."""
     from basd_tpu.ops.pallas import flash_attention as jfa
 
     e = d // h
@@ -78,6 +95,9 @@ def test_plain_fwd_matches_jax_full_width(dtype, d, h):
     j_o, j_lse = jfa._fwd(qkv[0], N, h, e, scale, True)
     o, lse = fa.flash_attention_plain_fwd(qkv[1], h, scale)
     assert o.dtype == qkv[1].dtype and lse.dtype == torch.float32
+    ref = _attention_f64(_np(qkv[1]), h, scale)
+    _close(o, ref, _out_rel(dtype), 1.0, "K10a o, the port against float64")
+    _close(j_o, ref, _out_rel(dtype), 1.0, "K10a o, basd_tpu against float64")
     _close(o, j_o, _out_rel(dtype), 1.0, "K10a o")
     _close(lse, j_lse, 1e-5, 1.0, "K10a lse")
 
