@@ -1,3 +1,4 @@
+from basd_tpu_torch.models.convnext import ConvNeXtConfig, ConvNeXtV2
 from basd_tpu_torch.models.registry import (
     ModelBundle,
     available_models,
@@ -10,11 +11,16 @@ from basd_tpu_torch.models.registry import (
     teacher_extract,
 )
 from basd_tpu_torch.models.tokens import PackedTokens, pack_dense
+from basd_tpu_torch.models.resnet import ResNet, ResNetConfig
 from basd_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 __all__ = [
+    "ConvNeXtConfig",
+    "ConvNeXtV2",
     "ModelBundle",
     "PackedTokens",
+    "ResNet",
+    "ResNetConfig",
     "ViTConfig",
     "VisionTransformer",
     "available_models",

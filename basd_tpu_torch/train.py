@@ -4,9 +4,14 @@ Same hydra-style overrides as ``basd-train``::
 
     python -m basd_tpu_torch.train experiment=smoke_synthetic training.num_epochs=1
 
-compose -> ``load_teacher`` -> calibration (MP intrinsic dimension of the
-teacher's last layer) and ``derive_student_arch`` -> student ->
-``Trainer.train``. ``tpu.teacher_attention_impl``,
+compose -> ``load_teacher`` -> for a ViT teacher, calibration (MP
+intrinsic dimension of the teacher's last layer) and
+``derive_student_arch``; for a CNN teacher (``feature_format`` 'nhwc', e.g.
+``experiment=basd_imagenet_cross_arch``) the ``model.student_preset`` as it
+stands -> student -> ``Trainer.train`` -> the eval suite on the student's
+eval weights (``evaluation.metrics.run_eval_suite``; ``+eval.efficiency_batches``
+sets the timed forwards, 200 by default) -> ``metrics.json`` beside the
+run's ``config.yaml``. ``tpu.teacher_attention_impl``,
 ``tpu.student_attention_impl`` and ``tpu.student_mlp_impl`` select the
 blocks' kernel dispatch, as in the JAX package (``auto``: the fused
 kernels on CUDA; ``flash`` / ``fused``: the module chain with the K10
@@ -27,6 +32,7 @@ import torch
 from basd_tpu_torch.config import compose, register_resolvers, save_config
 from basd_tpu_torch.data.sources import source_from_config, stats_from_config
 from basd_tpu_torch.data.augment import make_eval_view
+from basd_tpu_torch.evaluation.metrics import run_eval_suite, save_metrics
 from basd_tpu_torch.models import (
     create_model,
     derive_student_arch,
@@ -81,29 +87,12 @@ def main(argv: list[str] | None = None,
         attention_impl=config.tpu.get("teacher_attention_impl", "auto"),
     )
 
-    # calibration: intrinsic-dim student auto-sizing (reference
-    # src/train.py:88-114)
-    source = source_from_config(config)
-    tokens_per_image = (img_size // config.model.vit.patch_size) ** 2
-    num_calib = -(-10 * teacher.info["embed_dim"] // tokens_per_image)
-    r = round(img_size / config.data.eval_crop_ratio)
-    calib = next(source.load_batches("train", num_calib, r, shuffle=False,
-                                     seed=0, drop_last=False))
-    calib_images = make_eval_view(
-        torch.from_numpy(calib["image"]).to(device), img_size,
-        (tuple(teacher.mean), tuple(teacher.std)),
-    )
-    intrinsic_dim = estimate_intrinsic_dim(teacher,
-                                           calib_images.to(compute_dtype))
-    arch_overrides = derive_student_arch(teacher.info, intrinsic_dim)
-    print(
-        f"student_arch_derived intrinsic_dim={intrinsic_dim} "
-        f"embed_dim={arch_overrides['embed_dim']} "
-        f"depth={arch_overrides['depth']} "
-        f"num_heads={arch_overrides['num_heads']} "
-        f"mlp_ratio={arch_overrides['mlp_ratio']:.1f}"
-    )
-    config.model.arch_overrides = dict(arch_overrides)
+    # calibration: intrinsic-dim student auto-sizing for a token teacher
+    # (reference src/train.py:88-114)
+    arch_overrides = None
+    if teacher.info["feature_format"] == "token":
+        arch_overrides = calibrate(config, teacher, device, compute_dtype)
+        config.model.arch_overrides = dict(arch_overrides)
 
     student = create_model(
         config.model.student_preset, img_size=img_size,
@@ -134,8 +123,44 @@ def main(argv: list[str] | None = None,
     start_epoch = 0
     if config.checkpoint.resume_from:
         start_epoch = trainer.load_checkpoint(config.checkpoint.resume_from)
-    trainer.train(source, start_epoch=start_epoch)
+    trainer.train(source_from_config(config), start_epoch=start_epoch)
+
+    results = run_eval_suite(
+        trainer.eval_student(), config,
+        config_path=str(output_dir / "config.yaml"),
+        efficiency_batches=int(config.get("eval", {}).get(
+            "efficiency_batches", 200)),
+    )
+    save_metrics(results, output_dir)
     return trainer
+
+
+def calibrate(config, teacher, device: torch.device,
+              compute_dtype: torch.dtype) -> dict:
+    """The student's arch from the MP rank of the teacher's last-layer
+    tokens over ~10 D_t tokens of eval-view train images."""
+    img_size = config.model.vit.img_size
+    source = source_from_config(config)
+    tokens_per_image = (img_size // config.model.vit.patch_size) ** 2
+    num_calib = -(-10 * teacher.info["embed_dim"] // tokens_per_image)
+    r = round(img_size / config.data.eval_crop_ratio)
+    calib = next(source.load_batches("train", num_calib, r, shuffle=False,
+                                     seed=0, drop_last=False))
+    calib_images = make_eval_view(
+        torch.from_numpy(calib["image"]).to(device), img_size,
+        (tuple(teacher.mean), tuple(teacher.std)),
+    )
+    intrinsic_dim = estimate_intrinsic_dim(teacher,
+                                           calib_images.to(compute_dtype))
+    arch_overrides = derive_student_arch(teacher.info, intrinsic_dim)
+    print(
+        f"student_arch_derived intrinsic_dim={intrinsic_dim} "
+        f"embed_dim={arch_overrides['embed_dim']} "
+        f"depth={arch_overrides['depth']} "
+        f"num_heads={arch_overrides['num_heads']} "
+        f"mlp_ratio={arch_overrides['mlp_ratio']:.1f}"
+    )
+    return arch_overrides
 
 
 if __name__ == "__main__":

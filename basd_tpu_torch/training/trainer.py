@@ -4,10 +4,13 @@
 One distillation step:
 
     uint8 canvas -> dual views + MixUp/CutMix (draws from an explicit
-    generator) -> frozen bf16 teacher forward (K1/K2, per-layer tokens into
-    one reused flat collect buffer, CLS importance) -> student forward and
-    backward (K3/K4 per block, K5 final norm) -> BASD loss (selector with the K6 layer mix; identity-form
-    Procrustes with the K7 polar factor; CE; UW-SO) -> schedule-free AdamW.
+    generator) -> frozen bf16 teacher forward (a ViT: K1/K2, per-layer
+    tokens into one reused flat collect buffer, CLS importance; a CNN: its
+    last feature map as one dense (1, B, H*W, C) layer, uniform importance)
+    -> student forward and backward (K3/K4 per block, K5 final norm) ->
+    BASD loss (selector with the K6 layer mix on the packed stack;
+    identity-form Procrustes with the K7 polar factor; CE; UW-SO) ->
+    schedule-free AdamW.
 
 The step is split in two: ``make_views`` (draws and views) and
 ``step_on_views`` (the rest, on given views, so tests can feed both
@@ -110,8 +113,10 @@ class Trainer:
     # ------------------------------------------------------------ the step
 
     def _collect_buffer(self, b: int) -> Optional[torch.Tensor]:
+        """The collecting ViT teacher's buffer; None for a CNN teacher,
+        whose one dense "layer" is its last feature map."""
         module = self.teacher.module
-        if not module.collect:
+        if not getattr(module, "collect", False):
             return None
         cfg = module.cfg
         n = cfg.num_patches + (1 if cfg.use_cls_token else 0)
@@ -266,15 +271,18 @@ class Trainer:
             for k, p in self.student.module.named_parameters():
                 p.copy_(params[_STUDENT + k])
 
+    def eval_student(self) -> torch.nn.Module:
+        """The student module, holding the schedule-free eval point x."""
+        self._load_student(sf.eval_params(self.opt_state))
+        return self.student.module
+
     def evaluate(self, source, *, split: str = "eval", valid_indices=None,
                  label_smoothing: float | None = None) -> dict[str, float]:
         cfg = self.config
         ls = (cfg.training.label_smoothing if label_smoothing is None
               else label_smoothing)
-        self._load_student(sf.eval_params(self.opt_state))
-        module = self.student.module
         step = metrics_mod.make_eval_step(
-            lambda x: module(x.to(torch.bfloat16), deterministic=True)["logits"],
+            metrics_mod.logits_fn(self.eval_student()),
             img_size=self.img_size, stats=self.dataset_stats,
             valid_indices=valid_indices, label_smoothing=ls,
         )

@@ -22,7 +22,8 @@ the script exits non-zero without printing a result:
    of several runs); each kernel's bound (bytes over 3.35 TB/s or
    operations over the peak rate of their type, whichever is larger) from
    this run's shapes; K7's on-chip variant at (512, 192, 384) and its
-   workspace variant at (8, 384, 768) (``k7_check``); K8's eigenvectors
+   workspace variant at (8, 384, 768) and at the cross-arch path's
+   (512, 192, 768) and (512, 192, 2048) (``k7_check``); K8's eigenvectors
    by ``eigvec_rule`` (the residual bound) on its batch and 4 fresh ones,
    its rounds and its vectors pass alone against their plain mirrors,
    and K8 also at (48, 192, 192), the principal-angle batch without a
@@ -55,7 +56,10 @@ the script exits non-zero without printing a result:
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
-   backend: every kernel but K8, K10 and K11 must launch (K1-K4 a multiple
+   backend, then its eval suite (the 512-image eval split, 200 timed
+   forwards as replays of one captured in a CUDA graph, ``metrics.json``),
+   as in every run below: every kernel
+   but K8, K10 and K11 must launch (K1-K4 a multiple
    of 12 times), those never, and the step losses must be finite; in this
    and the two runs below every launch of K1, K3a, K3b, K10a, K10b and K10c
    must take the tensor-core attention kernels (``check_core_variants``),
@@ -74,9 +78,22 @@ the script exits non-zero without printing a result:
    tpu.student_attention_impl=flash tpu.student_mlp_impl=fused``, the
    module chain with K10 and K11: the launch counts derived from the
    models' depths (``check_flash_counts``: K10c and K2 48, K10a and K11a
-   84, K10b and K11b 36, K8 3, K1, K3 and K4 none), finite losses;
+   24 a step plus 12 for each of the run's 11 counted eval forwards, K10b
+   and K11b 36, K8 3, K1, K3 and K4 none), finite losses;
+3d. cross-arch train: ``experiment=basd_imagenet_cross_arch``, the
+   ConvNeXtV2-Tiny teacher (depths 3-3-9-3, dims 96-768) and the preset
+   DeiT-Tiny student, uncalibrated (D_s = 192), 3 steps of B=128 at 224 px:
+   K3, K4, K5, K7 and K9 launch, every K7 launch on its workspace variant
+   ((512, 192, 768)), K1, K2, K8, K10 and K11 never, K6's count printed
+   (``check_cross_counts``), finite losses; the same run with the
+   ResNet-50 teacher (D_t = 2048, K7 at (512, 192, 2048));
+3e. eval and export: the cross-arch run's ``metrics.json``, the export of
+   its final weights (``basd_tpu_torch.models.export``) and their reload
+   by ``basd_tpu_torch.eval``, which must reproduce the run's top-1, top-5
+   and CE (``eval_export_pass``);
 4. check and timing: the kernel teachers' forwards (K1/K2, K10c/K2)
-   against the plain chain (on the CPU) and the kernel students (K3/K4,
+   against the plain chain (on the CPU), the bf16 CNN teachers against f32
+   copies on the card (``cnn_teacher_check``), and the kernel students (K3/K4,
    K10/K11) against the module-chain student (on the card,
    ``tpu.student_*_impl=module``, whose blocks must launch none of K3, K4,
    K10, K11) at full width on a small batch; ``basd_loss`` on one B=8
@@ -84,16 +101,23 @@ the script exits non-zero without printing a result:
    composed) and (svd, composed) at ``max_rank=96``: equal ranks,
    principal-angle distances and losses within the stated tolerances of
    svd's, finite gradients; then per-stage CUDA-event times of further
-   train steps of the three trainers;
+   train steps of the five trainers;
 5. with ``--profile`` only: ``torch.profiler`` over 3 more steps of each
    trainer, for the device-busy share, device activities per step, the
    top device ops and the device time per launch of the attention
    backward's kernels.
 
+Before them, ``ranking`` orders the kernels by launches x (ms - bound_ms)
+over the train runs' launches before their eval suites (the counts of
+earlier slices' runs, which had none), K7's workspace variant at
+(512, 192, 2048) on the ResNet-50 run's among them.
+
 The last three lines of standard output are the kernels' JSON (each
-kernel's launches from the train run that takes it: K8 the jacobi run;
-K5, K10 and K11 the flash run, which takes K5 in every block; the rest
-the gram run; then K7's and K9's variants and K8's launches,
+kernel's launches from the train run that takes it, its eval suite
+included: K8 the jacobi run;
+K5, K10 and K11 the flash run, which takes K5 in every block; K7's
+workspace variant the cross-arch run; the rest the gram run; then K7's and
+K9's variants and K8's launches,
 ``kernels.PARTS``,
 each timed where it runs), the card's name and
 power limit, and the contract line ``{"ok": true, "device": {...}}``.
@@ -121,6 +145,12 @@ TRAIN_ARGS = [
     "training.num_epochs=1", "+data.limit_train_batches=3",
     "+data.limit_eval_batches=1",
 ]
+# the CNN-to-ViT path (configs/experiment/basd_imagenet_cross_arch.yaml):
+# the ConvNeXtV2-Tiny teacher and the preset student, uncalibrated
+CROSS_ARGS = ["experiment=basd_imagenet_cross_arch"] + [
+    a for a in TRAIN_ARGS if not a.startswith("basd.teacher_model_name=")]
+# BASELINE.json config 3's teacher on the same path
+RESNET_ARGS = ["basd.teacher_model_name=resnet50"]
 # the JAX package's benchmarked configuration (bench.py:111-118)
 JACOBI_ARGS = ["basd.spectral_backend=jacobi", "basd.max_rank=96"]
 # the module chain with K10 / K11 (configs/config.yaml:88-98)
@@ -132,6 +162,9 @@ BLOCK_KERNELS = ("K3a fused_block_attn_train fwd", "K3b fused_block_attn_train b
 FLASH_KERNELS = ("K10a flash_attention fwd", "K10b flash_attention bwd",
                  "K10c flash_attention importance", "K11a fused_mlp fwd",
                  "K11b fused_mlp bwd")
+# K7's workspace variant at the ResNet-50 path's (512, 192, 2048): a row of
+# the ranking, not of the kernels line
+K7_RESNET = "K7 ns_polar_hybrid: workspace (resnet)"
 # the LayerNorms, which the flash path takes in every block
 LN_KERNELS = ("K5a fused_layernorm fwd", "K5b fused_layernorm bwd")
 # the tracer's own buffer activity, which the profiler lists as device time
@@ -141,6 +174,11 @@ PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 HBM_BYTES_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# K7 against its plain version (``k7_bounds``): the largest per-matrix
+# relative Frobenius error, and how far the output's singular values reach
+# beyond the plain factor's
+K7_REL_TOL = 3e-2
+K7_SV_TOL = 1e-2
 # more than the H100's 50 MB L2, written between cold-timed calls, and a
 # device sleep of ~1 ms at the card's clock
 L2_FLUSH_BYTES = 128 * 2 ** 20
@@ -433,8 +471,22 @@ def kernel_phase(torch, device):
     results["K7 ns_polar_hybrid: onchip"] = results["K7 ns_polar_hybrid"]
     # the workspace variant at (8, 384, 768), a DeiT-S student under a
     # DeiT-B teacher, from the newer generator (no other check's inputs move)
+    ws = k7_check(torch, ns_polar, polar_batch(torch, rn_new, 8, 384, 768),
+                  "workspace")
+    print("kernel K7 ns_polar_hybrid: workspace at (8, 384, 768): "
+          + " ".join(f"{k}={v}" for k, v in ws.items()))
+    # and at the cross-arch path's (P*B, D_s, D_t): (512, 192, 768) under the
+    # ConvNeXtV2-Tiny teacher (its row of the kernels line) and (512, 192,
+    # 2048) under ResNet-50
     results["K7 ns_polar_hybrid: workspace"] = k7_check(
-        torch, ns_polar, polar_batch(torch, rn_new, 8, 384, 768), "workspace")
+        torch, ns_polar, polar_batch(torch, rn_new, nb, r, 768, reduced=True),
+        "workspace")
+    ws = k7_check(torch, ns_polar,
+                  polar_batch(torch, rn_new, nb, r, 2048, reduced=True),
+                  "workspace")
+    results[K7_RESNET] = ws
+    print(f"kernel K7 ns_polar_hybrid: workspace at ({nb}, {r}, 2048): "
+          + " ".join(f"{k}={v}" for k, v in ws.items()))
 
     # K8 on the principal-angle batch of the jacobi path at max_rank=96
     # (P*L = 48 Grams of 96 x 96) and 4 fresh batches, and without a cap
@@ -920,15 +972,17 @@ def k9_checks(torch, g, aug, geom_shift, views, draws, record) -> None:
            timer=time_cold_ms)
 
 
-def check_parts(label, counts, parts) -> None:
-    """Every K7 launch of a train run took the on-chip variant, every K8
-    launch ran the rounds with A in shared memory (n = 96) and the vectors
-    pass, and K9 launched once per step (3), each with the image in shared
-    memory (224 px)."""
+def check_parts(label, counts, parts, k7_variant: str = "onchip") -> None:
+    """Every K7 launch of a train run took ``k7_variant`` (the on-chip one
+    at D_t = 384, the workspace one at the CNN teachers' 768 and 2048),
+    every K8 launch ran the rounds with A in shared memory (n = 96) and the
+    vectors pass, and K9 launched once per step (3), each with the image in
+    shared memory (224 px)."""
     k7, k8 = counts["K7 ns_polar_hybrid"], counts["K8 jacobi_eigh"]
     k9 = counts["K9 geom_shift3"]
-    check(parts["K7 ns_polar_hybrid: onchip"] == k7
-          and parts["K7 ns_polar_hybrid: workspace"] == 0,
+    other = "workspace" if k7_variant == "onchip" else "onchip"
+    check(parts[f"K7 ns_polar_hybrid: {k7_variant}"] == k7
+          and parts[f"K7 ns_polar_hybrid: {other}"] == 0,
           f"{label}: K7 launched {k7} times, variants {parts}")
     check(parts["K8 jacobi_eigh: rounds smem"] == k8
           and parts["K8 jacobi_eigh: vectors"] == k8
@@ -975,20 +1029,58 @@ def k10c_check(torch, flash_attention, qkv, num_heads: int, scale: float):
     return max(err, imp_err)
 
 
-def polar_batch(torch, rn, nb: int, r: int, c: int):
+def polar_batch(torch, rn, nb: int, r: int, c: int, reduced: bool = False):
     """(nb, r, c) f32 matrices U diag(s) V^T with random orthonormal U, V
-    and singular values decaying from 1 to 1e-2."""
+    and singular values decaying from 1 to 1e-2; ``reduced``: V's r columns
+    from the QR of an (nb, c, r) draw, not of a square one."""
     u = torch.linalg.qr(rn(nb, r, r))[0]
-    v = torch.linalg.qr(rn(nb, c, c))[0][:, :, :r]
+    v = (torch.linalg.qr(rn(nb, c, r))[0] if reduced
+         else torch.linalg.qr(rn(nb, c, c))[0][:, :, :r])
     s = torch.logspace(0, -2, r, device=u.device)
     return torch.einsum("bik,k,bjk->bij", u, s, v).contiguous()
 
 
+def polar_rel_err(out, ref) -> float:
+    """The largest per-matrix relative Frobenius error of (B, r, c)
+    ``out`` against ``ref``: a polar factor's rows have unit norm, so its
+    entries shrink as 1/sqrt(c) and an absolute bound loosens with c."""
+    diff = (out.float() - ref.float()).norm(dim=(-2, -1))
+    return (diff / ref.float().norm(dim=(-2, -1))).max().item()
+
+
+def polar_sv_excursion(torch, out, ref) -> float:
+    """How far the singular values of (B, r, c) ``out`` reach outside the
+    range of ``ref``'s (float64, from the eigenvalues of P P^T). A step
+    short leaves the smallest ones well below 1 where the full iteration
+    ends within ~3e-3 of it."""
+    def sv_range(p):
+        p = p.double()
+        lam = torch.linalg.eigvalsh(p @ p.transpose(-1, -2)).clamp(min=0)
+        return lam.min().sqrt().item(), lam.max().sqrt().item()
+
+    lo, hi = sv_range(out)
+    ref_lo, ref_hi = sv_range(ref)
+    return max(ref_lo - lo, hi - ref_hi, 0.0)
+
+
+def k7_bounds(torch, out, ref) -> dict:
+    """``out`` against the polar factor ``ref`` by K7's two scaled bounds:
+    ``rel`` (``polar_rel_err``) within ``K7_REL_TOL`` and ``sv``
+    (``polar_sv_excursion``) within ``K7_SV_TOL``; ``ok`` when both hold."""
+    rel = polar_rel_err(out, ref)
+    sv = polar_sv_excursion(torch, out, ref)
+    return dict(rel=rel, sv=sv, ok=rel <= K7_REL_TOL and sv <= K7_SV_TOL)
+
+
 def k7_check(torch, ns_polar, mats, variant: str) -> dict:
-    """K7 on ``mats`` against ``ns_polar_plain``: within 3e-2, polar defect
-    |P P^T - I| <= 5e-2, and the launch took ``variant``. Returns its
-    record; the bound counts 5 quintic steps (X X^T, G G, H X) and 2 cubic
-    (X X^T, G X) of bf16 products a matrix."""
+    """K7 on ``mats`` against ``ns_polar_plain``: within 3e-2, within
+    ``k7_bounds`` (each matrix's relative Frobenius error, and the
+    singular values' excursion beyond the plain factor's), polar defect
+    |P P^T - I| <= 5e-2, and the launch took ``variant``. Two controls, the
+    plain version one quintic step short and one cubic step short, must
+    each fail ``k7_bounds``, so the check fails a kernel that drops a step.
+    Returns its record; the bound counts 5 quintic steps (X X^T, G G, H X)
+    and 2 cubic (X X^T, G X) of bf16 products a matrix."""
     nb, r, c = mats.shape
     check(ns_polar.ns_polar_variant(r, c) == variant,
           f"K7 at ({r}, {c}) must take the {variant} variant")
@@ -999,6 +1091,21 @@ def k7_check(torch, ns_polar, mats, variant: str) -> dict:
     ref = ns_polar.ns_polar_plain(mats)
     err = max_err(out, ref)
     check(err <= 3e-2, f"K7 {tuple(mats.shape)} err {err}")
+    scaled = k7_bounds(torch, out, ref)
+    controls = {
+        "one quintic short": k7_bounds(torch, ns_polar.ns_polar_plain(
+            mats, quintic=ns_polar.QUINTIC_SCHEDULE[:-1]), ref),
+        "one cubic short": k7_bounds(torch, ns_polar.ns_polar_plain(
+            mats, num_cubic=ns_polar.NUM_CUBIC - 1), ref),
+    }
+    print(f"K7 {tuple(mats.shape)} ({variant}): relative Frobenius error "
+          f"{scaled['rel']} (bound {K7_REL_TOL}), singular-value excursion "
+          f"{scaled['sv']} (bound {K7_SV_TOL}); controls "
+          + ", ".join(f"{k}: rel {v['rel']} sv {v['sv']}"
+                      for k, v in controls.items()))
+    check(scaled["ok"], f"K7 {tuple(mats.shape)} scaled bounds {scaled}")
+    check(not any(v["ok"] for v in controls.values()),
+          f"K7 {tuple(mats.shape)}: a control passes the bounds: {controls}")
     p = out.double()
     defect = (p @ p.transpose(-1, -2) - torch.eye(r, device=mats.device,
                                                  dtype=torch.float64)).abs().max().item()
@@ -1308,20 +1415,36 @@ def student_check(torch, trainer, device, taken):
     kernel_student.zero_grad(set_to_none=True)
 
 
-def train_run(torch, device, kernels, root: str, label: str, extra: list):
-    """``train.main`` for 3 steps in ``root/label``: the trainer, the
-    kernels' launch counts of the run, and its epoch record; the step
-    losses must be finite."""
+def train_run(torch, device, kernels, root: str, label: str, extra: list,
+              base: list = TRAIN_ARGS, k7_variant: str = "onchip"):
+    """``train.main`` (``base`` + ``extra``) for 3 steps and its eval suite
+    in ``root/label``: the trainer, the kernels' launch counts of the run,
+    those before its eval suite, and its epoch record; the step losses
+    must be finite."""
     from basd_tpu_torch import train
 
     out_dir = Path(root) / label
+    suite = train.run_eval_suite
+    before_suite = {}
+
+    def counted_suite(*args, **kwargs):
+        torch.cuda.synchronize()
+        before_suite.update(kernels.launch_counts())
+        before_suite.update(kernels.part_counts())
+        return suite(*args, **kwargs)
+
     kernels.reset_launch_counts()
-    trainer = train.main(TRAIN_ARGS + extra + [f"run.output_dir={out_dir}"],
-                         device=device)
+    train.run_eval_suite = counted_suite
+    try:
+        trainer = train.main(base + extra + [f"run.output_dir={out_dir}"],
+                             device=device)
+    finally:
+        train.run_eval_suite = suite
     torch.cuda.synchronize()
+    check(bool(before_suite), f"{label}: the eval suite did not run")
     counts = kernels.launch_counts()
     parts = kernels.part_counts()
-    check_parts(label, counts, parts)
+    check_parts(label, counts, parts, k7_variant)
     counts.update(parts)
     check_core_variants(label, counts, kernels.variant_counts())
     check_gemm_variants(label, counts, kernels.gemm_variant_counts())
@@ -1330,11 +1453,13 @@ def train_run(torch, device, kernels, root: str, label: str, extra: list):
     metrics = out_dir / trainer.config.run.name / "metrics.jsonl"
     records = [json.loads(line) for line in metrics.read_text().splitlines()]
     print(f"launches {label} {counts}")
+    print(f"launches before the eval suite {label} {before_suite}")
     losses = [r["loss"] for r in records if r["kind"] == "step"]
     print(f"step losses {label} {losses}")
     check(len(losses) == 3 and all(math.isfinite(v) for v in losses),
           f"expected 3 finite step losses, got {losses}")
-    return trainer, counts, [r for r in records if r["kind"] == "epoch"][-1]
+    return (trainer, counts, before_suite,
+            [r for r in records if r["kind"] == "epoch"][-1])
 
 
 def backend_agreement(torch, trainer, bsz: int = 8):
@@ -1490,13 +1615,22 @@ def profile_steps(torch, trainer, out_path, steps: int = 3) -> dict:
 
 
 def check_flash_counts(trainer, counts) -> None:
-    """Launches of the flash train run (3 steps, 1 eval batch), derived
-    from the models' depths: the teacher runs K10c and K2 once per block per
-    forward (calibration and one per step); the remat'd student runs K10a
-    and K11a twice per block per step (forward and recompute) and once more
-    on the eval batch, K10b and K11b once per block per step; K1, K3 and K4
-    never run; K8 once per step (jacobi)."""
-    steps, evals = 3, 1
+    """Launches of the flash train run (3 steps, 1 eval batch, then the eval
+    suite), derived from the models' depths: the teacher runs K10c and K2
+    once per block per forward (calibration and one per step); the remat'd
+    student runs K10a and K11a twice per block per step (forward and
+    recompute) and once more per counted eval forward (the epoch's eval
+    batch, the suite's eval batches, its warm-up forwards and the one
+    captured in a CUDA graph, whose replays the wrappers do not see),
+    K10b and K11b once per block per step; K1, K3 and K4 never run; K8 once
+    per step (jacobi)."""
+    from basd_tpu_torch.evaluation.metrics import WARMUP_FORWARDS
+
+    cfg = trainer.config
+    suite_batches = math.ceil(trainer.source.split_size("eval")
+                              / cfg.data.batch_size)
+    steps = 3
+    evals = 1 + suite_batches + WARMUP_FORWARDS + 1
     t_depth = len(trainer.teacher.module.blocks)
     s_depth = len(trainer.student.module.blocks)
     runs = 2 if trainer.student.module.remat else 1
@@ -1515,6 +1649,87 @@ def check_flash_counts(trainer, counts) -> None:
     for name, count in expected.items():
         check(counts[name] == count,
               f"flash path: {name} launched {counts[name]} times, not {count}")
+
+
+def check_cross_counts(label, trainer, counts) -> None:
+    """The CNN-to-ViT run: the student's kernels (K3, K4, K5), K7 and K9
+    launched, the ViT teacher's kernels (K1, K2), K8, K10 and K11 never; the
+    student is the uncalibrated preset (D_s = 192), the CNN teacher one dense
+    layer. K6 is stated as found: the dense teacher stack is mixed by the
+    plain einsum, as the reference mixes it (``selector.py:416``)."""
+    for name in BLOCK_KERNELS + LN_KERNELS + ("K7 ns_polar_hybrid",
+                                              "K9 geom_shift3"):
+        check(counts[name] > 0, f"{label}: {name} never launched")
+    for name in ("K1 fused_block_attn", "K2 fused_ln_mlp_collect",
+                 "K8 jacobi_eigh") + FLASH_KERNELS:
+        check(counts[name] == 0, f"{label}: launched {name}")
+    print(f"{label} K6 launches: K6a {counts['K6a mix_stack fwd']} "
+          f"K6b {counts['K6b mix_stack dw']}")
+    check(trainer.student.info["embed_dim"] == 192
+          and trainer.config.model.arch_overrides.to_dict() == {},
+          f"{label}: the student was calibrated: {trainer.student.info}")
+    check(trainer.teacher.info["feature_format"] == "nhwc"
+          and trainer.loss_cfg.teacher_dim == trainer.teacher.info["embed_dim"],
+          f"{label}: teacher {trainer.teacher.info}")
+
+
+def cnn_teacher_check(torch, trainer, label: str, bsz: int = 8) -> None:
+    """The bf16 CNN teacher's features against an f32 copy of it on the
+    card (cuDNN without TF32), on ``bsz`` clean views of a train batch:
+    within 2^-4 of the f32 map's largest value (a few bf16 roundings per
+    block over 12-18 blocks; ~1.4% of it in a CPU run at full width)."""
+    from basd_tpu_torch.models.registry import create_model, teacher_extract
+
+    teacher = trainer.teacher
+    f32 = create_model(teacher.name, img_size=trainer.img_size,
+                       dtype=torch.float32)
+    f32.module.load_state_dict(teacher.module.state_dict())
+    f32.module.to(trainer.device).eval().requires_grad_(False)
+    images, labels = train_batches(trainer, 1, seed=13)[0]
+    with torch.no_grad():
+        clean = trainer.make_views(images[:bsz], labels[:bsz]).clean
+    tok, imp = teacher_extract(teacher, clean.to(torch.bfloat16))
+    ref, ref_imp = teacher_extract(f32, clean.to(torch.bfloat16).float())
+    torch.cuda.synchronize()
+    err = max_err(tok, ref)
+    scale = ref.abs().max().item()
+    rel = ((tok.float() - ref).norm() / ref.norm()).item()
+    print(f"teacher {label} bf16 vs f32 on the card: tokens {tuple(tok.shape)} "
+          f"max_abs_err={err} (scale {scale}) frobenius rel err={rel}")
+    check(math.isfinite(err) and err <= 2 ** -4 * max(scale, 1.0),
+          f"{label} teacher bf16 vs f32 err {err}")
+    check(torch.equal(imp, ref_imp), f"{label} teacher importance differs")
+
+
+def eval_export_pass(torch, trainer, device, root: str) -> None:
+    """The cross-arch run's ``metrics.json`` (the eval suite that ends
+    ``train.main``), then the export of its final weights and their reload
+    through ``basd_tpu_torch.eval``, which must reproduce the run's top-1,
+    top-5 and CE."""
+    from basd_tpu_torch import eval as eval_cli
+    from basd_tpu_torch.models import export
+
+    run = Path(root) / "cross" / trainer.config.run.name
+    trained = json.loads((run / "metrics.json").read_text())
+    eff = trained["efficiency"]
+    print(f"eval suite cross: primary {trained['primary']} efficiency {eff}")
+    check(set(trained) == {"run", "primary", "robustness", "efficiency"}
+          and eff["throughput_img_per_sec"] > 0 and eff["gflops"] > 0
+          and eff["param_count"] == sum(p.numel() for p in
+                                        trainer.student.module.parameters()),
+          f"metrics.json {trained}")
+    pth = Path(root) / "student.pth"
+    export.main(CROSS_ARGS + [
+        f"checkpoint.path={run / 'checkpoints' / 'final_model_weights'}",
+        f"+export.path={pth}"], device=device)
+    evaluated = eval_cli.main(CROSS_ARGS + [
+        f"run.output_dir={Path(root) / 'eval'}", f"checkpoint.path={pth}"],
+        device=device)
+    torch.cuda.synchronize()
+    print(f"eval CLI on the export: primary {evaluated['primary']}")
+    check(evaluated["primary"] == trained["primary"],
+          f"the export's eval {evaluated['primary']} differs from the run's "
+          f"{trained['primary']}")
 
 
 def main(argv=None) -> int:
@@ -1562,7 +1777,8 @@ def main(argv=None) -> int:
 
     phase("train")
     root = tempfile.TemporaryDirectory()
-    gram, counts, _ = train_run(torch, device, kernels, root.name, "gram", [])
+    gram, counts, pre, _ = train_run(torch, device, kernels, root.name,
+                                     "gram", [])
     for name, *_ in kernels.KERNELS:
         count = counts[name]
         if name == "K8 jacobi_eigh" or name in FLASH_KERNELS:
@@ -1573,8 +1789,8 @@ def main(argv=None) -> int:
         check(counts[name] % 12 == 0, f"{name} must run 12 times per forward")
 
     phase("jacobi train")
-    jacobi, jcounts, epoch = train_run(torch, device, kernels, root.name,
-                                       "jacobi", JACOBI_ARGS)
+    jacobi, jcounts, jpre, epoch = train_run(torch, device, kernels,
+                                             root.name, "jacobi", JACOBI_ARGS)
     check(jcounts["K8 jacobi_eigh"] == 3,
           f"K8 must launch once per train step, got {jcounts['K8 jacobi_eigh']}")
     images, labels = train_batches(jacobi, 1, seed=5)[0]
@@ -1584,17 +1800,35 @@ def main(argv=None) -> int:
           f"{epoch['rank_cap_hits']}, one more step {int(step['rank_cap_hits'])}")
 
     phase("flash train")
-    flash, fcounts, _ = train_run(torch, device, kernels, root.name, "flash",
-                                  JACOBI_ARGS + FLASH_ARGS)
+    flash, fcounts, fpre, _ = train_run(torch, device, kernels, root.name,
+                                        "flash", JACOBI_ARGS + FLASH_ARGS)
     check_flash_counts(flash, fcounts)
+
+    phase("cross-arch train")
+    cross, ccounts, cpre, _ = train_run(torch, device, kernels, root.name,
+                                        "cross", [], base=CROSS_ARGS,
+                                        k7_variant="workspace")
+    check_cross_counts("cross", cross, ccounts)
+    check(cross.loss_cfg.teacher_dim == 768, "ConvNeXtV2-Tiny: D_t != 768")
+    resnet, rcounts, rpre, _ = train_run(torch, device, kernels, root.name,
+                                         "resnet", RESNET_ARGS, base=CROSS_ARGS,
+                                         k7_variant="workspace")
+    check_cross_counts("resnet", resnet, rcounts)
+    check(resnet.loss_cfg.teacher_dim == 2048, "ResNet-50: D_t != 2048")
+
+    phase("eval and export")
+    eval_export_pass(torch, cross, device, root.name)
 
     phase("check and timing")
     teacher_check(torch, gram, device, "K1/K2")
     teacher_check(torch, flash, device, "K10c/K2")
+    cnn_teacher_check(torch, cross, "ConvNeXtV2-Tiny")
+    cnn_teacher_check(torch, resnet, "ResNet-50")
     student_check(torch, gram, device, BLOCK_KERNELS)
     student_check(torch, flash, device, FLASH_KERNELS[:2] + FLASH_KERNELS[3:])
     backend_agreement(torch, jacobi)
-    trainers = (("gram", gram), ("jacobi", jacobi), ("flash", flash))
+    trainers = (("gram", gram), ("jacobi", jacobi), ("flash", flash),
+                ("cross", cross), ("resnet", resnet))
     times = {}
     for label, trainer in trainers:
         times[label] = stage_times(torch, trainer)
@@ -1611,14 +1845,30 @@ def main(argv=None) -> int:
             print(f"profile {label} " + json.dumps(prof))
     root.cleanup()
 
-    entries = []
+    def path_of(name):
+        """The train run that takes ``name``: its whole counts, and those
+        before its eval suite."""
+        return ((jcounts, jpre) if name.startswith("K8 jacobi_eigh")
+                else (fcounts, fpre) if name in FLASH_KERNELS + LN_KERNELS
+                else (ccounts, cpre) if name == "K7 ns_polar_hybrid: workspace"
+                else (counts, pre))
+
+    entries, ranking = [], []
+    names = {k[0] for k in kernels.KERNELS}
     for name, route, source, replaces, *_ in kernels.KERNELS + kernels.PARTS:
-        path_counts = (jcounts if name.startswith("K8 jacobi_eigh")
-                       else fcounts if name in FLASH_KERNELS + LN_KERNELS
-                       else counts)
+        whole, train_only = path_of(name)
         entries.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": path_counts[name],
+                        "replaces": replaces, "launches": whole[name],
                         **results[name]})
+        if name in names or name.endswith(": workspace"):
+            ranking.append((name, train_only[name], results[name]))
+    ranking.append((K7_RESNET, rpre["K7 ns_polar_hybrid: workspace"],
+                    results[K7_RESNET]))
+    ranked = sorted(((n * (r["ms"] - r["bound_ms"]), name, n)
+                     for name, n, r in ranking), reverse=True)
+    print("ranking launches x (ms - bound_ms) before the eval suites, ms: "
+          + json.dumps([{"name": name, "launches": n, "cost_ms": cost}
+                        for cost, name, n in ranked]))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

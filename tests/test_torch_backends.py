@@ -461,6 +461,17 @@ def test_basd_loss_backends_match_jax(monkeypatch, backend, impl, packed):
 
 # ---- the CLI on the CPU ----------------------------------------------------
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CLI run is thousands of small ops, which
+    thrash when the test workers share the cores with many threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("overrides", [
     ["basd.spectral_backend=jacobi", "basd.max_rank=16"],
     ["basd.spectral_backend=svd"],
@@ -469,7 +480,8 @@ def test_basd_loss_backends_match_jax(monkeypatch, backend, impl, packed):
 def test_cli_runs_other_backends_on_cpu(tmp_path, overrides):
     main(["experiment=smoke_synthetic", f"run.output_dir={tmp_path}",
           "data.batch_size=32", "+data.limit_train_batches=2",
-          "+data.limit_eval_batches=1", *overrides], device="cpu")
+          "+data.limit_eval_batches=1", "+eval.efficiency_batches=2",
+          *overrides], device="cpu")
     lines = (tmp_path / "smoke_synthetic" / "metrics.jsonl").read_text().splitlines()
     steps = [r for r in map(json.loads, lines) if r["kind"] == "step"]
     assert len(steps) == 2 and all(math.isfinite(r["loss"]) for r in steps)

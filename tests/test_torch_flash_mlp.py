@@ -359,6 +359,17 @@ def test_remat_policy(policy, error):
     assert not create_model("tiny", **dict(kw, remat=False)).module.remat
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CLI run is thousands of small ops, which
+    thrash when the test workers share the cores with many threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_cli_flash_fused_on_cpu(tmp_path):
     """``main`` with the three flash/fused overrides on the CPU (the plain
     versions of K10, K10c and K11): finite step losses; an unknown
@@ -367,7 +378,8 @@ def test_cli_flash_fused_on_cpu(tmp_path):
 
     args = ["experiment=smoke_synthetic", f"run.output_dir={tmp_path}",
             "data.batch_size=32", "+data.limit_train_batches=2",
-            "+data.limit_eval_batches=1", "tpu.teacher_attention_impl=flash",
+            "+data.limit_eval_batches=1", "+eval.efficiency_batches=2",
+            "tpu.teacher_attention_impl=flash",
             "tpu.student_attention_impl=flash", "tpu.student_mlp_impl=fused"]
     trainer = main(args, device="cpu")
     for blk in trainer.student.module.blocks:

@@ -11,7 +11,9 @@ rule ``chip_smoke.py`` holds K8 to.
   memory, the workspace kernel beyond.
 - ``ns_polar_plain`` against the Pallas kernel in interpret mode at the
   main path's width (192, 384), atol 3e-2 (bf16 intermediates rounded at
-  the same points; the products' f32 sums run in another order).
+  the same points; the products' f32 sums run in another order), and
+  within ``chip_smoke.k7_bounds``, the scaled bounds K7 is held to on the
+  card, which a plain version one Newton-Schulz step short fails.
 - The eigenvector rule (``chip_smoke.eigvec_rule``: the angle to the true
   eigenvector bounded by the residual over the distance to the other
   eigenvalues) holds for ``jacobi_eigh_plain`` against float64
@@ -149,6 +151,44 @@ def test_k7_plain_matches_pallas_at_main_width():
                                          interpret=True).astype(jnp.float32))
     out = ns_polar.ns_polar_plain(torch.from_numpy(m)).float().numpy()
     np.testing.assert_allclose(out, ref, atol=3e-2)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("nb,r,c,reduced", [
+    (4, 192, 384, False), (4, 192, 768, True), (2, 192, 2048, True),
+    (2, 384, 768, False)])
+def test_k7_bounds_admit_rounding_and_fail_a_step_short(nb, r, c, reduced):
+    """``chip_smoke.k7_bounds`` at the shapes ``k7_check`` runs (rows 192
+    under D_t = 384 / 768 / 2048, and (384, 768)): the plain version with
+    f32 intermediates, which rounds nowhere the bf16 one does, passes
+    against the bf16 plain factor; the controls one quintic step short and
+    one cubic step short fail."""
+    g = torch.Generator().manual_seed(21)
+    mats = chip_smoke.polar_batch(
+        torch, lambda *shape: torch.randn(*shape, generator=g), nb, r, c,
+        reduced=reduced)
+    ref = ns_polar.ns_polar_plain(mats)
+    assert chip_smoke.k7_bounds(torch, ns_polar.ns_polar_plain(
+        mats, inner_dtype=torch.float32), ref)["ok"]
+    for short in (dict(quintic=ns_polar.QUINTIC_SCHEDULE[:-1]),
+                  dict(num_cubic=ns_polar.NUM_CUBIC - 1)):
+        assert not chip_smoke.k7_bounds(
+            torch, ns_polar.ns_polar_plain(mats, **short), ref)["ok"], short
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_k7_bounds_hold_for_the_pallas_kernel():
+    """The JAX package's Pallas kernel (interpret mode), whose products sum
+    in another order than the plain version's, within ``k7_bounds`` of it
+    at (4, 192, 384)."""
+    g = torch.Generator().manual_seed(22)
+    mats = chip_smoke.polar_batch(
+        torch, lambda *shape: torch.randn(*shape, generator=g), 4, 192, 384)
+    out = jax_ns_polar_hybrid(jnp.asarray(mats.numpy()), tile_b=4,
+                              interpret=True).astype(jnp.float32)
+    bounds = chip_smoke.k7_bounds(torch, torch.from_numpy(np.asarray(out)),
+                                  ns_polar.ns_polar_plain(mats))
+    assert bounds["ok"], bounds
 
 
 def _old_rule_min_dot(w, v, wl, vl):

@@ -10,6 +10,7 @@ import json
 import math
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -156,13 +157,24 @@ def test_step_on_views_matches_jax(monkeypatch, tmp_path):
             assert _rel(ours[k].numpy(), r) <= 1e-4, (field, k)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CLI run is thousands of small ops, which
+    thrash when the test workers share the cores with many threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_cli_runs_end_to_end_on_cpu(tmp_path):
     """``main`` on the CPU, tiny synthetic config on the packed path
     (B * N_patch >= D_s): finite step losses, checkpoints written."""
     trainer = main([
         "experiment=smoke_synthetic", f"run.output_dir={tmp_path}",
         "data.batch_size=32", "+data.limit_train_batches=2",
-        "+data.limit_eval_batches=1",
+        "+data.limit_eval_batches=1", "+eval.efficiency_batches=2",
     ], device="cpu")
     out = tmp_path / "smoke_synthetic"
     steps = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()
