@@ -18,7 +18,7 @@
 // kernel's point is that device memory sees one read of x and one write
 // of the polar factor.
 //
-// Two variants, chosen before launch from the shapes by the caller
+// Three variants, chosen before launch from the shapes by the caller
 // (kernels/ns_polar.py:ns_polar_variant):
 // - on-chip (ns_polar_onchip_kernel): the whole iteration in one CTA's
 //   shared memory. The rows are padded with zeros to RP = 64, 128 or 192
@@ -37,12 +37,33 @@
 //   device memory (the norm, then scale and round into the swizzled X);
 //   the CTA writes the final X once. One CTA an SM (its shared memory),
 //   512 CTAs over ~3.9 waves of the 132 SMs.
-// - workspace (ns_polar_hybrid_kernel), for shapes whose X and G do not
-//   fit (r > 192, or 2 RP (RP + c) bytes over the limit, e.g. (384, 768),
-//   a DeiT-S student under a DeiT-B teacher): one 128-thread CTA a matrix
-//   walks the iteration on common.cuh's WMMA tile, keeping X (ping-pong),
-//   G and H in a per-matrix device-memory workspace (~0.44 MB a matrix at
-//   (192, 384), read back through L2).
+// - stream (ns_polar_stream_kernel), for RP <= 192 where X and G do not
+//   fit one CTA (the CNN-to-ViT paths' (192, 768) and (192, 2048)): one
+//   CTA a matrix keeps G/H (RP x RP bf16) in shared memory and streams X
+//   through a ring of 6 chunks of 64 columns (~222 KB at RP = 192). A
+//   step is one pass over the chunks: each chunk of X_k arrives by a bulk
+//   copy, becomes its chunk of X_{k+1} = a X + H X (m64n64k16, X MN-major)
+//   in place, leaves by a bulk copy and adds its Y Y^T to the next G's
+//   accumulators, which stay in registers across the pass (m64nRPk16):
+//   device memory sees X read once and written once a step, in a
+//   workspace that keeps each chunk in the swizzled layout, so that the
+//   copies move plain bytes. The f32 Frobenius prescale reads x twice (the
+//   norm, then the first pass scales and rounds it chunk by chunk); the
+//   last pass writes the factor. The function is bound by its operations
+//   at (512, 192, 768) and (512, 192, 2048) (0.447 and 1.131 ms of bf16
+//   products at the peak); this design adds device-memory traffic of 2.87
+//   and 7.65 GB (x twice in f32, X in and out once a step), 0.86 and 2.28
+//   ms at 3.35 TB/s, the floor of its time at c = 2048.
+//   A cluster design (S = c / 256 CTAs a matrix, X by columns in shared
+//   memory, the partial Grams reduce-scattered and all-gathered over
+//   distributed shared memory) was measured first and lost: its exchange
+//   took longer than the Gram product it serves (PERF.md).
+// - workspace (ns_polar_hybrid_kernel), for the other shapes (r > 192,
+//   e.g. (384, 768), a DeiT-S student under a DeiT-B teacher): one
+//   128-thread CTA a
+//   matrix walks the iteration on common.cuh's WMMA tile, keeping X
+//   (ping-pong), G and H in a per-matrix device-memory workspace (~0.44
+//   MB a matrix at (192, 384), read back through L2).
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -360,6 +381,270 @@ int launch_onchip(const float* x, bf16* out, int batch, int r, int c,
   return 0;
 }
 
+// ---- the streaming variant ----
+
+constexpr int STREAM_COLS = 64;    // columns of X a chunk: one swizzled block
+constexpr int STREAM_STAGES = 6;   // chunks in shared memory
+constexpr int STREAM_LAG = 2;      // iterations from a chunk's store to its slot's refill
+
+// Dynamic shared memory of the streaming variant: alignment slack, G/H,
+// the ring of chunks, one mbarrier a slot and one float a warp.
+// kernels/ns_polar.py:stream_smem_bytes mirrors it.
+inline long long stream_smem_bytes(int rp) {
+  return 1024LL + 2LL * rp * rp + (long long)STREAM_STAGES * rp * 128 +
+         8LL * STREAM_STAGES + 4LL * (2 * rp / 32);
+}
+
+__device__ __forceinline__ void bulk_load(uint8_t* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const uint8_t* src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(sm90::smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// Wait until at most N of this thread's bulk stores are pending, the
+// others complete (their writes to device memory done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc += this warpgroup's 64 rows of a chunk (RP x 64 bf16, one swizzled
+// block) times the chunk transposed: the chunk's share of the next Gram.
+template <int RP>
+__device__ __forceinline__ void gram_accumulate(float* acc, const uint8_t* chunk,
+                                                int wg) {
+  acc_fence<RP>(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < STREAM_COLS / 16; ++ks) {
+    sm90::wgmma_bf16<RP, 0, 0>(acc,
+                               sm90::smem_desc(chunk + wg * 64 * 128 + ks * 32),
+                               sm90::smem_desc(chunk + ks * 32));
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  acc_fence<RP>(acc);
+}
+
+// The parts of the streaming kernel: the full kernel runs all three; the
+// others exist to time them apart (basd_ns_polar_stream_part). IO: the norm,
+// x read into X_0 and the factor written; PRODUCTS: every wgmma product and
+// its epilogue; TRAFFIC: the chunks' stores to and loads from device memory
+// and the waits for them. Without IO, X_0 is zero; without TRAFFIC, each
+// slot keeps what it held.
+enum StreamPart { STREAM_IO = 1, STREAM_PRODUCTS = 2, STREAM_TRAFFIC = 4, STREAM_ALL = 7 };
+
+// One CTA a matrix, G/H in shared memory, X streamed from device memory in
+// 64-column chunks through a ring of STREAM_STAGES slots. Iteration i =
+// pass * nch + j of 8 passes over the nch chunks: pass 0 scales and rounds
+// x into X_0, passes 1-7 are the 7 steps, pass p reading X_{p-1} and
+// writing X_p. A chunk of X_p is stored (bulk copy, the slot's bytes as
+// they are: ws keeps X chunk by chunk in the swizzled layout) and adds its
+// Y Y^T to the next Gram's accumulators, which stay in registers across
+// the pass; the last pass writes the factor instead. Thread 0 refills the
+// slot of iteration i - STREAM_LAG with the chunk of iteration
+// i + STREAM_STAGES - STREAM_LAG once its own stores up to iteration
+// i - STREAM_LAG are complete: that slot's store has read it, and (nch >=
+// STREAM_STAGES) the chunk to load was stored at least that long ago.
+template <int RP, int PARTS>
+__global__ void __launch_bounds__(2 * RP, 1)
+    ns_polar_stream_kernel(const float* __restrict__ x, bf16* __restrict__ out,
+                           bf16* __restrict__ ws, int r, int c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SLOT = RP * 128;  // bytes of a chunk
+  constexpr int THREADS = 2 * RP;
+  constexpr int NS = STREAM_STAGES;
+  uint8_t* gs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = gs + 2 * RP * RP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * SLOT);
+  float* red = reinterpret_cast<float*>(full + NS);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int nch = c / STREAM_COLS;
+  const int iters = (6 + NUM_CUBIC) * nch;
+  const size_t rc = (size_t)r * c;
+  const float* xm = x + blockIdx.x * rc;
+  bf16* om = out + blockIdx.x * rc;
+  uint8_t* xbuf = reinterpret_cast<uint8_t*>(ws + (size_t)blockIdx.x * 2 * RP * c);
+  const size_t buf_bytes = (size_t)2 * RP * c;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) sm90::mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // f32 Frobenius norm
+  constexpr bool IO = (PARTS & STREAM_IO) != 0;
+  constexpr bool PRODUCTS = (PARTS & STREAM_PRODUCTS) != 0;
+  constexpr bool TRAFFIC = (PARTS & STREAM_TRAFFIC) != 0;
+  float sq = 0.f;
+  for (size_t i = 4 * (size_t)tid; IO && i < rc; i += 4 * THREADS) {
+    const float4 v = *reinterpret_cast<const float4*>(xm + i);
+    sq += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  sq = warp_sum(sq);
+  if (tid % 32 == 0) red[tid / 32] = sq;
+  __syncthreads();
+  float norm2 = 0.f;
+  for (int w = 0; w < THREADS / 32; ++w) norm2 += red[w];
+  const float inv = rsqrtf(norm2 + 1e-30f);
+
+  float accg[RP / 2];
+  float accy[STREAM_COLS / 2];
+#pragma unroll
+  for (int i = 0; i < RP / 2; ++i) accg[i] = 0.f;
+  float coef_x = 0.f, coef_m = 0.f;
+  for (int pass = 0; pass < 6 + NUM_CUBIC; ++pass) {
+    if (PRODUCTS && pass > 0) {
+      // G of X_{pass-1}, rounded to bf16 (every read of G/H as M ended at
+      // the last chunk's first barrier); for a quintic step, H over it
+      store_panel<RP>(accg, gs, wg, t);
+      sm90::fence_proxy_async();
+      __syncthreads();
+      const int step = pass - 1;
+      if (step < 5) {
+        const float b = QUINTIC[step][1];
+        const float cq = QUINTIC[step][2];
+        gram_panel<RP>(accg, gs, RP * 128, RP, wg);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RP / 2; i += 2) {
+          __nv_bfloat162* p = bf2_at(gs, wg * 64 + acc_row(t, i), acc_col(t, i),
+                                     RP * 128);
+          const float2 g = __bfloat1622float2(*p);
+          const float2 g2 = __bfloat1622float2(__floats2bfloat162_rn(accg[i], accg[i + 1]));
+          *p = __floats2bfloat162_rn(
+              __fadd_rn(__fmul_rn(b, g.x), __fmul_rn(cq, g2.x)),
+              __fadd_rn(__fmul_rn(b, g.y), __fmul_rn(cq, g2.y)));
+        }
+        sm90::fence_proxy_async();
+        __syncthreads();
+        coef_x = QUINTIC[step][0];
+        coef_m = 1.f;
+      } else {
+        coef_x = 1.5f;
+        coef_m = -0.5f;
+      }
+#pragma unroll
+      for (int i = 0; i < RP / 2; ++i) accg[i] = 0.f;
+    }
+    const bool last = pass == 5 + NUM_CUBIC;
+    for (int j = 0; j < nch; ++j) {
+      const int it = pass * nch + j;
+      const int s = it % NS;
+      uint8_t* slot = ring + s * SLOT;
+      if (pass == 0) {
+        // X_0's chunk j: x scaled and rounded, rows from r on zero
+        for (int i = tid; i < RP * 8; i += THREADS) {
+          const int row = i / 8;
+          const int col = (i % 8) * 8;
+          uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+          if (IO && row < r) {
+            const float* src = xm + (size_t)row * c + j * STREAM_COLS + col;
+            const float4 lo = *reinterpret_cast<const float4*>(src);
+            const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+            __nv_bfloat162 h[4] = {
+                __floats2bfloat162_rn(__fmul_rn(lo.x, inv), __fmul_rn(lo.y, inv)),
+                __floats2bfloat162_rn(__fmul_rn(lo.z, inv), __fmul_rn(lo.w, inv)),
+                __floats2bfloat162_rn(__fmul_rn(hi.x, inv), __fmul_rn(hi.y, inv)),
+                __floats2bfloat162_rn(__fmul_rn(hi.z, inv), __fmul_rn(hi.w, inv))};
+            packed = *reinterpret_cast<uint4*>(h);
+          }
+          *reinterpret_cast<uint4*>(slot + sm90::swizzle_offset(row, col, SLOT)) = packed;
+        }
+      } else {
+        if constexpr (TRAFFIC) {
+          // the fills of slot s so far: one every NS iterations from the
+          // first load iteration on it
+          const int first = nch + ((s - nch) % NS + NS) % NS;
+          sm90::mbar_wait(full + s, ((it - first) / NS) & 1);
+        }
+        if constexpr (PRODUCTS) {
+          // M X for this chunk (M = H or G, X MN-major as B)
+          panel_product<STREAM_COLS, 1>(accy, gs, RP * 128, RP / 16, wg, [&](int ks) {
+            return sm90::smem_desc_mn(slot + ks * 16 * 128, SLOT);
+          });
+          __syncthreads();  // every warpgroup has read the chunk
+#pragma unroll
+          for (int i = 0; i < STREAM_COLS / 2; i += 2) {
+            __nv_bfloat162* p = bf2_at(slot, wg * 64 + acc_row(t, i), acc_col(t, i), SLOT);
+            const float2 xv = __bfloat1622float2(*p);
+            const float y0 = __fadd_rn(__fmul_rn(coef_x, xv.x), __fmul_rn(coef_m, accy[i]));
+            const float y1 = __fadd_rn(__fmul_rn(coef_x, xv.y), __fmul_rn(coef_m, accy[i + 1]));
+            *p = __floats2bfloat162_rn(y0, y1);
+          }
+        }
+      }
+      sm90::fence_proxy_async();
+      __syncthreads();  // the chunk of X_pass is whole
+      if (!last) {
+        if (TRAFFIC && tid == 0)
+          bulk_store(xbuf + (pass % 2) * buf_bytes + (size_t)j * SLOT, slot, SLOT);
+        if constexpr (PRODUCTS) gram_accumulate<RP>(accg, slot, wg);
+      } else if constexpr (IO) {
+        for (int i = tid; i < r * 8; i += THREADS) {
+          const int row = i / 8;
+          const int col = (i % 8) * 8;
+          *reinterpret_cast<uint4*>(om + (size_t)row * c + j * STREAM_COLS + col) =
+              *reinterpret_cast<const uint4*>(slot + sm90::swizzle_offset(row, col, SLOT));
+        }
+      }
+      if (TRAFFIC && tid == 0) {
+        // (the last pass stores nothing: the stores still pending are the
+        // previous pass's last, one of them the slot's)
+        if (last) {
+          bulk_wait<0>();
+        } else {
+          bulk_wait<STREAM_LAG>();
+        }
+        const int next = it + NS - STREAM_LAG;
+        if (next >= nch && next < iters) {
+          const int np = next / nch;
+          uint64_t* bar = full + next % NS;
+          sm90::mbar_expect_tx(bar, SLOT);
+          bulk_load(ring + (next % NS) * SLOT,
+                    xbuf + ((np - 1) % 2) * buf_bytes + (size_t)(next % nch) * SLOT,
+                    SLOT, bar);
+        }
+      }
+    }
+  }
+  if (TRAFFIC && tid == 0) bulk_wait<0>();
+}
+
+// The shapes the streaming variant takes (kernels/ns_polar.py:
+// ns_polar_variant picks it only where the on-chip variant does not fit).
+inline bool stream_shape_ok(int r, int c) {
+  return r > 0 && r <= c && r <= ONCHIP_MAX_RP && r % 8 == 0 &&
+         c % STREAM_COLS == 0 && c >= STREAM_COLS * STREAM_STAGES;
+}
+
+template <int RP, int PARTS>
+int launch_stream(const float* x, bf16* out, bf16* ws, int batch, int r, int c,
+                  cudaStream_t st) {
+  const long long smem = stream_smem_bytes(RP);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ns_polar_stream_kernel<RP, PARTS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ns_polar_stream_kernel<RP, PARTS><<<batch, 2 * RP, smem, st>>>(x, out, ws, r, c);
+  BASD_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace basd
 
 // The workspace variant. x: (batch, r, c) f32 with r <= c, r % 8 == 0,
@@ -388,4 +673,42 @@ extern "C" int basd_ns_polar_onchip(const float* x, void* out, int batch,
   if (rp == 64) return basd::launch_onchip<64>(x, o, batch, r, c, st);
   if (rp == 128) return basd::launch_onchip<128>(x, o, batch, r, c, st);
   return basd::launch_onchip<192>(x, o, batch, r, c, st);
+}
+
+// The streaming variant. x: (batch, r, c) f32 with r <= 192, r <= c,
+// r % 8 == 0, c % 64 == 0, c >= 64 STREAM_STAGES, 16-byte aligned; out:
+// (batch, r, c) bf16; ws: batch * 2 * RP * c bf16 (RP: r padded to 64),
+// two copies of X chunk by chunk.
+extern "C" int basd_ns_polar_stream(const float* x, void* out, void* ws,
+                                    int batch, int r, int c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  basd::bf16* o = static_cast<basd::bf16*>(out);
+  basd::bf16* w = static_cast<basd::bf16*>(ws);
+  if (!basd::stream_shape_ok(r, c)) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const int rp = (r + 63) / 64 * 64;
+  constexpr int ALL = basd::STREAM_ALL;
+  if (rp == 64) return basd::launch_stream<64, ALL>(x, o, w, batch, r, c, st);
+  if (rp == 128) return basd::launch_stream<128, ALL>(x, o, w, batch, r, c, st);
+  return basd::launch_stream<192, ALL>(x, o, w, batch, r, c, st);
+}
+
+// The streaming variant with some of its parts (basd::StreamPart bits: 1
+// IO, 3 IO and products, 5 IO and traffic, 7 all), at 129 <= r <= 192
+// only: for timing its parts apart.
+extern "C" int basd_ns_polar_stream_part(const float* x, void* out, void* ws,
+                                         int batch, int r, int c, int parts,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  basd::bf16* o = static_cast<basd::bf16*>(out);
+  basd::bf16* w = static_cast<basd::bf16*>(ws);
+  if (!basd::stream_shape_ok(r, c) || r <= 128) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  switch (parts) {
+    case 1: return basd::launch_stream<192, 1>(x, o, w, batch, r, c, st);
+    case 3: return basd::launch_stream<192, 3>(x, o, w, batch, r, c, st);
+    case 5: return basd::launch_stream<192, 5>(x, o, w, batch, r, c, st);
+    case 7: return basd::launch_stream<192, 7>(x, o, w, batch, r, c, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,7 +11,7 @@ cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
 ``gemm_variants`` (``gemm.gemm_nk_variant``: ``sm90``, ``wmma``, ``f32``),
 two a launch; those of K3b, K4b and K11b (``GEMM_BWD``) their backward
 products (``gemm.gemm_bwd_variant``), four a launch. ``PARTS`` lists the
-variants and launches of K7, K8 and K9 that count on their own: K7's two
+variants and launches of K7, K8 and K9 that count on their own: K7's three
 variants (``ns_polar_hybrid.variants``), K8's rounds by variant
 (``jacobi_rounds.variants``) and its vectors pass (``jacobi_vectors``),
 K9's two variants (``geom_shift3.variants``).
@@ -93,6 +93,8 @@ KERNELS = (
 PARTS = (
     ("K7 ns_polar_hybrid: onchip", "cuda", _CSRC + "ns_polar.cu",
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "onchip"),
+    ("K7 ns_polar_hybrid: stream", "cuda", _CSRC + "ns_polar.cu",
+     _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "stream"),
     ("K7 ns_polar_hybrid: workspace", "cuda", _CSRC + "ns_polar.cu",
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "workspace"),
     ("K8 jacobi_eigh: rounds smem", "cuda", _CSRC + "jacobi_eigh.cu",

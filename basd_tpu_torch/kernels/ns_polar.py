@@ -4,14 +4,16 @@ Replaces ``basd_tpu/ops/pallas/ns_polar.py:ns_polar_hybrid``
 (``_ns_kernel``): an f32 Frobenius prescale, 5 accelerated quintic steps
 (``QUINTIC_SCHEDULE``) and 2 cubic steps, bf16 operands with f32
 accumulation and every intermediate rounded to bf16. For a CUDA tensor
-one of the two CUDA kernels of ``csrc/ns_polar.cu`` runs, picked before the
-launch from the shapes (``ns_polar_variant``): ``onchip``
+one of the three CUDA kernels of ``csrc/ns_polar.cu`` runs, picked before
+the launch from the shapes (``ns_polar_variant``): ``onchip``
 (``basd_ns_polar_onchip``: the whole iteration in one CTA's shared memory
-on wgmma, for r <= 192 where X and G fit) or ``workspace``
-(``basd_ns_polar_hybrid``: X, G and H in device memory, on the WMMA
-tile). ``ns_polar_plain`` is the same function in plain PyTorch, taken for
-a CPU tensor. Forward-only: the polar factor is the nuclear-norm
-subgradient, never differentiated through.
+on wgmma, for r <= 192 where X and G fit), ``stream``
+(``basd_ns_polar_stream``: one CTA a matrix with G in shared memory, X
+streamed through it in 64-column chunks once a step; r <= 192 beyond the
+on-chip limit) or ``workspace`` (``basd_ns_polar_hybrid``: X, G and H in
+device memory, on the WMMA tile). ``ns_polar_plain`` is the same
+function in plain PyTorch, taken for a CPU tensor. Forward-only: the polar
+factor is the nuclear-norm subgradient, never differentiated through.
 """
 
 from __future__ import annotations
@@ -81,14 +83,71 @@ def onchip_smem_bytes(rows_padded: int, c: int) -> int:
     return 1024 + 2 * rows_padded * (c + rows_padded) + 4 * (2 * rows_padded // 32)
 
 
+# columns of X a chunk of the streaming variant holds, and the chunks in
+# its shared memory
+_STREAM_COLS = 64
+_STREAM_STAGES = 6
+
+
+def stream_smem_bytes(rows_padded: int) -> int:
+    """Shared memory of the streaming variant (``csrc/ns_polar.cu``:
+    ``stream_smem_bytes``): alignment slack, G in bf16, the ring of
+    ``_STREAM_STAGES`` chunks of 64 columns, one mbarrier a chunk, one
+    float a warp."""
+    return (1024 + 2 * rows_padded * rows_padded
+            + _STREAM_STAGES * rows_padded * 2 * _STREAM_COLS
+            + 8 * _STREAM_STAGES + 4 * (2 * rows_padded // 32))
+
+
 def ns_polar_variant(r: int, c: int) -> str:
     """``onchip`` where X and G fit one block's shared memory with the rows
     padded to a multiple of 64 (at most 192, three warpgroups), else
-    ``workspace``."""
+    ``stream`` for rows padded to at most 192 and at least
+    ``_STREAM_STAGES`` chunks of 64 columns, else ``workspace``."""
     rp = -(-r // 64) * 64
     if rp <= _ONCHIP_MAX_ROWS and onchip_smem_bytes(rp, c) <= _SMEM_BYTES:
         return "onchip"
+    if (rp <= _ONCHIP_MAX_ROWS and c % _STREAM_COLS == 0
+            and c >= _STREAM_COLS * _STREAM_STAGES):
+        return "stream"
     return "workspace"
+
+
+def _check_cuda_input(x: torch.Tensor, aligned: bool) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"ns_polar_hybrid: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("ns_polar_hybrid: x must be contiguous float32")
+    if aligned and x.data_ptr() % 16:
+        raise ValueError("ns_polar_hybrid: x must be 16-byte aligned")
+
+
+def _launch_workspace(x: torch.Tensor, out: torch.Tensor) -> None:
+    """The workspace kernel from ``x`` into ``out``, its X, G and H in a
+    device-memory workspace of 2 r c + 2 r r bf16 a matrix."""
+    b, r, c = x.shape
+    ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
+                     device=x.device)
+    _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
+
+
+# the parts of the streaming kernel (``csrc/ns_polar.cu``: ``StreamPart``)
+STREAM_PARTS = {"io": 1, "io+products": 3, "io+traffic": 5, "all": 7}
+
+
+def _launch_stream(x: torch.Tensor, out: torch.Tensor, parts: int) -> None:
+    """The streaming kernel (``parts`` of it) from ``x`` into ``out``, its
+    two copies of X in a workspace of 2 RP c bf16 a matrix."""
+    b, r, c = x.shape
+    rp = -(-r // 64) * 64
+    ws = torch.empty((b, 2 * rp * c), dtype=torch.bfloat16, device=x.device)
+    if parts == STREAM_PARTS["all"]:
+        _build.call("basd_ns_polar_stream", x.data_ptr(), out.data_ptr(),
+                    ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
+    else:
+        _build.call("basd_ns_polar_stream_part", x.data_ptr(), out.data_ptr(),
+                    ws.data_ptr(), b, r, c, parts, _build.stream_ptr(x.device))
 
 
 def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
@@ -104,22 +163,16 @@ def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
         )
     if x.device.type == "cpu":
         return ns_polar_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"ns_polar_hybrid: unsupported device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("ns_polar_hybrid: x must be contiguous float32")
-    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
     variant = ns_polar_variant(r, c)
-    if variant == "onchip":
-        if x.data_ptr() % 16:
-            raise ValueError("ns_polar_hybrid: x must be 16-byte aligned")
+    _check_cuda_input(x, aligned=variant != "workspace")
+    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
+    if variant == "workspace":
+        _launch_workspace(x, out)
+    elif variant == "stream":
+        _launch_stream(x, out, STREAM_PARTS["all"])
+    else:
         _build.call("basd_ns_polar_onchip", x.data_ptr(), out.data_ptr(), b,
                     r, c, _build.stream_ptr(x.device))
-    else:
-        ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
-                         device=x.device)
-        _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
-                    ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
     ns_polar_hybrid.launches += 1
     ns_polar_hybrid.variants[variant] += 1
     return out
@@ -127,4 +180,30 @@ def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
 
 ns_polar_hybrid.launches = 0
 # launches by variant
-ns_polar_hybrid.variants = {"onchip": 0, "workspace": 0}
+ns_polar_hybrid.variants = {"onchip": 0, "stream": 0, "workspace": 0}
+
+
+def ns_polar_workspace(x: torch.Tensor) -> torch.Tensor:
+    """The workspace kernel on (B, r, c) CUDA ``x`` whatever variant
+    ``ns_polar_variant`` picks, counted nowhere: to time it beside the
+    variant that replaced it at a shape."""
+    b, r, c = x.shape
+    if not (kernel_eligible(r, c) and r <= c):
+        raise ValueError(f"ns_polar_workspace: unsupported shape {tuple(x.shape)}")
+    _check_cuda_input(x, aligned=False)
+    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
+    _launch_workspace(x, out)
+    return out
+
+
+def ns_polar_stream_part(x: torch.Tensor, parts: str) -> torch.Tensor:
+    """The streaming kernel with only some of its parts (``STREAM_PARTS``),
+    at rows 129-192, to time them apart; counted nowhere. Only ``all``
+    computes the polar factor."""
+    b, r, c = x.shape
+    if not (ns_polar_variant(r, c) == "stream" and r > 128):
+        raise ValueError(f"ns_polar_stream_part: no streaming kernel at {(r, c)}")
+    _check_cuda_input(x, aligned=True)
+    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
+    _launch_stream(x, out, STREAM_PARTS[parts])
+    return out

@@ -25,10 +25,17 @@ measurement, and with ``--out`` writes them as JSON:
    timed), the CUDA kernel at 2-8 chunks a lane (``LN_CHUNKS``), and
    ``torch.nn.functional.layer_norm``.
 5. K7 (``ns_polar``) at the Procrustes batch (512, 192, 384), its on-chip
-   variant, and at (8, 384, 768), its workspace variant: the kernel, the
-   plain version and, as context (never called by the port, and not a
-   one-call equivalent), the same 19 bf16 products as ``torch.bmm`` /
-   ``torch.baddbmm`` calls with K7's rounding points (``_ns_polar_bmm``).
+   variant, at (8, 384, 768), its workspace variant, and at the CNN-to-ViT
+   paths' (512, 192, 768) and (512, 192, 2048), its streaming variant
+   beside the workspace kernel it replaced there: the kernel, the plain
+   version and, as context (never called by the port, and not a one-call
+   equivalent), the same 19 bf16 products as ``torch.bmm`` /
+   ``torch.baddbmm`` calls with K7's rounding points (``_ns_polar_bmm``);
+   the streaming kernel also taken apart (``ns_polar_stream_part``: the
+   prescale and output alone, without the device-memory traffic of the
+   chunks, without the products), its time split into products (the whole
+   less the kernel without them), traffic (likewise) and prescale and
+   output.
 6. K8 (``eigh``) at the principal-angle batches (48, 96, 96) and (48, 192,
    192), 6 sweeps: the whole call, its rounds and its vectors pass alone,
    and ``torch.linalg.eigh`` (eager only: cuSOLVER's batched Jacobi fails
@@ -300,21 +307,46 @@ def polar_sweep(torch, device) -> list:
 
     out = []
     g = torch.Generator(device=device).manual_seed(4)
-    for nb, r, c in ((512, 192, 384), (8, 384, 768)):
+    for nb, r, c in ((512, 192, 384), (8, 384, 768), (512, 192, 768),
+                     (512, 192, 2048)):
         u = torch.linalg.qr(torch.randn((nb, r, r), generator=g, device=device))[0]
-        v = torch.linalg.qr(torch.randn((nb, c, c), generator=g, device=device))[0][:, :, :r]
+        if nb * c * c > 2 ** 28:  # V's r columns from a reduced QR
+            v = torch.linalg.qr(torch.randn((nb, c, r), generator=g, device=device))[0]
+        else:
+            v = torch.linalg.qr(torch.randn((nb, c, c), generator=g, device=device))[0][:, :, :r]
         s = torch.logspace(0, -2, r, device=device)
         x = torch.einsum("bik,k,bjk->bij", u, s, v).contiguous()
         flops = nb * (5 * (4 * r * r * c + 2 * r ** 3) + 2 * 4 * r * r * c)
         ref = ns_polar.ns_polar_plain(x)
         variant = ns_polar.ns_polar_variant(r, c)
-        for name, fn in ((f"K7 {variant}", lambda: ns_polar.ns_polar_hybrid(x)),
-                         ("K7 plain", lambda: ns_polar.ns_polar_plain(x)),
-                         ("19 bf16 bmm (context)", lambda: _ns_polar_bmm(torch, x))):
-            err = (fn().float() - ref.float()).abs().max().item()
+        fns = [(f"K7 {variant}", lambda: ns_polar.ns_polar_hybrid(x)),
+               ("K7 plain", lambda: ns_polar.ns_polar_plain(x)),
+               ("19 bf16 bmm (context)", lambda: _ns_polar_bmm(torch, x))]
+        if variant == "stream":
+            fns += [("K7 workspace", lambda: ns_polar.ns_polar_workspace(x))]
+            fns += [(f"K7 stream part {part}",
+                     lambda part=part: ns_polar.ns_polar_stream_part(x, part))
+                    for part in ("io", "io+products", "io+traffic")]
+        times = {}
+        for name, fn in fns:
+            err = (None if " part " in name
+                   else (fn().float() - ref.float()).abs().max().item())
             rec = {"kernel": name, "shape": [nb, r, c], "max_abs_err": err,
                    **_times(torch, fn)}
-            rec["device_tflop_s"] = flops / rec["device_ms"] / 1e9
+            # a part alone does not do the call's work
+            rec["device_tflop_s"] = (None if " part " in name
+                                     else flops / rec["device_ms"] / 1e9)
+            times[name] = rec["device_ms"]
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+        if variant == "stream":
+            # the whole kernel less the kernel without one part
+            whole = times["K7 stream"]
+            rec = {"kernel": "K7 stream split", "shape": [nb, r, c],
+                   "io_ms": times["K7 stream part io"],
+                   "products_ms": whole - times["K7 stream part io+traffic"],
+                   "traffic_ms": whole - times["K7 stream part io+products"],
+                   "whole_ms": whole}
             out.append(rec)
             print(json.dumps(rec), flush=True)
     return out

@@ -21,9 +21,12 @@ the script exits non-zero without printing a result:
    K10a/K10c, its backward alone for K10b) timed with CUDA events (median
    of several runs); each kernel's bound (bytes over 3.35 TB/s or
    operations over the peak rate of their type, whichever is larger) from
-   this run's shapes; K7's on-chip variant at (512, 192, 384) and its
-   workspace variant at (8, 384, 768) and at the cross-arch path's
-   (512, 192, 768) and (512, 192, 2048) (``k7_check``); K8's eigenvectors
+   this run's shapes; K7's on-chip variant at (512, 192, 384), its
+   workspace variant at (8, 384, 768) and its streaming variant at the
+   cross-arch paths' (512, 192, 768) and (512, 192, 2048) (``k7_check``),
+   there beside the workspace kernel (held to ``k7_bounds`` and timed),
+   and at (8, 64, 2048) and (8, 128, 1024), its narrower row paddings;
+   K8's eigenvectors
    by ``eigvec_rule`` (the residual bound) on its batch and 4 fresh ones,
    its rounds and its vectors pass alone against their plain mirrors,
    and K8 also at (48, 192, 192), the principal-angle batch without a
@@ -83,7 +86,7 @@ the script exits non-zero without printing a result:
 3d. cross-arch train: ``experiment=basd_imagenet_cross_arch``, the
    ConvNeXtV2-Tiny teacher (depths 3-3-9-3, dims 96-768) and the preset
    DeiT-Tiny student, uncalibrated (D_s = 192), 3 steps of B=128 at 224 px:
-   K3, K4, K5, K7 and K9 launch, every K7 launch on its workspace variant
+   K3, K4, K5, K7 and K9 launch, every K7 launch on its streaming variant
    ((512, 192, 768)), K1, K2, K8, K10 and K11 never, K6's count printed
    (``check_cross_counts``), finite losses; the same run with the
    ResNet-50 teacher (D_t = 2048, K7 at (512, 192, 2048));
@@ -109,14 +112,14 @@ the script exits non-zero without printing a result:
 
 Before them, ``ranking`` orders the kernels by launches x (ms - bound_ms)
 over the train runs' launches before their eval suites (the counts of
-earlier slices' runs, which had none), K7's workspace variant at
+earlier slices' runs, which had none), K7's streaming variant at
 (512, 192, 2048) on the ResNet-50 run's among them.
 
 The last three lines of standard output are the kernels' JSON (each
 kernel's launches from the train run that takes it, its eval suite
 included: K8 the jacobi run;
 K5, K10 and K11 the flash run, which takes K5 in every block; K7's
-workspace variant the cross-arch run; the rest the gram run; then K7's and
+streaming variant the cross-arch run; the rest the gram run; then K7's and
 K9's variants and K8's launches,
 ``kernels.PARTS``,
 each timed where it runs), the card's name and
@@ -162,9 +165,10 @@ BLOCK_KERNELS = ("K3a fused_block_attn_train fwd", "K3b fused_block_attn_train b
 FLASH_KERNELS = ("K10a flash_attention fwd", "K10b flash_attention bwd",
                  "K10c flash_attention importance", "K11a fused_mlp fwd",
                  "K11b fused_mlp bwd")
-# K7's workspace variant at the ResNet-50 path's (512, 192, 2048): a row of
+# K7's streaming variant at the ResNet-50 path's (512, 192, 2048): a row of
 # the ranking, not of the kernels line
-K7_RESNET = "K7 ns_polar_hybrid: workspace (resnet)"
+K7_RESNET = "K7 ns_polar_hybrid: stream (resnet)"
+K7_VARIANTS = ("onchip", "stream", "workspace")
 # the LayerNorms, which the flash path takes in every block
 LN_KERNELS = ("K5a fused_layernorm fwd", "K5b fused_layernorm bwd")
 # the tracer's own buffer activity, which the profiler lists as device time
@@ -470,23 +474,38 @@ def kernel_phase(torch, device):
     results["K7 ns_polar_hybrid"] = k7_check(torch, ns_polar, mats, "onchip")
     results["K7 ns_polar_hybrid: onchip"] = results["K7 ns_polar_hybrid"]
     # the workspace variant at (8, 384, 768), a DeiT-S student under a
-    # DeiT-B teacher, from the newer generator (no other check's inputs move)
+    # DeiT-B teacher, from the newer generator (no other check's inputs
+    # move): its row of the kernels line
     ws = k7_check(torch, ns_polar, polar_batch(torch, rn_new, 8, 384, 768),
                   "workspace")
+    results["K7 ns_polar_hybrid: workspace"] = ws
     print("kernel K7 ns_polar_hybrid: workspace at (8, 384, 768): "
           + " ".join(f"{k}={v}" for k, v in ws.items()))
-    # and at the cross-arch path's (P*B, D_s, D_t): (512, 192, 768) under the
-    # ConvNeXtV2-Tiny teacher (its row of the kernels line) and (512, 192,
-    # 2048) under ResNet-50
-    results["K7 ns_polar_hybrid: workspace"] = k7_check(
-        torch, ns_polar, polar_batch(torch, rn_new, nb, r, 768, reduced=True),
-        "workspace")
-    ws = k7_check(torch, ns_polar,
-                  polar_batch(torch, rn_new, nb, r, 2048, reduced=True),
-                  "workspace")
-    results[K7_RESNET] = ws
-    print(f"kernel K7 ns_polar_hybrid: workspace at ({nb}, {r}, 2048): "
-          + " ".join(f"{k}={v}" for k, v in ws.items()))
+    # the streaming variant at the cross-arch paths' (P*B, D_s, D_t): (512,
+    # 192, 768) under the ConvNeXtV2-Tiny teacher (its row of the kernels
+    # line) and (512, 192, 2048) under ResNet-50, each beside the workspace
+    # kernel it replaced there, held to ``k7_bounds`` and timed through
+    # that kernel's C entry
+    for name, d_t in (("K7 ns_polar_hybrid: stream", 768), (K7_RESNET, 2048)):
+        mats = polar_batch(torch, rn_new, nb, r, d_t, reduced=True)
+        rec = k7_check(torch, ns_polar, mats, "stream")
+        results[name] = rec
+        ws_bounds = k7_bounds(torch, ns_polar.ns_polar_workspace(mats),
+                              ns_polar.ns_polar_plain(mats))
+        check(ws_bounds["ok"], f"K7 workspace at ({nb}, {r}, {d_t}): {ws_bounds}")
+        ws_ms = time_ms(torch, lambda: ns_polar.ns_polar_workspace(mats))
+        print(f"kernel K7 ns_polar_hybrid: stream at ({nb}, {r}, {d_t}): "
+              + " ".join(f"{k}={v}" for k, v in rec.items())
+              + f" workspace_rel={ws_bounds['rel']} workspace_sv={ws_bounds['sv']}"
+              + f" workspace_ms={ws_ms} workspace_over_stream={ws_ms / rec['ms']}")
+    # and at its narrower row paddings, 64 (one warpgroup) and 128 (two),
+    # which a calibrated student under a wide teacher reaches
+    for rows, d_t in ((64, 2048), (128, 1024)):
+        rec = k7_check(torch, ns_polar,
+                       polar_batch(torch, rn_new, 8, rows, d_t, reduced=True),
+                       "stream")
+        print(f"kernel K7 ns_polar_hybrid: stream at (8, {rows}, {d_t}): "
+              + " ".join(f"{k}={v}" for k, v in rec.items()))
 
     # K8 on the principal-angle batch of the jacobi path at max_rank=96
     # (P*L = 48 Grams of 96 x 96) and 4 fresh batches, and without a cap
@@ -974,15 +993,14 @@ def k9_checks(torch, g, aug, geom_shift, views, draws, record) -> None:
 
 def check_parts(label, counts, parts, k7_variant: str = "onchip") -> None:
     """Every K7 launch of a train run took ``k7_variant`` (the on-chip one
-    at D_t = 384, the workspace one at the CNN teachers' 768 and 2048),
+    at D_t = 384, the streaming one at the CNN teachers' 768 and 2048),
     every K8 launch ran the rounds with A in shared memory (n = 96) and the
     vectors pass, and K9 launched once per step (3), each with the image in
     shared memory (224 px)."""
     k7, k8 = counts["K7 ns_polar_hybrid"], counts["K8 jacobi_eigh"]
     k9 = counts["K9 geom_shift3"]
-    other = "workspace" if k7_variant == "onchip" else "onchip"
-    check(parts[f"K7 ns_polar_hybrid: {k7_variant}"] == k7
-          and parts[f"K7 ns_polar_hybrid: {other}"] == 0,
+    check(all(parts[f"K7 ns_polar_hybrid: {v}"] == (k7 if v == k7_variant else 0)
+              for v in K7_VARIANTS),
           f"{label}: K7 launched {k7} times, variants {parts}")
     check(parts["K8 jacobi_eigh: rounds smem"] == k8
           and parts["K8 jacobi_eigh: vectors"] == k8
@@ -1076,7 +1094,8 @@ def k7_check(torch, ns_polar, mats, variant: str) -> dict:
     """K7 on ``mats`` against ``ns_polar_plain``: within 3e-2, within
     ``k7_bounds`` (each matrix's relative Frobenius error, and the
     singular values' excursion beyond the plain factor's), polar defect
-    |P P^T - I| <= 5e-2, and the launch took ``variant``. Two controls, the
+    |P P^T - I| <= 5e-2, the launch took ``variant`` and a second launch
+    gives the same bits. Two controls, the
     plain version one quintic step short and one cubic step short, must
     each fail ``k7_bounds``, so the check fails a kernel that drops a step.
     Returns its record; the bound counts 5 quintic steps (X X^T, G G, H X)
@@ -1088,6 +1107,8 @@ def k7_check(torch, ns_polar, mats, variant: str) -> dict:
     out = ns_polar.ns_polar_hybrid(mats)
     check(ns_polar.ns_polar_hybrid.variants[variant] == before[variant] + 1,
           f"K7 at ({r}, {c}) did not launch the {variant} variant")
+    check(torch.equal(out, ns_polar.ns_polar_hybrid(mats)),
+          f"K7 {tuple(mats.shape)}: two launches differ")
     ref = ns_polar.ns_polar_plain(mats)
     err = max_err(out, ref)
     check(err <= 3e-2, f"K7 {tuple(mats.shape)} err {err}")
@@ -1807,12 +1828,12 @@ def main(argv=None) -> int:
     phase("cross-arch train")
     cross, ccounts, cpre, _ = train_run(torch, device, kernels, root.name,
                                         "cross", [], base=CROSS_ARGS,
-                                        k7_variant="workspace")
+                                        k7_variant="stream")
     check_cross_counts("cross", cross, ccounts)
     check(cross.loss_cfg.teacher_dim == 768, "ConvNeXtV2-Tiny: D_t != 768")
     resnet, rcounts, rpre, _ = train_run(torch, device, kernels, root.name,
                                          "resnet", RESNET_ARGS, base=CROSS_ARGS,
-                                         k7_variant="workspace")
+                                         k7_variant="stream")
     check_cross_counts("resnet", resnet, rcounts)
     check(resnet.loss_cfg.teacher_dim == 2048, "ResNet-50: D_t != 2048")
 
@@ -1850,7 +1871,7 @@ def main(argv=None) -> int:
         before its eval suite."""
         return ((jcounts, jpre) if name.startswith("K8 jacobi_eigh")
                 else (fcounts, fpre) if name in FLASH_KERNELS + LN_KERNELS
-                else (ccounts, cpre) if name == "K7 ns_polar_hybrid: workspace"
+                else (ccounts, cpre) if name == "K7 ns_polar_hybrid: stream"
                 else (counts, pre))
 
     entries, ranking = [], []
@@ -1860,9 +1881,9 @@ def main(argv=None) -> int:
         entries.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": whole[name],
                         **results[name]})
-        if name in names or name.endswith(": workspace"):
+        if name in names or name.endswith((": stream", ": workspace")):
             ranking.append((name, train_only[name], results[name]))
-    ranking.append((K7_RESNET, rpre["K7 ns_polar_hybrid: workspace"],
+    ranking.append((K7_RESNET, rpre["K7 ns_polar_hybrid: stream"],
                     results[K7_RESNET]))
     ranked = sorted(((n * (r["ms"] - r["bound_ms"]), name, n)
                      for name, n, r in ranking), reverse=True)

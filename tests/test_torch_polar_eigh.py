@@ -8,12 +8,16 @@ rule ``chip_smoke.py`` holds K8 to.
   log, then the log applied to the identity) gives ``jacobi_eigh_plain``'s
   (w, V) bit for bit; ``chip_smoke.py`` holds the vectors pass alone to it.
 - K7's variant rule: the on-chip kernel where X and G fit a block's shared
-  memory, the workspace kernel beyond.
+  memory, the streaming kernel (G in shared memory, X streamed in chunks)
+  for the other rows up to 192, the workspace kernel beyond; the streaming
+  kernel's shared memory at each row padding.
 - ``ns_polar_plain`` against the Pallas kernel in interpret mode at the
   main path's width (192, 384), atol 3e-2 (bf16 intermediates rounded at
   the same points; the products' f32 sums run in another order), and
   within ``chip_smoke.k7_bounds``, the scaled bounds K7 is held to on the
-  card, which a plain version one Newton-Schulz step short fails.
+  card, which a plain version one Newton-Schulz step short fails; the
+  Pallas kernel within those bounds of the plain version at the on-chip
+  and the streaming variants' shapes.
 - The eigenvector rule (``chip_smoke.eigvec_rule``: the angle to the true
   eigenvector bounded by the residual over the distance to the other
   eigenvalues) holds for ``jacobi_eigh_plain`` against float64
@@ -125,11 +129,23 @@ def test_rounds_variant(n, variant):
 @pytest.mark.parametrize("r,c,variant", [
     (192, 384, "onchip"), (96, 384, "onchip"), (16, 128, "onchip"),
     (8, 128, "onchip"), (128, 512, "onchip"), (384, 768, "workspace"),
-    (192, 512, "workspace"), (256, 256, "workspace")])
+    (192, 512, "stream"), (256, 256, "workspace"), (192, 768, "stream"),
+    (192, 2048, "stream"), (192, 640, "stream"), (64, 2048, "stream"),
+    (128, 1024, "stream")])
 def test_ns_polar_variant(r, c, variant):
     """On chip where the rows pad to at most 192 (three warpgroups) and X
-    and G fit one block's shared memory; the workspace kernel beyond."""
+    and G fit one block's shared memory; else the streaming kernel where
+    the rows pad to at most 192; else the workspace kernel."""
     assert ns_polar.ns_polar_variant(r, c) == variant
+
+
+@pytest.mark.parametrize("rp,smem", [(64, 58432), (128, 132176),
+                                      (192, 222304)])
+def test_ns_polar_stream_smem(rp, smem):
+    """G (2 rp^2 B), six chunks of rp x 64 bf16, 1024 B of alignment slack,
+    six mbarriers and a float a warp, whatever c: 222,304 of a block's
+    232,448 bytes at 192 rows (G 73,728 B, the chunks 147,456 B)."""
+    assert ns_polar.stream_smem_bytes(rp) == smem <= 232448
 
 
 def test_ns_polar_onchip_smem_at_the_main_shape():
@@ -156,11 +172,12 @@ def test_k7_plain_matches_pallas_at_main_width():
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("nb,r,c,reduced", [
     (4, 192, 384, False), (4, 192, 768, True), (2, 192, 2048, True),
-    (2, 384, 768, False)])
+    (2, 384, 768, False), (2, 64, 2048, True), (2, 128, 1024, True)])
 def test_k7_bounds_admit_rounding_and_fail_a_step_short(nb, r, c, reduced):
     """``chip_smoke.k7_bounds`` at the shapes ``k7_check`` runs (rows 192
-    under D_t = 384 / 768 / 2048, and (384, 768)): the plain version with
-    f32 intermediates, which rounds nowhere the bf16 one does, passes
+    under D_t = 384 / 768 / 2048, (384, 768), and the streaming variant's
+    narrower row paddings at (64, 2048) and (128, 1024)): the plain version
+    with f32 intermediates, which rounds nowhere the bf16 one does, passes
     against the bf16 plain factor; the controls one quintic step short and
     one cubic step short fail."""
     g = torch.Generator().manual_seed(21)
@@ -177,14 +194,19 @@ def test_k7_bounds_admit_rounding_and_fail_a_step_short(nb, r, c, reduced):
 
 
 @pytest.mark.usefixtures("one_thread")
-def test_k7_bounds_hold_for_the_pallas_kernel():
+@pytest.mark.parametrize("nb,r,c", [(4, 192, 384), (2, 192, 768),
+                                    (1, 192, 2048)])
+def test_k7_bounds_hold_for_the_pallas_kernel(nb, r, c):
     """The JAX package's Pallas kernel (interpret mode), whose products sum
     in another order than the plain version's, within ``k7_bounds`` of it
-    at (4, 192, 384)."""
+    at the on-chip variant's (192, 384) and the streaming variant's (192,
+    768) and (192, 2048): the plain version is the streaming kernel's
+    yardstick on the card."""
     g = torch.Generator().manual_seed(22)
     mats = chip_smoke.polar_batch(
-        torch, lambda *shape: torch.randn(*shape, generator=g), 4, 192, 384)
-    out = jax_ns_polar_hybrid(jnp.asarray(mats.numpy()), tile_b=4,
+        torch, lambda *shape: torch.randn(*shape, generator=g), nb, r, c,
+        reduced=c > 384)
+    out = jax_ns_polar_hybrid(jnp.asarray(mats.numpy()), tile_b=nb,
                               interpret=True).astype(jnp.float32)
     bounds = chip_smoke.k7_bounds(torch, torch.from_numpy(np.asarray(out)),
                                   ns_polar.ns_polar_plain(mats))
