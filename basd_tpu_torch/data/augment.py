@@ -335,21 +335,41 @@ def taw_apply(x: torch.Tensor, op: int, mag: torch.Tensor) -> torch.Tensor:
 
 
 def trivial_augment_wide_stratified(imgs: torch.Tensor, perm: torch.Tensor,
-                                    mag_idx: torch.Tensor, sign: torch.Tensor):
+                                    mag_idx: torch.Tensor, sign: torch.Tensor,
+                                    rows: slice | None = None):
     """Stratified batched TrivialAugmentWide: ``perm`` assigns the images
     to 14 contiguous position blocks, one per op (static slices); magnitude
     bins and signs are drawn per position. Ops 1-5 run as one geometric
     slice (one K9 launch), as the reference does (``augment.py:533-539``).
-    uint8 in and out."""
-    b = imgs.shape[0]
+    uint8 in and out.
+
+    ``rows``: ``imgs`` holds only these rows of the batch that the draws
+    were made for (a data-parallel rank's shard). Each image gets the op
+    and magnitude of its position in the whole batch; the shard's images
+    are grouped by op in position order, so the shard's geometric images
+    are still one slice."""
+    b = perm.shape[0]
     if imgs.dtype != torch.uint8:
         imgs = _q(imgs)
+    dev = imgs.device
     inv = torch.argsort(perm)
-    x = imgs[perm]
+    pos_op = torch.as_tensor(position_ops(b), device=dev)
     bounds = op_bounds(b)
-    pos_op = torch.as_tensor(position_ops(b), device=imgs.device)
-    mags = torch.as_tensor(TAW_MAGS, device=imgs.device)[pos_op, mag_idx]
-    signed = torch.as_tensor(TAW_SIGNED, device=imgs.device)[pos_op] > 0
+    if rows is None:
+        order, unorder = perm, inv
+    else:
+        # the shard's images sorted by position; blocks cut where the
+        # whole batch's blocks are (one host read of the cut points)
+        pos = inv[rows]
+        order = torch.argsort(pos)
+        unorder = torch.argsort(order)
+        pos = pos[order]
+        pos_op, mag_idx, sign = pos_op[pos], mag_idx[pos], sign[pos]
+        bounds = torch.searchsorted(
+            pos, torch.as_tensor(bounds, device=dev)).tolist()
+    x = imgs[order]
+    mags = torch.as_tensor(TAW_MAGS, device=dev)[pos_op, mag_idx]
+    signed = torch.as_tensor(TAW_SIGNED, device=dev)[pos_op] > 0
     mag = mags * torch.where(signed & sign, -1.0, 1.0)
     geo = slice(bounds[1], bounds[6])
     parts = [x[:bounds[1]]]
@@ -358,7 +378,7 @@ def trivial_augment_wide_stratified(imgs: torch.Tensor, perm: torch.Tensor,
     parts += [taw_apply(x[bounds[o]:bounds[o + 1]], o,
                         mag[bounds[o]:bounds[o + 1]])
               for o in range(6, _NUM_OPS) if bounds[o + 1] > bounds[o]]
-    return torch.cat(parts, 0)[inv]
+    return torch.cat(parts, 0)[unorder]
 
 
 # -- views -----------------------------------------------------------------
@@ -378,26 +398,39 @@ def normalize(img01: torch.Tensor, mean, std) -> torch.Tensor:
 
 
 def make_train_views(draws: TrainViewDraws, images_u8: torch.Tensor,
-                     out_size: int, train_stats: tuple, teacher_stats: tuple):
-    """uint8 (B, R, R, 3) canvas -> (clean, augmented) f32 views."""
+                     out_size: int, train_stats: tuple, teacher_stats: tuple,
+                     rows: slice | None = None):
+    """uint8 (B, R, R, 3) canvas -> (clean, augmented) f32 views.
+    ``rows``: ``images_u8`` holds only these rows of the draws' batch."""
     clean = center_crop(images_u8, out_size).float() / 255.0
     clean = normalize(clean, *teacher_stats)
     _, h, w, _ = images_u8.shape
-    boxes = rrc_boxes(draws.u_area, draws.logr, draws.u_ij, h, w)
-    cropped = random_resized_crop(images_u8, boxes, draws.flip, out_size)
+    r = slice(None) if rows is None else rows
+    boxes = rrc_boxes(draws.u_area[r], draws.logr[r], draws.u_ij[r], h, w)
+    cropped = random_resized_crop(images_u8, boxes, draws.flip[r], out_size)
     augd = trivial_augment_wide_stratified(cropped, draws.perm, draws.mag_idx,
-                                           draws.sign)
+                                           draws.sign, rows)
     augd = normalize(augd.float() / 255.0, *train_stats)
     return clean, augd
 
 
+def _shard_roll(x: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """Roll by one within each of ``num_shards`` equal row blocks."""
+    if num_shards <= 1:
+        return torch.roll(x, 1, 0)
+    grouped = x.reshape((num_shards, x.shape[0] // num_shards) + x.shape[1:])
+    return torch.roll(grouped, 1, 1).reshape(x.shape)
+
+
 def mixup_cutmix(draws: MixDraws, images: torch.Tensor, labels: torch.Tensor,
-                 num_classes: int):
+                 num_classes: int, num_shards: int = 1):
     """RandomChoice([MixUp, CutMix]) with one lambda per batch; the partner
-    is the batch rolled by one. Returns (mixed images, soft targets)."""
+    is the batch rolled by one, within each of ``num_shards`` data-parallel
+    shards (``augment.py:845-868``: the reference's DDP mixes per process).
+    Returns (mixed images, soft targets)."""
     onehot = F.one_hot(labels.long(), num_classes).float()
-    rolled_img = torch.roll(images, 1, 0)
-    rolled_lab = torch.roll(onehot, 1, 0)
+    rolled_img = _shard_roll(images, num_shards)
+    rolled_lab = _shard_roll(onehot, num_shards)
     h, w = images.shape[1], images.shape[2]
     lam = draws.lam.float()
     lam_i = lam.to(images.dtype)

@@ -11,7 +11,9 @@ a ``.pth`` export (``basd_tpu_torch.models.export``). Pass the trained
 student's ``+model.arch_overrides.*`` when the trainer derived its arch
 (the ``student_arch_derived`` line, or the run's ``config.yaml``). Runs on
 one CUDA device by default and raises when none is present;
-``main(argv, device="cpu")`` runs on the CPU.
+``main(argv, device="cpu")`` runs on the CPU. Under ``torchrun`` the mesh is
+checked as ``train.py`` checks it (``tpu.mesh``) and rank 0 runs the suite;
+the other ranks return an empty dict.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from basd_tpu_torch.config import compose, register_resolvers, save_config
 from basd_tpu_torch.evaluation.metrics import run_eval_suite, save_metrics
 from basd_tpu_torch.models.export import build_student, load_student_weights
 from basd_tpu_torch.ops.linalg import set_full_f32_precision
+from basd_tpu_torch.parallel.mesh import init_data_parallel
 from basd_tpu_torch.train import _CONFIG_DIR, resolve_device
 
 
@@ -36,6 +39,16 @@ def main(argv: list[str] | None = None,
     set_full_f32_precision()
     config = compose(_CONFIG_DIR,
                      overrides=list(sys.argv[1:] if argv is None else argv))
+    dp = init_data_parallel(config.tpu.get("mesh"), device)
+    try:
+        results = _evaluate(config, device) if dp.is_main else {}
+        dp.barrier()
+        return results
+    finally:
+        dp.close()
+
+
+def _evaluate(config, device: torch.device) -> dict:
     np.random.seed(config.run.seed)
     torch.manual_seed(config.run.seed)
     if not config.checkpoint.path:

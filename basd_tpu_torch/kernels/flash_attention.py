@@ -15,7 +15,11 @@ columns ``[i*E, (i+1)*E)``, k at ``D + i*E``, v at ``2*D + i*E``):
 ``FlashAttention`` (K10a forward saving qkv, o and lse; K10b backward) and
 ``FlashAttentionImportance`` (K10c; its backward raises, as the JAX
 package's does) are the ``torch.autograd.Function`` s behind
-``flash_attention_qkv`` and ``flash_attention_qkv_with_importance``.
+``flash_attention_qkv`` and ``flash_attention_qkv_with_importance``. The
+forward reaches K10a through the operator ``basd_tpu_torch::flash_attention_fwd``
+(``torch.library``), so that selective checkpointing sees its call and can
+keep its outputs (``models.vit``, ``remat_policy='dots'``); a pybind or
+ctypes call is invisible to it.
 
 The CUDA kernels (``csrc/flash_attention.cu``) run for bf16 and f32 CUDA
 tensors and raise on any other CUDA dtype; the ``*_plain`` functions are
@@ -226,12 +230,19 @@ for _fn in (flash_attention_fwd, flash_attention_imp, flash_attention_bwd):
     _fn.tc_launches = _fn.simt_launches = 0
 
 
+@torch.library.custom_op("basd_tpu_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(qkv: torch.Tensor, num_heads: int,
+                           scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a dispatcher operator."""
+    return flash_attention_fwd(qkv, num_heads, scale)
+
+
 class FlashAttention(torch.autograd.Function):
     """K10a forward (saves qkv, o and lse), K10b backward."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
-        o, lse = flash_attention_fwd(qkv, num_heads, scale)
+        o, lse = flash_attention_fwd_op(qkv, num_heads, scale)
         ctx.save_for_backward(qkv, o, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o

@@ -21,6 +21,7 @@ from basd_tpu_torch.ops.procrustes import (
     geometric_relational_loss,
     geometric_relational_loss_ident,
 )
+from basd_tpu_torch.parallel.mesh import DataParallel
 
 
 def extraction_layers(student_depth: int, num_points: int) -> list[int]:
@@ -65,7 +66,8 @@ def init_basd_loss(generator: torch.Generator, cfg: BASDLossConfig):
 
 
 def basd_loss(params, buffers, student_logits, targets, student_intermediates,
-              teacher_tokens, teacher_importance, cfg: BASDLossConfig):
+              teacher_tokens, teacher_importance, cfg: BASDLossConfig,
+              dp: DataParallel | None = None):
     """Full BASD objective.
 
     Args:
@@ -74,23 +76,27 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
         teacher_tokens: (L, B, N_t, D_t) or ``PackedTokens``.
         teacher_importance: (L, B, N_t) reduced attention importance.
         targets: (B,) int labels or (B, C) soft (mixed) targets.
+        dp: the data-parallel group whose shard B is: the loss is then
+            the global batch's, the same on every rank (``parallel.mesh``).
 
     Returns ``(loss, aux)``.
     """
-    ce = cross_entropy(student_logits, targets, cfg.label_smoothing)
+    dp = dp or DataParallel()
+    ce = dp.mean(cross_entropy(student_logits, targets, cfg.label_smoothing))
     # the packed collection rides the hot path only under the fused Gram
     # selector (the predicate select_and_mix gates on) AND the identity-form
     # relational loss, which zero-weights the mixed CLS row; otherwise it
     # is densified first (reference combined.py:110-123)
     if isinstance(teacher_tokens, PackedTokens) and not (
-            packed_gram_eligible(teacher_tokens, cfg.selector_config)
+            packed_gram_eligible(teacher_tokens, cfg.selector_config,
+                                 dp.world)
             and cfg.relational_impl == "ident"):
         teacher_tokens = teacher_tokens.to_dense()
     packed = isinstance(teacher_tokens, PackedTokens)
 
     mixed_tokens, mixed_importance, sel_aux = select_and_mix(
         params, buffers, student_intermediates, teacher_tokens,
-        teacher_importance, cfg.selector_config,
+        teacher_importance, cfg.selector_config, dp,
     )
 
     if packed:
@@ -123,7 +129,7 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
 
     if cfg.backend in ("gram", "jacobi") and cfg.relational_impl == "ident":
         geo_per_point = geometric_relational_loss_ident(
-            s_pan, t_pan, w_pan, nuclear_backend=cfg.backend
+            s_pan, t_pan, w_pan, nuclear_backend=cfg.backend, dp=dp
         ).mean(-1)
     else:
         # the reference-shaped composition, one extraction point at a time
@@ -132,6 +138,7 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
             geometric_relational_loss(s, t, w, nuclear_backend=cfg.backend)
             for s, t, w in zip(s_pan, t_pan, w_pan)
         ])
+    geo_per_point = dp.mean(geo_per_point)
     geo = geo_per_point.mean()
     vals = torch.stack([ce, geo])
     loss = uwso_combine(vals)

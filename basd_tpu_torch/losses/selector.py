@@ -37,6 +37,7 @@ from basd_tpu_torch.ops.linalg import (
     safe_eigh,
 )
 from basd_tpu_torch.ops.mp_rank import marchenko_pastur_rank
+from basd_tpu_torch.parallel.mesh import DataParallel
 
 
 @dataclass(frozen=True)
@@ -73,52 +74,59 @@ def _sandwich(proj, g):
     return torch.matmul(torch.matmul(proj, g), proj.t())
 
 
-def _centered_gram(toks: torch.Tensor, proj: torch.Tensor, m: int):
+def _centered_gram(toks: torch.Tensor, proj: torch.Tensor, m: int,
+                   dp: DataParallel):
     """(K, D_s, D_s) centred Gram of the projected tokens of a (K, B, N, D)
     stack, and the (K, D_s) projected channel means, via the shift identity
-    with a stop-gradient channel mean (both terms at the centred scale)."""
-    mu_tok = toks.float().mean(dim=(1, 2))  # (K, D)
+    with a stop-gradient channel mean (both terms at the centred scale).
+    ``m`` counts the global batch's rows; the channel mean and the Gram are
+    summed over ``dp``'s shards."""
+    mu_tok = dp.mean(toks.float().mean(dim=(1, 2)))  # (K, D)
     shift = mu_tok.detach()
     shifted = (toks - shift[:, None, None, :]).to(toks.dtype)
     flat = shifted.reshape(shifted.shape[0], -1, shifted.shape[-1]).float()
-    gram = torch.matmul(flat.transpose(-1, -2), flat)
+    gram = dp.sum(torch.matmul(flat.transpose(-1, -2), flat))
     mu_p = mu_tok @ proj.t()
     d = mu_p - shift @ proj.t()
     return _sandwich(proj, gram) - m * d[:, :, None] * d[:, None, :], mu_p
 
 
-def _centered_gram_flat(flat: torch.Tensor, cls, proj: torch.Tensor, m: int):
+def _centered_gram_flat(flat: torch.Tensor, cls, proj: torch.Tensor, m: int,
+                        dp: DataParallel):
     """``_centered_gram`` over the PATCH rows of a (K, B*N, D) packed
     collection, CLS rows excluded exactly via the (K, B, D) CLS slab:
-    sum_patch t t^T = sum_all t t^T - sum_cls t t^T. ``m`` is the patch row
-    count. No-grad (the teacher side)."""
+    sum_patch t t^T = sum_all t t^T - sum_cls t t^T. ``m`` is the global
+    batch's patch row count. No-grad (the teacher side)."""
     s_all = flat.float().sum(1)
     if cls is not None:
         s_all = s_all - cls.float().sum(1)
-    mu_tok = s_all / m
+    mu_tok = dp.sum(s_all) / m
     shift = mu_tok.detach()
     shifted = (flat - shift[:, None, :]).to(flat.dtype).float()
     g = torch.matmul(shifted.transpose(-1, -2), shifted)
     if cls is not None:
         sc = (cls - shift[:, None, :]).to(flat.dtype).float()
         g = g - torch.matmul(sc.transpose(-1, -2), sc)
+    g = dp.sum(g)
     mu_p = mu_tok @ proj.t()
     d = mu_p - shift @ proj.t()
     return _sandwich(proj, g) - m * d[:, :, None] * d[:, None, :], mu_p
 
 
-def packed_gram_eligible(tokens, cfg: SelectorConfig) -> bool:
+def packed_gram_eligible(tokens, cfg: SelectorConfig, world: int = 1) -> bool:
     """THE predicate for the packed fast path (shared with
-    ``losses.combined``): packed tokens, gram/jacobi backend, M >= D_s."""
+    ``losses.combined``): packed tokens, gram/jacobi backend, M >= D_s,
+    M over the global batch of ``world`` equal shards."""
     return (
         isinstance(tokens, PackedTokens)
         and cfg.backend in ("gram", "jacobi")
-        and tokens.batch * tokens.num_patch_tokens >= cfg.student_dim
+        and tokens.batch * world * tokens.num_patch_tokens >= cfg.student_dim
     )
 
 
 def select_and_mix(params, buffers, student_tokens, teacher_tokens,
-                   teacher_importance, cfg: SelectorConfig):
+                   teacher_importance, cfg: SelectorConfig,
+                   dp: DataParallel | None = None):
     """Mix all teacher layers into one soft target per extraction point.
 
     Args:
@@ -129,15 +137,18 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
 
     Returns ``(mixed_tokens (P, B, N_t, D_t) — for packed input N_t
     includes the mixed CLS row at n=0 —, mixed_importance (P, B, N_patch),
-    aux)``.
+    aux)``. With ``dp``, B is this rank's shard of the global batch: the
+    subspaces, ranks and weights are the global batch's, the same on every
+    rank, and the mixed tokens and importance this rank's rows.
     """
+    dp = dp or DataParallel()
     proj_s, proj_t = buffers["proj_s"], buffers["proj_t"]
     d_s = cfg.student_dim
-    packed = packed_gram_eligible(teacher_tokens, cfg)
+    packed = packed_gram_eligible(teacher_tokens, cfg, dp.world)
     if isinstance(teacher_tokens, PackedTokens) and not packed:
         teacher_tokens = teacher_tokens.to_dense()
     if packed:
-        m_t = teacher_tokens.batch * teacher_tokens.num_patch_tokens
+        m_t = dp.world * teacher_tokens.batch * teacher_tokens.num_patch_tokens
         L = teacher_tokens.num_layers
         t_flat_all = teacher_tokens.flat.detach()
         t_cls = teacher_tokens.cls.detach() if teacher_tokens.has_cls else None
@@ -145,7 +156,7 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
     else:
         t_tokens = teacher_tokens.detach()
         L = t_tokens.shape[0]
-        m_t = t_tokens.shape[1] * t_tokens.shape[2]
+        m_t = dp.world * t_tokens.shape[1] * t_tokens.shape[2]
         tok_dtype = t_tokens.dtype
     P = student_tokens.shape[0]
     t_imp = teacher_importance.detach()
@@ -159,11 +170,12 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
         # backend (reference selector.py:333-338); 'jacobi' takes K8 only
         # for the principal-angle batch below.
         if packed:
-            gram_tc, mu_t = _centered_gram_flat(t_flat_all, t_cls, proj_t, m_t)
+            gram_tc, mu_t = _centered_gram_flat(t_flat_all, t_cls, proj_t,
+                                                m_t, dp)
         else:
-            gram_tc, mu_t = _centered_gram(t_tokens, proj_t, m_t)
-        m_s = student_tokens.shape[1] * student_tokens.shape[2]
-        gram_sc, _ = _centered_gram(student_tokens, proj_s, m_s)
+            gram_tc, mu_t = _centered_gram(t_tokens, proj_t, m_t, dp)
+        m_s = dp.world * student_tokens.shape[1] * student_tokens.shape[2]
+        gram_sc, _ = _centered_gram(student_tokens, proj_s, m_s, dp)
 
         stacked = torch.cat([gram_tc.detach(), gram_sc], dim=0)
         w_all, v_all = safe_eigh(stacked, "xla")  # ascending
@@ -182,11 +194,13 @@ def select_and_mix(params, buffers, student_tokens, teacher_tokens,
         basis_s = v_all[L:].flip(-1)[:, :, :r_cap]
     else:
         # parity path ('svd', or tiny M < D_s): materialise the projected
-        # panels, as the reference does (layer_selector.py:51-56)
-        z_t = torch.matmul(t_tokens.reshape(L, -1, t_tokens.shape[-1]).float(),
+        # panels, as the reference does (layer_selector.py:51-56), of the
+        # global batch (the shards' rows gathered in rank order)
+        t_all = dp.gather(t_tokens, 1)
+        s_all = dp.gather(student_tokens, 1)
+        z_t = torch.matmul(t_all.reshape(L, -1, t_all.shape[-1]).float(),
                            proj_t.t())
-        z_s = torch.matmul(student_tokens.reshape(P, -1,
-                                                  student_tokens.shape[-1]).float(),
+        z_s = torch.matmul(s_all.reshape(P, -1, s_all.shape[-1]).float(),
                            proj_s.t())
         rank_impl = "jacobi" if cfg.backend == "jacobi" else "xla"
         ref_ranks = torch.clamp(marchenko_pastur_rank(z_t, impl=rank_impl),

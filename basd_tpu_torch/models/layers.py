@@ -42,6 +42,8 @@ wrapper takes its plain version.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -59,6 +61,29 @@ from basd_tpu_torch.kernels.flash_attention import (
 )
 from basd_tpu_torch.kernels.fused_mlp import fused_mlp
 from basd_tpu_torch.kernels.layernorm import fused_layernorm
+
+
+_UNKEPT = threading.local()
+
+
+@contextlib.contextmanager
+def unkept_products():
+    """Products made inside are not kept by ``remat_policy='dots'``
+    (``vit.dots_policy``) but recomputed: those inside a kernel, whose
+    products are its own, as a Pallas call's are to the JAX package's
+    policy, and the MLP's fc2, whose output only an add reads (a LayerScale
+    after it would, which no student has), so the JAX package's partial
+    evaluation drops it."""
+    before = getattr(_UNKEPT, "on", False)
+    _UNKEPT.on = True
+    try:
+        yield
+    finally:
+        _UNKEPT.on = before
+
+
+def products_unkept() -> bool:
+    return getattr(_UNKEPT, "on", False)
 
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, keep: float):
@@ -155,10 +180,14 @@ class Mlp(nn.Module):
             impl = ("fused" if x.is_cuda and dt == torch.bfloat16
                     and x.dim() == 3 else "dense")
         if impl == "fused":
-            return fused_mlp(x.to(dt), self.fc1.weight.to(dt), self.fc1.bias,
-                             self.fc2.weight.to(dt), self.fc2.bias)
+            with unkept_products():
+                return fused_mlp(x.to(dt), self.fc1.weight.to(dt),
+                                 self.fc1.bias, self.fc2.weight.to(dt),
+                                 self.fc2.bias)
         approx = "tanh" if dt == torch.bfloat16 else "none"
-        return self.fc2(F.gelu(self.fc1(x), approximate=approx))
+        h = F.gelu(self.fc1(x), approximate=approx)
+        with unkept_products():
+            return self.fc2(h)
 
 
 class Attention(nn.Module):
@@ -277,6 +306,11 @@ class Block(nn.Module):
             impl = "auto"
         return impl
 
+    def kernel_halves(self, x, drop) -> bool:
+        """Whether both halves take the training kernels (K3 and K4)."""
+        return (self._attn_path(x, drop) == "fused_block_train"
+                and self._mlp_path(x) == "fused_ln")
+
     def _mlp_path(self, x) -> str:
         """'fused_ln' (K2 / K4) or the module chain (``block_mlp_path``)."""
         return block_mlp_path(self.mlp_impl, x.is_cuda, self.compute_dtype,
@@ -321,8 +355,9 @@ class Block(nn.Module):
                 x, imp_full = fused_block_attn(x.contiguous(), *args)
                 importance = imp_full[:, 1:]  # strip the CLS key
             else:
-                x = fused_block_attn_train(
-                    x, self._mask(drop, 0, x.shape[0], x.device), *args)
+                with unkept_products():
+                    x = fused_block_attn_train(
+                        x, self._mask(drop, 0, x.shape[0], x.device), *args)
         else:
             # the module chain: an explicit 'module' means no kernel in the
             # attention or the MLP (the LayerNorms keep theirs); 'auto' is
@@ -350,7 +385,8 @@ class Block(nn.Module):
                 x = fused_ln_mlp_collect(x.contiguous(), *args, buf, idx,
                                          self.norm_eps)
             else:
-                x = fused_ln_mlp(x, *args, self.norm_eps)
+                with unkept_products():
+                    x = fused_ln_mlp(x, *args, self.norm_eps)
         else:
             y = self.mlp(self.norm2(x),
                          {"module": "dense"}.get(mlp_path, mlp_path))

@@ -3,10 +3,21 @@
 
 A Python loop over the blocks replaces ``nn.scan``; ``torch.utils.checkpoint``
 replaces ``jax.checkpoint`` for ``remat`` (the reference's
-``set_grad_checkpointing(True)``), so a remat'd block's kernels run twice
-per training step, as under the JAX package's ``nn.remat``; ``remat_policy``
-None or ``'full'`` is that whole-block recompute, ``'dots'`` (save the
-matmul and flash-attention outputs) is not ported and raises. With
+``set_grad_checkpointing(True)``). ``remat_policy`` None or ``'full'``
+recomputes the whole block, so a remat'd block's kernels run twice per
+training step, as under the JAX package's ``nn.remat``. ``'dots'``
+(``vit.py:126-136``: ``dots_saveable`` plus the attention output
+``attn_out``) is selective checkpointing with ``dots_policy``: the outputs
+of the block's products (``mm``, ``addmm``, ``bmm``) and of K10a's forward
+(the ``basd_tpu_torch::flash_attention_fwd`` operator: o and its
+logsumexp) are kept, everything else is recomputed. Per block that keeps,
+besides the block input: on the flash path (K10 / K11) the qkv and proj
+products, o and lse, recomputing the LayerNorms and K11, so K10a runs once
+per forward where ``full`` runs it twice (the JAX package keeps o but not
+lse and re-runs its flash forward for lse); on the einsum / dense chain the
+qkv, scores, P.V, proj and fc1 products; on the fused path (K3 / K4),
+whose kernels' products are their own (``layers.unkept_products``), nothing
+more: there ``dots`` is ``full`` (``remat_block``). With
 ``collect``, the frozen teacher writes each layer's output into one flat
 (L*B*N, D) stack, which the caller may preallocate and reuse across steps
 (``collection_init``), and returns it as ``PackedTokens``.
@@ -22,10 +33,49 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from basd_tpu_torch.models.layers import Block, LayerNorm, Linear, PatchEmbed
+from basd_tpu_torch.kernels import flash_attention  # noqa: F401 (its operator)
+from basd_tpu_torch.models.layers import (
+    Block,
+    LayerNorm,
+    Linear,
+    PatchEmbed,
+    products_unkept,
+)
 from basd_tpu_torch.models.tokens import PackedTokens
+
+_aten = torch.ops.aten
+# the operators whose outputs ``remat_policy='dots'`` keeps
+DOTS_KEPT = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             torch.ops.basd_tpu_torch.flash_attention_fwd.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of the products and of K10a's forward, except those
+    made under ``layers.unkept_products``; recompute everything else."""
+    if op in DOTS_KEPT and not products_unkept():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def remat_block(blk: Block, x: torch.Tensor, drop, policy: Optional[str]):
+    """One block under ``torch.utils.checkpoint`` with ``policy`` (None /
+    'full': recompute all; 'dots': ``dots_policy``). A block whose halves
+    are both kernels (K3, K4) has no product to keep, so 'dots' takes
+    'full' there, without the policy's dispatch modes."""
+    if policy == "dots" and not blk.kernel_halves(x, drop):
+        return checkpoint(blk, x, drop, use_reentrant=False,
+                          context_fn=_dots_contexts)
+    return checkpoint(blk, x, drop, use_reentrant=False)
 
 
 @dataclass(frozen=True)
@@ -78,15 +128,11 @@ class VisionTransformer(nn.Module):
                  attention_impl: str = "auto", mlp_impl: str = "auto",
                  remat_policy: Optional[str] = None):
         super().__init__()
-        if remat and remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' (keep the matmul and flash-attention "
-                "outputs through selective checkpointing) is not ported: "
-                "ROADMAP.md, section 1, 'remat_policy=dots'")
-        if remat and remat_policy not in (None, "full"):
+        if remat and remat_policy not in (None, "full", "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.cfg = cfg
         self.remat = remat
+        self.remat_policy = remat_policy
         # forward-only collection (the frozen teacher); a remat'd model
         # collects per-layer outputs instead (vit.py:137)
         self.collect = collect and not remat
@@ -154,7 +200,7 @@ class VisionTransformer(nn.Module):
             if stochastic:
                 drop = (float(np.float32(1.0) - rates[i]), drop_masks[i])
             if self.remat and torch.is_grad_enabled():
-                x, imp = checkpoint(blk, x, drop, use_reentrant=False)
+                x, imp = remat_block(blk, x, drop, self.remat_policy)
             else:
                 x, imp = blk(x, drop, buf=stack, idx=i)
             importance.append(imp)

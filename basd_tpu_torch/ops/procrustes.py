@@ -18,13 +18,26 @@ import torch
 
 from basd_tpu_torch.ops import linalg
 from basd_tpu_torch.ops.interp import linear_interp1d
+from basd_tpu_torch.parallel.mesh import DataParallel
 
 
-def _slice_mean_shift(teacher_tokens: torch.Tensor) -> torch.Tensor:
-    """Constant channel shift (batch-slice + token mean), no gradient."""
-    b_slice = min(teacher_tokens.shape[-3], 64)
-    return teacher_tokens[..., :b_slice, :, :].detach().float().mean(
+def _slice_mean_shift(teacher_tokens: torch.Tensor,
+                      dp: DataParallel | None = None) -> torch.Tensor:
+    """Constant channel shift (batch-slice + token mean), no gradient: the
+    mean over the first 64 images of the (global) batch. With ``dp``,
+    ``teacher_tokens`` holds this rank's equal shard; each rank adds its
+    part of those images, weighted by its share of them."""
+    dp = dp or DataParallel()
+    b = teacher_tokens.shape[-3]
+    rows = dp.rows(b * dp.world)
+    b_slice = min(b * dp.world, 64)
+    k = max(0, min(rows.stop, b_slice) - rows.start)
+    if k == 0:
+        return dp.sum(torch.zeros_like(teacher_tokens[..., :1, :1, :],
+                                       dtype=torch.float32))
+    part = teacher_tokens[..., :k, :, :].detach().float().mean(
         dim=(-3, -2), keepdim=True)
+    return dp.sum(part * (k / b_slice))
 
 
 class _IdentCore(torch.autograd.Function):
@@ -33,14 +46,13 @@ class _IdentCore(torch.autograd.Function):
     w (..., N) normalised f32 weights. Output (...,)."""
 
     @staticmethod
-    def forward(ctx, s_in, t_in, w):
+    def forward(ctx, s_in, t_in, w, c):
         s = s_in.float()
         mu_s = torch.einsum("...n,...nd->...d", w, s)
         s_c = s - mu_s[..., None, :]
         sw2 = w[..., None] * s_c
         tr_s = (sw2 * s_c).sum(dim=(-1, -2))
 
-        c = _slice_mean_shift(t_in)
         t_c = t_in.float() - c
         rowsq = (t_c * t_c).sum(-1)
         mu_tc = torch.einsum("...n,...nd->...d", w, t_c)
@@ -75,7 +87,7 @@ class _IdentCore(torch.autograd.Function):
             + (t_c * (t_c - 2.0 * mu_tc[..., None, :])).sum(-1)
             + 2.0 * (mu_s * pmu).sum(-1)[..., None]
         )
-        return ds.to(s_in.dtype), dt.to(t_in.dtype), dw.to(w.dtype)
+        return ds.to(s_in.dtype), dt.to(t_in.dtype), dw.to(w.dtype), None
 
 
 def _nuclear(cross: torch.Tensor, nuclear_backend: str) -> torch.Tensor:
@@ -122,19 +134,23 @@ def geometric_relational_loss(student_tokens, teacher_tokens, importance, *,
 
 def geometric_relational_loss_ident(student_tokens, teacher_tokens,
                                     importance, *,
-                                    nuclear_backend: str = "gram"):
+                                    nuclear_backend: str = "gram",
+                                    dp: DataParallel | None = None):
     """Identity-form Procrustes loss, batched over leading dims.
 
     Args:
-        student_tokens: (..., N, D_s).
-        teacher_tokens: (..., N, D_t), token count already aligned.
-        importance: (..., N_w) unnormalised weights, resampled to N.
+        student_tokens: (..., B, N, D_s).
+        teacher_tokens: (..., B, N, D_t), token count already aligned.
+        importance: (..., B, N_w) unnormalised weights, resampled to N.
+        dp: the data-parallel group whose shard B is (the teacher's
+            constant shift is the global batch's).
 
-    Returns the (...,)-shaped per-batch loss.
+    Returns the (..., B)-shaped per-sample loss.
     """
     w = _normalised_weights(importance, student_tokens.shape[-2])
+    shift = _slice_mean_shift(teacher_tokens, dp)
     if nuclear_backend not in ("svd", "eigh"):
-        return _IdentCore.apply(student_tokens, teacher_tokens, w)
+        return _IdentCore.apply(student_tokens, teacher_tokens, w, shift)
 
     # 'svd' / 'eigh': the same identities by plain autograd; the teacher
     # side shifted by the stop-gradient slice mean (cross and tr_t are
@@ -144,7 +160,7 @@ def geometric_relational_loss_ident(student_tokens, teacher_tokens,
     s_c = s - mu_s[..., None, :]
     sw2 = w[..., None] * s_c
     tr_s = (sw2 * s_c).sum(dim=(-1, -2))
-    t_c = teacher_tokens.float() - _slice_mean_shift(teacher_tokens)
+    t_c = teacher_tokens.float() - shift
     rowsq = (t_c * t_c).sum(-1)
     mu_tc = torch.einsum("...n,...nd->...d", w, t_c)
     tr_t = (w * rowsq).sum(-1) - (mu_tc * mu_tc).sum(-1)

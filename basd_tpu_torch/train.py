@@ -16,13 +16,26 @@ run's ``config.yaml``. ``tpu.teacher_attention_impl``,
 blocks' kernel dispatch, as in the JAX package (``auto``: the fused
 kernels on CUDA; ``flash`` / ``fused``: the module chain with the K10
 attention and the K11 MLP; ``module``: the plain chain);
-``tpu.remat_policy`` the student's recompute (null or ``full``). Runs on
-one CUDA device by default and raises when none is present;
+``tpu.remat_policy`` the student's recompute (null / ``full``, or ``dots``:
+keep the products and the flash attention's output, recompute the rest).
+Runs on one CUDA device by default and raises when none is present;
 ``main(argv, device="cpu")`` runs on the CPU.
+
+Data parallelism (``parallel.mesh``, ``tpu.mesh.data``): one process per
+GPU under ``torchrun``, each on ``cuda:LOCAL_RANK`` over NCCL::
+
+    torchrun --nproc_per_node=4 -m basd_tpu_torch.train \
+        experiment=smoke_synthetic tpu.mesh.data=4
+
+``data.batch_size`` is the global batch and must be a multiple of the
+world size. A caller that initialised a default process group itself
+(e.g. gloo over CPU processes) trains over it. Rank 0 writes the logs,
+checkpoints, ``config.yaml`` and ``metrics.json`` and runs the eval suite.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 
@@ -42,18 +55,27 @@ from basd_tpu_torch.models import (
     probe,
 )
 from basd_tpu_torch.ops.linalg import set_full_f32_precision
+from basd_tpu_torch.parallel.mesh import DataParallel, init_data_parallel
 from basd_tpu_torch.training.trainer import Trainer
 
 _CONFIG_DIR = Path(__file__).parent.parent / "configs"
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
+    """``device``, with a bare ``cuda`` taken as this process's card
+    (``cuda:LOCAL_RANK`` under ``torchrun``) and made current; raises
+    for CUDA without a card."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port trains on a GPU (pass device='cpu' "
             "explicitly to run on the CPU)"
         )
+    if device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(device)
     return device
 
 
@@ -64,6 +86,40 @@ def main(argv: list[str] | None = None,
     set_full_f32_precision()
     overrides = list(sys.argv[1:] if argv is None else argv)
     config = compose(_CONFIG_DIR, overrides=overrides)
+    dp = init_data_parallel(config.tpu.get("mesh"), device)
+    try:
+        return _train(config, device, dp)
+    finally:
+        dp.close()
+
+
+def _train(config, device: torch.device, dp: DataParallel) -> Trainer:
+    output_dir = Path(config.run.output_dir) / config.run.name
+    trainer = build_trainer(config, device, dp)
+    if dp.is_main:
+        save_config(config, output_dir / "config.yaml")
+    start_epoch = 0
+    if config.checkpoint.resume_from:
+        start_epoch = trainer.load_checkpoint(config.checkpoint.resume_from)
+    trainer.train(source_from_config(config), start_epoch=start_epoch)
+
+    if dp.is_main:
+        results = run_eval_suite(
+            trainer.eval_student(), config,
+            config_path=str(output_dir / "config.yaml"),
+            efficiency_batches=int(config.get("eval", {}).get(
+                "efficiency_batches", 200)),
+        )
+        save_metrics(results, output_dir)
+    dp.barrier()
+    return trainer
+
+
+def build_trainer(config, device: torch.device,
+                  dp: DataParallel | None = None) -> Trainer:
+    """The composed run's teacher, calibrated student and ``Trainer`` on
+    ``device`` (this rank's, with ``dp``), seeded from ``run.seed``."""
+    dp = dp or DataParallel()
     np.random.seed(config.run.seed)
     torch.manual_seed(config.run.seed)
 
@@ -71,8 +127,11 @@ def main(argv: list[str] | None = None,
     output_dir.mkdir(parents=True, exist_ok=True)
     img_size = config.model.vit.img_size
     compute_dtype = torch.bfloat16
-    print(f"device={device} "
-          f"name={torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    log = print if dp.is_main else (lambda *a, **k: None)
+    log(f"device={device} "
+        f"name={torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    log(f"data_parallel world={dp.world} "
+        f"backend={torch.distributed.get_backend() if dp.group else None}")
 
     teacher_arch = config.basd.get("teacher_arch")
     teacher = load_teacher(
@@ -91,7 +150,7 @@ def main(argv: list[str] | None = None,
     # (reference src/train.py:88-114)
     arch_overrides = None
     if teacher.info["feature_format"] == "token":
-        arch_overrides = calibrate(config, teacher, device, compute_dtype)
+        arch_overrides = calibrate(config, teacher, device, compute_dtype, dp)
         config.model.arch_overrides = dict(arch_overrides)
 
     student = create_model(
@@ -106,7 +165,7 @@ def main(argv: list[str] | None = None,
     )
     init_model(student, config.run.seed, fan_in_init=True)
     s_info = probe(student)
-    print(
+    log(
         f"student_probed embed_dim={s_info['embed_dim']} "
         f"depth={s_info['depth']} num_tokens={s_info['num_tokens']} "
         f"heads_per_layer={s_info['heads_per_layer']} "
@@ -114,31 +173,20 @@ def main(argv: list[str] | None = None,
         f"attn_subpath={s_info['attn_subpath']}"
     )
 
-    trainer = Trainer(
+    return Trainer(
         config, student_bundle=student, teacher_bundle=teacher,
         device=device, dataset_stats=stats_from_config(config),
-        teacher_stats=(teacher.mean, teacher.std),
+        teacher_stats=(teacher.mean, teacher.std), dp=dp,
     )
-    save_config(config, output_dir / "config.yaml")
-    start_epoch = 0
-    if config.checkpoint.resume_from:
-        start_epoch = trainer.load_checkpoint(config.checkpoint.resume_from)
-    trainer.train(source_from_config(config), start_epoch=start_epoch)
-
-    results = run_eval_suite(
-        trainer.eval_student(), config,
-        config_path=str(output_dir / "config.yaml"),
-        efficiency_batches=int(config.get("eval", {}).get(
-            "efficiency_batches", 200)),
-    )
-    save_metrics(results, output_dir)
-    return trainer
 
 
 def calibrate(config, teacher, device: torch.device,
-              compute_dtype: torch.dtype) -> dict:
+              compute_dtype: torch.dtype,
+              dp: DataParallel | None = None) -> dict:
     """The student's arch from the MP rank of the teacher's last-layer
-    tokens over ~10 D_t tokens of eval-view train images."""
+    tokens over ~10 D_t tokens of eval-view train images. Every rank
+    calibrates on the same images; rank 0's rank is taken by all."""
+    dp = dp or DataParallel()
     img_size = config.model.vit.img_size
     source = source_from_config(config)
     tokens_per_image = (img_size // config.model.vit.patch_size) ** 2
@@ -152,14 +200,17 @@ def calibrate(config, teacher, device: torch.device,
     )
     intrinsic_dim = estimate_intrinsic_dim(teacher,
                                            calib_images.to(compute_dtype))
+    intrinsic_dim = int(dp.broadcast_(
+        torch.tensor([intrinsic_dim], device=device)).item())
     arch_overrides = derive_student_arch(teacher.info, intrinsic_dim)
-    print(
-        f"student_arch_derived intrinsic_dim={intrinsic_dim} "
-        f"embed_dim={arch_overrides['embed_dim']} "
-        f"depth={arch_overrides['depth']} "
-        f"num_heads={arch_overrides['num_heads']} "
-        f"mlp_ratio={arch_overrides['mlp_ratio']:.1f}"
-    )
+    if dp.is_main:
+        print(
+            f"student_arch_derived intrinsic_dim={intrinsic_dim} "
+            f"embed_dim={arch_overrides['embed_dim']} "
+            f"depth={arch_overrides['depth']} "
+            f"num_heads={arch_overrides['num_heads']} "
+            f"mlp_ratio={arch_overrides['mlp_ratio']:.1f}"
+        )
     return arch_overrides
 
 

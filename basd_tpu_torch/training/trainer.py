@@ -1,5 +1,5 @@
-"""BASD trainer on one device (counterpart of
-``basd_tpu/training/trainer.py``).
+"""BASD trainer on one device, or on each rank of a data-parallel group
+(counterpart of ``basd_tpu/training/trainer.py``).
 
 One distillation step:
 
@@ -18,6 +18,16 @@ packages the same inputs). The student module's parameters hold the
 gradient point ``y`` during a step; the optimizer state holds x, z, v.
 Epoch metrics accumulate on the device and cross to the host once per
 epoch. Train accuracy uses the un-mixed labels.
+
+Data parallelism (``parallel.mesh``): each rank trains on its rows of
+every global batch; its generator, seeded as every other rank's, draws
+for the whole global batch and it keeps its rows (view draws, crop boxes,
+MixUp, DropPath masks), so the generators stay equal and a checkpoint
+resumes every rank. The teacher and the student run on the local rows;
+the loss is the global batch's (``basd_loss(..., dp)``); the gradients are
+all-reduced as one flat buffer in the dict's fixed key order. The epoch's
+sums and the eval metrics are all-reduced once each. Rank 0 writes the
+logs and the checkpoints; every rank reads a checkpoint.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from basd_tpu_torch.evaluation import metrics as metrics_mod
 from basd_tpu_torch.losses import BASDLossConfig, basd_loss, init_basd_loss
 from basd_tpu_torch.models.registry import ModelBundle, teacher_extract
 from basd_tpu_torch.models.vit import drop_path_rates
+from basd_tpu_torch.parallel.mesh import DataParallel, shard_batch
 from basd_tpu_torch.training import schedulefree as sf
 from basd_tpu_torch.utils import checkpoint as ckpt
 from basd_tpu_torch.utils.logging import MetricsLogger
@@ -61,9 +72,14 @@ class StepViews:
 class Trainer:
     def __init__(self, config, *, student_bundle: ModelBundle,
                  teacher_bundle: ModelBundle, device: torch.device,
-                 dataset_stats: tuple, teacher_stats: tuple):
+                 dataset_stats: tuple, teacher_stats: tuple,
+                 dp: Optional[DataParallel] = None):
         self.config = config
         self.device = torch.device(device)
+        self.dp = dp or DataParallel()
+        # the MixUp roll's shards of the global batch: one per rank (a
+        # one-process trainer may set more, to compute an N-rank step)
+        self.num_shards = self.dp.world
         self.student = student_bundle
         self.teacher = teacher_bundle
         self.student.module.to(self.device).train()
@@ -98,17 +114,30 @@ class Trainer:
             weight_decay=config.training.weight_decay,
         )
         self.opt_state = sf.init(trainable)
+        self._broadcast_state()
 
         self.best_val_acc = 0.0
         self.metrics_history: dict[str, list] = defaultdict(list)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config.run.seed))
         out_dir = Path(config.run.output_dir) / config.run.name
-        self._mlog = MetricsLogger(out_dir / "metrics.jsonl")
+        self._mlog = (MetricsLogger(out_dir / "metrics.jsonl")
+                      if self.dp.is_main else None)
         self.source = None  # the data source of the last ``train`` call
         # the teacher's (L*B*N, D) collect buffer: allocated once per batch
         # size, every slab overwritten by each step's teacher forward
         self._collect_buf: Optional[torch.Tensor] = None
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's optimizer state, selector buffers and teacher weights
+        on every rank (each rank builds them from the same seed already)."""
+        st = self.opt_state
+        for tensors in (st.x, st.z, st.v, self.sel_buffers):
+            for k in tensors:
+                self.dp.broadcast_(tensors[k])
+        with torch.no_grad():
+            for t in self.teacher.module.state_dict().values():
+                self.dp.broadcast_(t)
 
     # ------------------------------------------------------------ the step
 
@@ -128,15 +157,18 @@ class Trainer:
 
     def make_views(self, images_u8: torch.Tensor,
                    labels: torch.Tensor) -> StepViews:
-        b = images_u8.shape[0]
+        """Views of this rank's rows: the draws are the global batch's."""
+        world = self.dp.world
+        b = images_u8.shape[0] * world
+        rows = self.dp.rows(b) if world > 1 else None
         g = self.generator
         clean, augmented = aug.make_train_views(
             aug.draw_train_views(g, b, self.device), images_u8, self.img_size,
-            self.dataset_stats, self.teacher_stats,
+            self.dataset_stats, self.teacher_stats, rows,
         )
         mixed, targets = aug.mixup_cutmix(
             aug.draw_mixup(g, self.img_size, self.device), augmented, labels,
-            self.num_classes,
+            self.num_classes, num_shards=self.num_shards // world,
         )
         cfg = self.student.cfg
         drop_masks = None
@@ -145,6 +177,8 @@ class Trainer:
                                     device=self.device)
             u = torch.rand((cfg.depth, 2, b), generator=g, device=self.device)
             drop_masks = u < keeps[:, None, None]
+            if rows is not None:
+                drop_masks = drop_masks[:, :, rows]
         return StepViews(clean, mixed, targets, drop_masks)
 
     def teacher_forward(self, clean: torch.Tensor):
@@ -168,14 +202,31 @@ class Trainer:
         s_int = torch.stack([out["tokens"][i] for i in self.token_layers])
         loss, aux = basd_loss(
             {"log_temperatures": temps}, self.sel_buffers, out["logits"],
-            views.targets, s_int, t_tokens, t_imp, self.loss_cfg,
+            views.targets, s_int, t_tokens, t_imp, self.loss_cfg, self.dp,
         )
         wrt = list(params.values()) + [temps]
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         names = [_STUDENT + k for k in params] + [_TEMPS]
         grads = {k: (torch.zeros_like(p) if g is None else g)
                  for k, p, g in zip(names, wrt, grads)}
-        return loss.detach(), aux, out["logits"].detach(), grads, y
+        return (loss.detach(), aux, out["logits"].detach(),
+                self._reduce_grads(grads), y)
+
+    def _reduce_grads(self, grads: dict) -> dict:
+        """The global batch's gradient on every rank. Each rank
+        differentiated the same global loss, whose all-reduces send back
+        the sum of the ranks' cotangents, so each rank's gradient counts
+        the loss N times: sum them and divide by N (``parallel.mesh``)."""
+        dp = self.dp
+        if dp.group is None:
+            return grads
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        dp.all_reduce_(flat).div_(dp.world)
+        out, i = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        return out
 
     def step_on_views(self, views: StepViews, labels: torch.Tensor) -> dict:
         """Teacher -> student -> loss -> grads -> schedule-free update."""
@@ -214,15 +265,19 @@ class Trainer:
 
     def device_batches(self, source, split: str, *, seed: int, shuffle: bool,
                        drop_last: bool, limit: Optional[int] = None):
-        """Yield ``(uint8 canvas, labels)`` of ``split`` on the device: the
-        source's batches at the eval-crop canvas size, prefetched on a host
-        thread, at most ``limit`` of them."""
+        """Yield ``(uint8 canvas, labels)`` of ``split`` on the device: this
+        rank's rows (``shard_batch``; a train batch must split evenly, an
+        eval batch is padded with rows labelled -1) of the source's batches
+        at the eval-crop canvas size, prefetched on a host thread, at most
+        ``limit`` of them."""
         cfg = self.config
         r = round(self.img_size / cfg.data.eval_crop_ratio)
         batches = source.load_batches(split, cfg.data.batch_size, r,
                                       shuffle=shuffle, seed=seed,
                                       drop_last=drop_last)
         for batch in itertools.islice(prefetch(batches), limit):
+            if self.dp.group is not None:
+                batch = shard_batch(self.dp, batch, allow_pad=not drop_last)
             yield self.to_device(batch)
 
     def train_epoch(self, source, epoch: int) -> dict[str, float]:
@@ -242,10 +297,14 @@ class Trainer:
             host = {"loss_sum": 0.0, "correct": 0, "count": 0,
                     "rank_cap_hits": 0}
         else:
+            # the ranks' sums; rank_cap_hits is the global batch's already
+            for k in ("loss_sum", "correct", "count"):
+                self.dp.all_reduce_(acc[k])
             host = {k: v.item() for k, v in acc.items()}
         losses = torch.stack(step_losses).tolist() if step_losses else []
         for i, v in enumerate(losses):
-            self._mlog.log("step", epoch=epoch + 1, step=i, loss=v)
+            if self._mlog is not None:
+                self._mlog.log("step", epoch=epoch + 1, step=i, loss=v)
         cap_hits = int(host["rank_cap_hits"])
         if cap_hits:
             msg = (
@@ -255,7 +314,8 @@ class Trainer:
                 f"basd.max_rank or set it to null for exact reference "
                 f"semantics)"
             )
-            print(msg, file=sys.stderr)
+            if self.dp.is_main:
+                print(msg, file=sys.stderr)
             if cfg.basd.get("error_on_rank_cap", False):
                 raise RuntimeError(msg)
         total = max(int(host["count"]), 1)
@@ -291,6 +351,8 @@ class Trainer:
                 source, split, seed=0, shuffle=False, drop_last=False,
                 limit=cfg.data.get("limit_eval_batches")):
             acc = metrics_mod.accumulate(acc, step(images, labels))
+        for v in (acc or {}).values():
+            self.dp.all_reduce_(v)
         return metrics_mod.finalize(acc)
 
     def train(self, source, start_epoch: int = 0) -> dict[str, list]:
@@ -303,24 +365,28 @@ class Trainer:
             val_metrics = self.evaluate(source)
             dt = time.perf_counter() - t0
             losses = " ".join(f"{v:.6f}" for v in train_metrics["step_losses"])
-            print(
-                f"epoch {epoch + 1}/{num_epochs} "
-                f"train_loss={train_metrics['train_loss']:.6f} "
-                f"train_acc={train_metrics['train_acc']:.4f} "
-                f"val_acc={val_metrics['val_acc']:.4f} "
-                f"epoch_time={dt:.1f}s step_losses=[{losses}]"
-            )
+            if self.dp.is_main:
+                print(
+                    f"epoch {epoch + 1}/{num_epochs} "
+                    f"train_loss={train_metrics['train_loss']:.6f} "
+                    f"train_acc={train_metrics['train_acc']:.4f} "
+                    f"val_acc={val_metrics['val_acc']:.4f} "
+                    f"epoch_time={dt:.1f}s step_losses=[{losses}]"
+                )
             for k, v in {**train_metrics, **val_metrics}.items():
                 self.metrics_history[k].append(v)
-            self._mlog.log("epoch", epoch=epoch + 1, epoch_time_s=round(dt, 2),
-                           **train_metrics, **val_metrics)
+            if self._mlog is not None:
+                self._mlog.log("epoch", epoch=epoch + 1,
+                               epoch_time_s=round(dt, 2), **train_metrics,
+                               **val_metrics)
             if val_metrics["val_acc"] > self.best_val_acc:
                 self.best_val_acc = val_metrics["val_acc"]
                 self.save_checkpoint("best_model", epoch)
                 self.save_weights("best_model_weights", epoch)
             self.save_checkpoint("latest", epoch)
         self.save_weights("final_model_weights", num_epochs - 1)
-        print(f"training complete best_val_acc={self.best_val_acc:.4f}")
+        if self.dp.is_main:
+            print(f"training complete best_val_acc={self.best_val_acc:.4f}")
         return dict(self.metrics_history)
 
     # -------------------------------------------------------- checkpoints
@@ -330,6 +396,9 @@ class Trainer:
         return Path(cfg.run.output_dir) / cfg.run.name / "checkpoints"
 
     def save_checkpoint(self, name: str, epoch: int) -> None:
+        """Rank 0 writes; the state is the same on every rank."""
+        if not self.dp.is_main:
+            return
         st = self.opt_state
         state = {
             "x": st.x, "z": st.z, "v": st.v,
@@ -345,6 +414,8 @@ class Trainer:
         })
 
     def save_weights(self, name: str, epoch: int) -> None:
+        if not self.dp.is_main:
+            return
         params = {k[len(_STUDENT):]: v
                   for k, v in sf.eval_params(self.opt_state).items()
                   if k.startswith(_STUDENT)}

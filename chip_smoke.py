@@ -94,6 +94,23 @@ the script exits non-zero without printing a result:
    its final weights (``basd_tpu_torch.models.export``) and their reload
    by ``basd_tpu_torch.eval``, which must reproduce the run's top-1, top-5
    and CE (``eval_export_pass``);
+3f. data-parallel train (``basd_tpu_torch/parallel/mesh.py``): the jacobi
+   run again through ``train.main`` with an NCCL process group of one
+   rank, whose 3 step losses and x, z, v must equal the jacobi run's bit
+   for bit (``dp_world1_check``); two spawned ranks on the one card over
+   gloo, 64 rows each of the global 128, 2 steps, against one process
+   with ``num_shards=2`` on the same batches under
+   ``tests/test_train_e2e.py``'s contract at bf16 (``dp_compare``: the
+   replicated values equal on both ranks, step 1's count and MP ranks
+   equal, CE within ``DP_CE_RTOL``, geo within rtol 3e-3, parameters
+   within rtol 0.2 / atol 1e-2), the kernels built before the spawn; NCCL
+   across two cards the same way, or a line saying it was not run;
+3g. remat dots: the flash and gram trainers, 3 steps on the same batches
+   under ``tpu.remat_policy`` full and dots from the same state
+   (``remat_policy_runs``): gradients bit-equal, the student's K10a once
+   a block a step under dots (twice under full) on the flash path, the
+   same launches on the gram path; the student stage's CUDA-event time
+   and peak device memory of both;
 4. check and timing: the kernel teachers' forwards (K1/K2, K10c/K2)
    against the plain chain (on the CPU), the bf16 CNN teachers against f32
    copies on the card (``cnn_teacher_check``), and the kernel students (K3/K4,
@@ -1753,6 +1770,298 @@ def eval_export_pass(torch, trainer, device, root: str) -> None:
           f"{trained['primary']}")
 
 
+# -- data parallelism and remat_policy='dots' ------------------------------
+
+# the data-parallel checks: the jacobi path, 2 steps of the global B=128
+DP_ARGS = TRAIN_ARGS + JACOBI_ARGS
+DP_STEPS = 2
+DP_SEED = 23
+# CE of the 2-rank step against the one-process 2-shard step: one bf16
+# rounding (2^-8) of the loss's scale; the views, teacher and student are
+# row-wise, so only the CE's f32 mean is summed in another order
+DP_CE_RTOL = 2.0 ** -8
+DP_JOIN_S = 600.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def snapshot(torch, trainer) -> dict:
+    """Copies of the trainer's schedule-free x, z and v."""
+    st = trainer.opt_state
+    return {f: {k: v.clone() for k, v in getattr(st, f).items()}
+            for f in ("x", "z", "v")}
+
+
+def dp_world1_check(torch, device, kernels, root: str, ref_state: dict,
+                    ref_losses: list) -> None:
+    """The jacobi run again through ``train.main`` with an NCCL process
+    group of one rank initialised first, so every collective of the
+    data-parallel code runs (an all-reduce over one rank is a copy): its
+    step losses and its x, z and v after the 3 steps must equal the
+    one-process run's bit for bit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        trainer, _, _, epoch = train_run(torch, device, kernels, root, "dp1",
+                                         JACOBI_ARGS + ["tpu.mesh.data=1"])
+        check(trainer.dp.group is not None and trainer.dp.world == 1,
+              "the world-1 run did not take the process group")
+    finally:
+        dist.destroy_process_group()
+    state = snapshot(torch, trainer)
+    differ = [f"{f}.{k}" for f in state for k in state[f]
+              if not torch.equal(state[f][k], ref_state[f][k])]
+    print(f"dp nccl world 1: step losses {epoch['step_losses']} vs "
+          f"{ref_losses}; state entries not bit-equal: {len(differ)}")
+    check(epoch["step_losses"] == ref_losses,
+          f"world-1 losses {epoch['step_losses']} != {ref_losses}")
+    check(not differ, f"world-1 state differs from the one-process run: "
+          f"{differ[:5]}")
+
+
+def dp_steps(torch, args: list, world: int, num_shards: int, device,
+             out_dir: str, dp=None) -> dict:
+    """``train.build_trainer`` on the run ``args`` give (the jacobi path,
+    B=128 global) and ``DP_STEPS`` train steps on this rank's rows of the
+    source's batches: per-step metrics, host-clock step times, the eval
+    point x, launches."""
+    from basd_tpu_torch import kernels, train
+    from basd_tpu_torch.config import compose, register_resolvers
+    from basd_tpu_torch.data.sources import source_from_config
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    register_resolvers()
+    config = compose(train._CONFIG_DIR, overrides=args + [
+        f"tpu.mesh.data={world}", f"run.output_dir={out_dir}"])
+    trainer = train.build_trainer(config, device, dp)
+    trainer.num_shards = num_shards
+    kernels.reset_launch_counts()
+    mets, step_ms = [], []
+    for images, labels in trainer.device_batches(
+            source_from_config(config), "train", seed=DP_SEED, shuffle=True,
+            drop_last=True, limit=DP_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        m = trainer.step(images, labels)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        mets.append({k: v.detach().double().cpu() for k, v in m.items()})
+    return {"mets": mets, "step_ms": step_ms, "rows": images.shape[0],
+            "params": {k: v.double().cpu()
+                       for k, v in trainer.opt_state.x.items()},
+            "counts": kernels.launch_counts()}
+
+
+def dp_rank_main(rank: int, world: int, backend: str, store: str,
+                 out_dir: str, device: str, args: list) -> None:
+    """One spawned rank of a data-parallel group: ``dp_steps`` on
+    ``device``; writes ``rank<r>.pt``."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from basd_tpu_torch.ops.linalg import set_full_f32_precision
+    from basd_tpu_torch.parallel.mesh import init_data_parallel
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    set_full_f32_precision()
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        dp = init_data_parallel({"data": world, "model": 1}, device)
+        out = dp_steps(torch, args, world, world, device,
+                       str(Path(out_dir) / f"r{rank}"), dp)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, world: int, backend: str, out_dir: str,
+                devices: list, args: list) -> list:
+    """``world`` spawned ranks of ``dp_rank_main``, rank r on
+    ``devices[r]``; each is killed if it outlives ``DP_JOIN_S``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    store = Path(out_dir) / "store"
+    procs = [ctx.Process(target=dp_rank_main,
+                         args=(r, world, backend, str(store), out_dir,
+                               devices[r], args)) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 0.0))
+    hung = [proc for proc in procs if proc.is_alive()]
+    for proc in hung:
+        proc.kill()
+        proc.join()
+    check(not hung, f"{len(hung)} {backend} rank(s) hung past {DP_JOIN_S} s")
+    check([proc.exitcode for proc in procs] == [0] * world,
+          f"{backend} ranks exited {[proc.exitcode for proc in procs]}")
+    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def dp_compare(torch, label: str, ranks: list, ref: dict) -> None:
+    """The ranks against the one-process run with the same MixUp shards,
+    under ``tests/test_train_e2e.py:290-332``'s contract at bf16: the
+    replicated values (CE, geo, ranks, mixing weights, x) equal on every
+    rank; step 1's count and MP ranks equal, its CE within ``DP_CE_RTOL``,
+    its geo within rtol 3e-3; every parameter within rtol 0.2 / atol 1e-2."""
+    first = ranks[0]
+    for other in ranks[1:]:
+        for m0, m1 in zip(first["mets"], other["mets"]):
+            for k in ("ce", "geo", "ranks", "mix_weights"):
+                check(torch.equal(m0[k], m1[k]), f"{label}: {k} differs "
+                      f"between ranks")
+        for k in first["params"]:
+            check(torch.equal(first["params"][k], other["params"][k]),
+                  f"{label}: parameter {k} differs between ranks")
+    m, r = first["mets"][0], ref["mets"][0]
+    count = sum(int(rk["mets"][0]["count"]) for rk in ranks)
+    correct = sum(int(rk["mets"][0]["correct"]) for rk in ranks)
+    ce_rel = abs(float(m["ce"]) - float(r["ce"])) / abs(float(r["ce"]))
+    geo_rel = abs(float(m["geo"]) - float(r["geo"])) / abs(float(r["geo"]))
+    worst = max(
+        ((first["params"][k] - v).abs() / (1e-2 + 0.2 * v.abs())).max().item()
+        for k, v in ref["params"].items())
+    print(f"{label} vs one process with {len(ranks)} shards: step-1 count "
+          f"{count}/{int(r['count'])} correct {correct}/{int(r['correct'])} "
+          f"ranks {m['ranks'].tolist()} / {r['ranks'].tolist()} ce rel err "
+          f"{ce_rel} geo rel err {geo_rel} step losses "
+          f"{[float(x['loss_sum'] / x['count']) for x in first['mets']]} / "
+          f"{[float(x['loss_sum'] / x['count']) for x in ref['mets']]} worst "
+          f"parameter error / (1e-2 + 0.2 |x|) {worst}")
+    check(count == int(r["count"]), f"{label}: step-1 count {count}")
+    check(torch.equal(m["ranks"], r["ranks"]), f"{label}: step-1 MP ranks")
+    check(ce_rel <= DP_CE_RTOL, f"{label}: step-1 CE rel err {ce_rel}")
+    check(geo_rel <= 3e-3, f"{label}: step-1 geo rel err {geo_rel}")
+    check(worst <= 1.0, f"{label}: parameters off by {worst} of the bound")
+    for i, rk in enumerate(ranks):
+        print(f"{label} rank {i}: {rk['rows']} rows a step, step_ms "
+              f"{rk['step_ms']}")
+    print(f"{label} one process: {ref['rows']} rows a step, step_ms "
+          f"{ref['step_ms']}")
+
+
+def dp_phase(torch, device, root: str) -> None:
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), 64 rows each of the global 128, against one process with
+    ``num_shards=2``; then NCCL across two cards where the machine has
+    them, against the same process."""
+    ref = dp_steps(torch, DP_ARGS, 1, 2, device, str(Path(root) / "dp_ref"))
+    one = (f"cuda:{device.index or 0}" if device.type == "cuda"
+           else str(device))
+    gloo = spawn_ranks(torch, 2, "gloo", str(Path(root) / "dp_gloo"),
+                       [one] * 2, DP_ARGS)
+    for rk in gloo:
+        check(rk["rows"] == ref["rows"] // 2, f"gloo rank rows {rk['rows']}")
+        if device.type == "cuda":  # the ranks ran the jacobi path's kernels
+            check(rk["counts"]["K8 jacobi_eigh"] == DP_STEPS
+                  and rk["counts"]["K3b fused_block_attn_train bwd"] > 0,
+                  f"gloo rank launches {rk['counts']}")
+    dp_compare(torch, "dp gloo 2 ranks on one card", gloo, ref)
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        nccl = spawn_ranks(torch, 2, "nccl", str(Path(root) / "dp_nccl"),
+                           ["cuda:0", "cuda:1"], DP_ARGS)
+        dp_compare(torch, "dp nccl 2 cards", nccl, ref)
+    else:
+        print(f"dp nccl two-card check: not run "
+              f"({torch.cuda.device_count()} CUDA device)")
+
+
+def remat_policy_runs(torch, kernels, trainer, label: str,
+                      steps: int = 3) -> dict:
+    """``steps`` train steps of ``trainer`` on the same batches under
+    ``remat_policy`` full and then dots, each from the same state: every
+    step's gradients, launches, the student stage's CUDA-event time and
+    its peak device memory above what was allocated before it. The state,
+    generator and policy are put back afterwards."""
+    import copy
+
+    from basd_tpu_torch.training import schedulefree as sf
+
+    module = trainer.student.module
+    before = (module.remat_policy, copy.deepcopy(trainer.opt_state),
+              trainer.generator.get_state())
+    data = train_batches(trainer, steps, seed=17)
+    runs = {}
+    for policy in ("full", "dots"):
+        module.remat_policy = policy
+        trainer.opt_state = copy.deepcopy(before[1])
+        trainer.generator.set_state(before[2])
+        run = {"grads": [], "counts": [], "ms": [], "peak_gib": []}
+        for images, labels in data:
+            with torch.no_grad():
+                views = trainer.make_views(images, labels)
+            t_tokens, t_imp = trainer.teacher_forward(views.clean)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, _, _, grads, y = trainer.loss_and_grads(views, t_tokens, t_imp)
+            ev[1].record()
+            torch.cuda.synchronize()
+            run["counts"].append(kernels.launch_counts())
+            run["ms"].append(ev[0].elapsed_time(ev[1]))
+            run["peak_gib"].append(
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+            run["grads"].append({k: g.clone() for k, g in grads.items()})
+            sf.update(trainer.opt_state, grads, trainer.sf_cfg, y=y)
+        runs[policy] = run
+        print(f"remat {label} {policy}: student stage ms {run['ms']} peak "
+              f"GiB above the step's inputs {run['peak_gib']}")
+    module.remat_policy, trainer.opt_state = before[0], before[1]
+    trainer.generator.set_state(before[2])
+    full, dots = runs["full"], runs["dots"]
+    for i, (gf, gd) in enumerate(zip(full["grads"], dots["grads"])):
+        differ = [k for k in gf if not torch.equal(gf[k], gd[k])]
+        check(not differ, f"remat {label} step {i}: dots gradients differ "
+              f"from full's in {differ[:5]}")
+    nonzero = [{k: v for k, v in run["counts"][0].items() if v}
+               for run in (full, dots)]
+    print(f"remat {label}: dots gradients equal full's bit for bit over "
+          f"{steps} steps; launches a step full {nonzero[0]} dots "
+          f"{nonzero[1]}")
+    return runs
+
+
+def remat_phase(torch, kernels, gram, flash) -> None:
+    """``tpu.remat_policy=dots`` against ``full`` on the flash path (the
+    student's K10a drops from twice to once a block a step, K10b, K11a and
+    K11b unchanged) and on the fused main path (the same launches)."""
+    depth = len(flash.student.module.blocks)
+    runs = remat_policy_runs(torch, kernels, flash, "flash")
+    for f, d in zip(runs["full"]["counts"], runs["dots"]["counts"]):
+        check(f["K10a flash_attention fwd"] == 2 * depth
+              and d["K10a flash_attention fwd"] == depth,
+              f"flash K10a a step: full {f['K10a flash_attention fwd']}, "
+              f"dots {d['K10a flash_attention fwd']}")
+        for name in ("K10b flash_attention bwd", "K11a fused_mlp fwd",
+                     "K11b fused_mlp bwd"):
+            check(f[name] == d[name], f"flash {name}: {f[name]} vs {d[name]}")
+    runs = remat_policy_runs(torch, kernels, gram, "gram")
+    for f, d in zip(runs["full"]["counts"], runs["dots"]["counts"]):
+        check(f == d, f"gram: dots launches {d} differ from full's {f}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1812,6 +2121,7 @@ def main(argv=None) -> int:
     phase("jacobi train")
     jacobi, jcounts, jpre, epoch = train_run(torch, device, kernels,
                                              root.name, "jacobi", JACOBI_ARGS)
+    jacobi_state = snapshot(torch, jacobi)
     check(jcounts["K8 jacobi_eigh"] == 3,
           f"K8 must launch once per train step, got {jcounts['K8 jacobi_eigh']}")
     images, labels = train_batches(jacobi, 1, seed=5)[0]
@@ -1839,6 +2149,15 @@ def main(argv=None) -> int:
 
     phase("eval and export")
     eval_export_pass(torch, cross, device, root.name)
+
+    phase("data-parallel train")
+    dp_world1_check(torch, device, kernels, root.name, jacobi_state,
+                    epoch["step_losses"])
+    del jacobi_state  # would count in the later phases' peak memory
+    dp_phase(torch, device, root.name)
+
+    phase("remat dots")
+    remat_phase(torch, kernels, gram, flash)
 
     phase("check and timing")
     teacher_check(torch, gram, device, "K1/K2")

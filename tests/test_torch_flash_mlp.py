@@ -340,11 +340,12 @@ def test_state_dict_from_jax_loads_flash_fused_params_unchanged():
 
 
 @pytest.mark.parametrize("policy,error", [(None, None), ("full", None),
-                                          ("dots", NotImplementedError),
+                                          ("dots", None),
                                           ("selective", ValueError)])
 def test_remat_policy(policy, error):
     """``tpu.remat_policy``: null and ``full`` recompute whole blocks,
-    ``dots`` is not ported, anything else is unknown (``vit.py:127-135``)."""
+    ``dots`` keeps the products (``tests/test_torch_remat.py``), anything
+    else is unknown (``vit.py:127-135``)."""
     from basd_tpu_torch.models.registry import create_model
 
     kw = dict(img_size=32, arch_overrides=dict(embed_dim=32, depth=1,
