@@ -12,7 +12,8 @@
 // slab's type (the normalisation deferred past P.V), and either
 // lse = m + log l per query row (LSE: K3a, K10a) or the CLS query's row
 // p[0, :] / (l H) per head (K1, K10c; head_sum_kernel adds the heads in
-// order, so no atomics).
+// order, so no atomics; a tensor-parallel rank's K1 divides by the
+// block's head count, not by its own).
 //
 // What bounds it on the H100: 4 B N^2 D operations against the slab read
 // once and o written once. At the student's slab (B=128, N=197, D=192)
@@ -78,7 +79,7 @@ template <bool LSE, typename T>
 __global__ void attention_simt_kernel(const T* __restrict__ qkv,
                                       T* __restrict__ out,
                                       float* __restrict__ stat, int N, int D,
-                                      int H, float scale) {
+                                      int H, int HT, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = D / H;
   const int ldk = e + 2;  // odd word stride at bf16: conflict-free key rows
@@ -132,7 +133,7 @@ __global__ void attention_simt_kernel(const T* __restrict__ qkv,
     if constexpr (LSE) {
       if (lane == 0) stat[((size_t)b * H + h) * N + qi] = m + logf(l);
     } else if (qi == 0) {
-      const float den = l * (float)H;
+      const float den = l * (float)HT;
       for (int j = lane; j < N; j += 32)
         stat[((size_t)b * H + h) * N + j] = p_row[j] / den;
     }
@@ -265,7 +266,7 @@ template <bool LSE, int E>
 __global__ void __launch_bounds__(TC_THREADS)
     attention_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                         float* __restrict__ stat, int N, int D, int H,
-                        float scale) {
+                        int HT, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LDS = E + 8;    // an odd number of 16-byte chunks per row
   constexpr int KT = E / 16;    // k16 steps over the head width
@@ -419,7 +420,7 @@ __global__ void __launch_bounds__(TC_THREADS)
       if (r1 < N) stat[(size_t)bh * N + r1] = m1 + logf(l1);
     }
   } else if (cls_row) {  // this thread's own CLS entries, now over l H
-    const float den = l0 * (float)H;
+    const float den = l0 * (float)HT;
     for (int key = 2 * t; key < N; key += 8) {
       imp_row[key] = imp_row[key] / den;
       if (key + 1 < N) imp_row[key + 1] = imp_row[key + 1] / den;
@@ -447,7 +448,7 @@ __host__ __device__ inline bool attention_tc_ok(int e) {
 
 template <bool LSE, int E>
 static int launch_attention_tc(const bf16* qkv, bf16* out, float* stat, int B,
-                               int N, int D, int H, float scale,
+                               int N, int D, int H, int HT, float scale,
                                cudaStream_t st) {
   const int npad = (N + 15) & ~15;
   const size_t smem = (size_t)2 * npad * (E + 8) * sizeof(bf16);
@@ -456,15 +457,15 @@ static int launch_attention_tc(const bf16* qkv, bf16* out, float* stat, int B,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TC_ROWS - 1) / TC_ROWS, B * H);
-  attention_tc_kernel<LSE, E><<<grid, TC_THREADS, smem, st>>>(qkv, out, stat,
-                                                              N, D, H, scale);
+  attention_tc_kernel<LSE, E><<<grid, TC_THREADS, smem, st>>>(
+      qkv, out, stat, N, D, H, HT, scale);
   BASD_CHECK_LAUNCH();
   return 0;
 }
 
 template <bool LSE, typename T>
 static int launch_attention_simt(const T* qkv, T* out, float* stat, int B,
-                                 int N, int D, int H, float scale,
+                                 int N, int D, int H, int HT, float scale,
                                  cudaStream_t st) {
   const int threads = 256;
   const int e = D / H;
@@ -475,8 +476,8 @@ static int launch_attention_simt(const T* qkv, T* out, float* stat, int B,
       attention_simt_kernel<LSE, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_simt_kernel<LSE, T><<<B * H, threads, smem, st>>>(qkv, out, stat,
-                                                              N, D, H, scale);
+  attention_simt_kernel<LSE, T><<<B * H, threads, smem, st>>>(
+      qkv, out, stat, N, D, H, HT, scale);
   BASD_CHECK_LAUNCH();
   return 0;
 }
@@ -486,13 +487,13 @@ static int launch_attention_simt(const T* qkv, T* out, float* stat, int B,
 template <bool LSE, int E = 16>
 static int launch_attention_tc_e(int e, const bf16* qkv, bf16* out,
                                  float* stat, int B, int N, int D, int H,
-                                 float scale, cudaStream_t st) {
+                                 int HT, float scale, cudaStream_t st) {
   if constexpr (E <= 128) {
     if (e == E)
-      return launch_attention_tc<LSE, E>(qkv, out, stat, B, N, D, H, scale,
-                                         st);
+      return launch_attention_tc<LSE, E>(qkv, out, stat, B, N, D, H, HT,
+                                         scale, st);
     return launch_attention_tc_e<LSE, E + 16>(e, qkv, out, stat, B, N, D, H,
-                                              scale, st);
+                                              HT, scale, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -501,21 +502,26 @@ static int launch_attention_tc_e(int e, const bf16* qkv, bf16* out,
 // The attention of the (B, N, 3D) slab into out (B, N, D) and stat
 // (B, H, N): the tensor-core kernel for a bf16 slab whose head width it
 // takes (its rows must start 16-byte aligned), the CUDA-core kernel
-// otherwise. Decided here, before any launch.
+// otherwise. Decided here, before any launch. D is the slab's H heads of
+// E = D / H each: a tensor-parallel rank passes its own heads (H) and
+// their width (H E), and the block's head count HT, the divisor of the CLS
+// row (0: H, the whole block).
 template <bool LSE, typename T>
 static int launch_attention_heads(const T* qkv, T* out, float* stat, int B,
                                   int N, int D, int H, float scale,
-                                  cudaStream_t st) {
+                                  cudaStream_t st, int HT = 0) {
   const int e = D / H;
+  if (HT <= 0) HT = H;
   if constexpr (std::is_same_v<T, bf16>) {
     if (attention_tc_ok(e)) {
       if (!vec_ok(qkv, 3 * D)) return (int)cudaErrorMisalignedAddress;
       if (B * H > 65535) return (int)cudaErrorInvalidConfiguration;
-      return launch_attention_tc_e<LSE>(e, qkv, out, stat, B, N, D, H, scale,
-                                        st);
+      return launch_attention_tc_e<LSE>(e, qkv, out, stat, B, N, D, H, HT,
+                                        scale, st);
     }
   }
-  return launch_attention_simt<LSE>(qkv, out, stat, B, N, D, H, scale, st);
+  return launch_attention_simt<LSE>(qkv, out, stat, B, N, D, H, HT, scale,
+                                    st);
 }
 
 // imp (B, N) = the ordered head sum of imp_heads (B, H, N).

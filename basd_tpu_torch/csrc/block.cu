@@ -29,6 +29,16 @@
 // through device memory: separate launches (LN, GEMM + epilogue, attention,
 // head-sum) instead of one VMEM-resident body. Fusing them is later work.
 //
+// Tensor parallelism (basd_tpu_torch/parallel/mesh.py): a rank holds H of
+// the block's HT heads of width E (so its qkv slab is 3 H E wide and its
+// proj takes K = H E) and F of the MLP's hidden units. With `partial` set
+// an entry stops at its share of the row-parallel product: the f32 sums of
+// proj (K1, K3a) or fc2 (K2/K4a) over the rank's heads or hidden units,
+// without bias, mask, residual or collection slab, which the caller adds
+// once the ranks' shares are summed (K1's importance is its heads' CLS
+// rows over l HT, summed the same way). With partial = 0, H E = D and
+// HT = H the entries are the whole block, as before.
+//
 // Every function returns the first non-zero cudaGetLastError() after a
 // launch, or 0. Nothing here allocates or synchronises; all buffers come
 // from the caller and every launch goes on the caller's stream.
@@ -38,32 +48,54 @@
 
 namespace basd {
 
-// LN, qkv GEMM and per-(image, head) attention; the attention output
-// lands in ws_xn (the LN output is dead by then).
+// LN, qkv GEMM and per-(image, head) attention of H heads of width E; the
+// (B*N, H E) attention output lands in ws_xn (the LN output is dead by
+// then, and H E <= D).
 template <bool LSE>
 static int attention_half(const bf16* x, const float* ln_s, const float* ln_b,
                           const bf16* w_qkv, const float* b_qkv, bf16* ws_xn,
                           bf16* ws_qkv, float* stat, int B, int N, int D,
-                          int H, float eps, float scale, cudaStream_t st) {
+                          int H, int E, int HT, float eps, float scale,
+                          cudaStream_t st) {
   const int M = B * N;
+  const int Dh = H * E;
   int rc = launch_layernorm(x, ln_s, ln_b, ws_xn, nullptr, nullptr, M, D, eps,
                             st);
   if (rc) return rc;
-  rc = launch_gemm_nk<EPI_BIAS>(ws_xn, w_qkv, b_qkv, ws_qkv, M, 3 * D, D,
+  rc = launch_gemm_nk<EPI_BIAS>(ws_xn, w_qkv, b_qkv, ws_qkv, M, 3 * Dh, D,
                                 nullptr, nullptr, 1, nullptr, st);
   if (rc) return rc;
-  return launch_attention_heads<LSE>(ws_qkv, ws_xn, stat, B, N, D, H, scale,
-                                     st);
+  return launch_attention_heads<LSE>(ws_qkv, ws_xn, stat, B, N, Dh, H, scale,
+                                     st, HT);
+}
+
+// The proj product of the attention output (B*N, H E): the whole block's
+// out = bf16(x + mask * bf16(acc + b_proj)), or the rank's f32 share acc.
+static int proj_product(const bf16* attn, const bf16* w_proj,
+                        const float* b_proj, const bf16* x, const float* mask,
+                        void* out, int B, int N, int D, int Dh, int partial,
+                        cudaStream_t st) {
+  if (partial) {
+    return launch_gemm_nk<EPI_F32>(attn, w_proj, nullptr,
+                                   static_cast<bf16*>(nullptr), B * N, D, Dh,
+                                   nullptr, nullptr, 1, nullptr, st,
+                                   static_cast<float*>(out));
+  }
+  return launch_gemm_nk<EPI_BIAS_RESIDUAL>(attn, w_proj, b_proj,
+                                           static_cast<bf16*>(out), B * N, D,
+                                           Dh, x, mask, N, nullptr, st);
 }
 
 // K2 and K4a: LayerNorm, fc1 + bias + GELU, fc2 + bias + mask + residual
-// (+ the collection slab), in T (bf16, or f32 on the CUDA-core GEMM).
+// (+ the collection slab), in T (bf16, or f32 on the CUDA-core GEMM); with
+// `partial`, fc2's f32 sums alone into out (float).
 template <typename T>
 static int mlp_collect_fwd(const void* x, const float* mask, const float* ln_s,
                            const float* ln_b, const void* w1, const float* b1,
                            const void* w2, const float* b2, void* out,
                            void* buf_rows, void* ws_xn, void* ws_h, int B,
-                           int N, int D, int F, float eps, void* stream) {
+                           int N, int D, int F, int partial, float eps,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   const T* xb = static_cast<const T*>(x);
@@ -76,6 +108,12 @@ static int mlp_collect_fwd(const void* x, const float* mask, const float* ln_s,
                                      static_cast<const T*>(w1), b1, hid, M, F,
                                      D, nullptr, nullptr, 1, nullptr, st);
   if (rc) return rc;
+  if (partial) {
+    return launch_gemm_nk<EPI_F32>(
+        static_cast<const T*>(hid), static_cast<const T*>(w2), nullptr,
+        static_cast<T*>(nullptr), M, D, F, nullptr, nullptr, 1, nullptr, st,
+        static_cast<float*>(out));
+  }
   return launch_gemm_nk<EPI_BIAS_RESIDUAL>(
       static_cast<const T*>(hid), static_cast<const T*>(w2), b2,
       static_cast<T*>(out), M, D, F, xb, mask, N, static_cast<T*>(buf_rows),
@@ -90,77 +128,80 @@ extern "C" const char* basd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K1. x, out: (B, N, D) bf16; w_qkv (3D, D), w_proj (D, D) bf16; LN affine
-// and biases f32; imp: (B, N) f32 (CLS key included). Workspaces:
-// ws_xn (B*N, D) bf16 (LN output, then the attention output), ws_qkv
-// (B*N, 3D) bf16, ws_imp (B, H, N) f32.
+// K1. x: (B, N, D) bf16; w_qkv (3 H E, D), w_proj (D, H E) bf16; LN affine
+// and biases f32; imp: (B, N) f32 (CLS key included), the CLS rows over
+// l HT summed over the H heads. out: (B, N, D) bf16, or with `partial` the
+// f32 sums of proj (b_proj unused). Workspaces: ws_xn (B*N, D) bf16 (LN
+// output, then the attention output), ws_qkv (B*N, 3 H E) bf16, ws_imp
+// (B, H, N) f32.
 extern "C" int basd_block_attn_fwd(const void* x, const float* ln_s,
                                    const float* ln_b, const void* w_qkv,
                                    const float* b_qkv, const void* w_proj,
                                    const float* b_proj, void* out, float* imp,
                                    void* ws_xn, void* ws_qkv, float* ws_imp,
-                                   int B, int N, int D, int H, float eps,
-                                   float scale, void* stream) {
+                                   int B, int N, int D, int H, int E, int HT,
+                                   int partial, float eps, float scale,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * N;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xn = static_cast<bf16*>(ws_xn);
   int rc = basd::attention_half<false>(
       xb, ln_s, ln_b, static_cast<const bf16*>(w_qkv), b_qkv, xn,
-      static_cast<bf16*>(ws_qkv), ws_imp, B, N, D, H, eps, scale, st);
+      static_cast<bf16*>(ws_qkv), ws_imp, B, N, D, H, E, HT, eps, scale, st);
   if (rc) return rc;
   rc = basd::launch_head_sum(ws_imp, imp, B, H, N, st);
   if (rc) return rc;
-  return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
-      xn, static_cast<const bf16*>(w_proj), b_proj, static_cast<bf16*>(out),
-      M, D, D, xb, nullptr, 1, nullptr, st);
+  return basd::proj_product(xn, static_cast<const bf16*>(w_proj), b_proj, xb,
+                            nullptr, out, B, N, D, H * E, partial, st);
 }
 
 // K3a. As K1 with mask (B,) f32 applied to the proj branch and lse
-// (B, H, N) f32 written instead of the importance. Workspaces: ws_xn
-// (B*N, D) bf16, ws_qkv (B*N, 3D) bf16.
+// (B, H, N) f32 written instead of the importance; with `partial` the f32
+// sums of proj alone (mask and b_proj unused). Workspaces: ws_xn (B*N, D)
+// bf16, ws_qkv (B*N, 3 H E) bf16.
 extern "C" int basd_block_attn_train_fwd(
     const void* x, const float* mask, const float* ln_s, const float* ln_b,
     const void* w_qkv, const float* b_qkv, const void* w_proj,
     const float* b_proj, void* out, float* lse, void* ws_xn, void* ws_qkv,
-    int B, int N, int D, int H, float eps, float scale, void* stream) {
+    int B, int N, int D, int H, int E, int partial, float eps, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* xn = static_cast<bf16*>(ws_xn);
   int rc = basd::attention_half<true>(
       xb, ln_s, ln_b, static_cast<const bf16*>(w_qkv), b_qkv, xn,
-      static_cast<bf16*>(ws_qkv), lse, B, N, D, H, eps, scale, st);
+      static_cast<bf16*>(ws_qkv), lse, B, N, D, H, E, H, eps, scale, st);
   if (rc) return rc;
-  return basd::launch_gemm_nk<basd::EPI_BIAS_RESIDUAL>(
-      xn, static_cast<const bf16*>(w_proj), b_proj, static_cast<bf16*>(out),
-      B * N, D, D, xb, mask, N, nullptr, st);
+  return basd::proj_product(xn, static_cast<const bf16*>(w_proj), b_proj, xb,
+                            mask, out, B, N, D, H * E, partial, st);
 }
 
 // K2 and K4a. x, out: (B, N, D) bf16 (f32 for the _f32 entry); mask (B,)
 // f32; w1 (F, D), w2 (D, F) in x's type; LN affine and biases f32;
 // buf_rows: the (B*N, D) slab of the collection stack that receives `out`
-// as well (K2), or null (K4a). Workspaces in x's type: ws_xn (B*N, D),
-// ws_h (B*N, F).
+// as well (K2), or null (K4a). With `partial`: out (B, N, D) f32, the sums
+// of fc2 over the rank's F hidden units alone (mask, b2 and buf_rows
+// unused). Workspaces in x's type: ws_xn (B*N, D), ws_h (B*N, F).
 extern "C" int basd_block_mlp_collect_fwd(const void* x, const float* mask,
                                           const float* ln_s, const float* ln_b,
                                           const void* w1, const float* b1,
                                           const void* w2, const float* b2,
                                           void* out, void* buf_rows,
                                           void* ws_xn, void* ws_h, int B,
-                                          int N, int D, int F, float eps,
-                                          void* stream) {
+                                          int N, int D, int F, int partial,
+                                          float eps, void* stream) {
   return basd::mlp_collect_fwd<bf16>(x, mask, ln_s, ln_b, w1, b1, w2, b2, out,
-                                     buf_rows, ws_xn, ws_h, B, N, D, F, eps,
-                                     stream);
+                                     buf_rows, ws_xn, ws_h, B, N, D, F,
+                                     partial, eps, stream);
 }
 extern "C" int basd_block_mlp_collect_fwd_f32(
     const void* x, const float* mask, const float* ln_s, const float* ln_b,
     const void* w1, const float* b1, const void* w2, const float* b2,
     void* out, void* buf_rows, void* ws_xn, void* ws_h, int B, int N, int D,
-    int F, float eps, void* stream) {
+    int F, int partial, float eps, void* stream) {
   return basd::mlp_collect_fwd<float>(x, mask, ln_s, ln_b, w1, b1, w2, b2,
                                       out, buf_rows, ws_xn, ws_h, B, N, D, F,
-                                      eps, stream);
+                                      partial, eps, stream);
 }
 
 // One forward product out (M, N) bf16 = bf16(A (M, K) . W (N, K)^T + bias)

@@ -366,12 +366,14 @@ namespace basd {
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T + bias): the forward products,
 // W in torch's (out, in) layout. bf16 operands that pass gemm_nk_tile_n's
 // rule take the sm90 GEMM, other bf16 operands the WMMA tile, f32 ones the
-// CUDA-core tile.
+// CUDA-core tile. EPI_F32 writes the f32 sums alone to outf (M, N), no
+// bias: a tensor-parallel rank's share of a row-parallel product.
 template <int EPI, typename T>
 static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
                           int M, int N, int K, no_deduce_t<const T*> aux,
                           const float* mask, int rows_per_mask,
-                          no_deduce_t<T*> out2, cudaStream_t st) {
+                          no_deduce_t<T*> out2, cudaStream_t st,
+                          float* outf = nullptr) {
   GemmT<T> g{};
   g.A = A;
   g.lda = K;
@@ -386,8 +388,10 @@ static int launch_gemm_nk(const T* A, const T* W, const float* bias, T* out,
   g.aux = aux;
   g.mask = mask;
   g.rows_per_mask = rows_per_mask;
+  g.outf = outf;
   if constexpr (std::is_same_v<T, bf16>) {
-    const int tile_n = gemm_nk_tile_n(N, K, A, W, out);
+    const int tile_n = gemm_nk_tile_n(
+        N, K, A, W, EPI == EPI_F32 ? static_cast<const void*>(outf) : out);
     if (tile_n == 128) return sm90::launch<EPI, 128, false, false>(g, K, st);
     if (tile_n == 64) return sm90::launch<EPI, 64, false, false>(g, K, st);
   }

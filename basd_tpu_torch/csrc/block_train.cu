@@ -39,6 +39,17 @@
 // dv, each staging 64-row blocks, so nothing of the N x N scores reaches
 // device memory.
 //
+// Tensor parallelism (basd_tpu_torch/parallel/mesh.py): a rank holds H of
+// the block's heads of width E (K3b: qkv 3 H E wide, proj K = H E) or F of
+// the MLP's hidden units (K4b). With `partial` set an entry returns the
+// rank's share of the input gradient: the f32 LN VJP of its own dxn,
+// without the residual's do (the LN backward is linear in dxn, so the
+// ranks' shares add up to the whole block's), written to dx as float; its
+// dln_s, dln_b are that share's sums too, and db_proj / db2 (the replicated
+// bias's) may be null and are then not computed. The caller sums the
+// shares over the ranks and adds do once. With partial = 0 and H E = D
+// the entries are the whole block, as before.
+//
 // Every entry returns the first non-zero cudaGetLastError() after a
 // launch, or 0. Nothing here allocates or synchronises.
 
@@ -48,7 +59,8 @@
 namespace basd {
 
 // LN VJP, one warp per row: g = dxn * scale,
-// dx = T(do + rstd * (g - mean(g) - xhat * mean(g * xhat))).
+// dx = T(do + rstd * (g - mean(g) - xhat * mean(g * xhat))), or with dxf
+// (a tensor-parallel share) dxf = the f32 VJP alone.
 template <typename T>
 __global__ void ln_bwd_rows_kernel(const T* __restrict__ x,
                                    const T* __restrict__ dout,
@@ -56,7 +68,8 @@ __global__ void ln_bwd_rows_kernel(const T* __restrict__ x,
                                    const float* __restrict__ scale,
                                    const float* __restrict__ mu,
                                    const float* __restrict__ rstd,
-                                   T* __restrict__ dx, int rows, int d) {
+                                   T* __restrict__ dx, float* __restrict__ dxf,
+                                   int rows, int d) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -77,7 +90,10 @@ __global__ void ln_bwd_rows_kernel(const T* __restrict__ x,
     const float xhat = (to_f(x[base + i]) - m) * rs;
     const float g = dxn[base + i] * scale[i];
     const float dxln = rs * (g - mg - xhat * mgx);
-    dx[base + i] = from_f<T>(to_f(dout[base + i]) + dxln);
+    if (dxf)
+      dxf[base + i] = dxln;
+    else
+      dx[base + i] = from_f<T>(to_f(dout[base + i]) + dxln);
   }
 }
 
@@ -106,16 +122,19 @@ __global__ void ln_param_partials_kernel(const T* __restrict__ x,
   part_b[(size_t)blockIdx.y * D + c] = ab;
 }
 
-// LN VJP rows into dx, then the scale/bias sums into dln_s, dln_b.
+// LN VJP rows into dx (with `partial`, the f32 VJP alone into dx as
+// float), then the scale/bias sums into dln_s, dln_b.
 template <typename T>
 static int ln_backward(const T* x, const T* dout, const float* dxn,
                        const float* ln_s, const float* mu, const float* rstd,
-                       T* dx, float* dln_s, float* dln_b, float* part,
-                       int M, int D, int row_chunk, cudaStream_t st) {
+                       void* dx, int partial, float* dln_s, float* dln_b,
+                       float* part, int M, int D, int row_chunk,
+                       cudaStream_t st) {
   const int threads = 256;
   const int blocks = (int)(((size_t)M * 32 + threads - 1) / threads);
-  ln_bwd_rows_kernel<T><<<blocks, threads, 0, st>>>(x, dout, dxn, ln_s, mu,
-                                                    rstd, dx, M, D);
+  ln_bwd_rows_kernel<T><<<blocks, threads, 0, st>>>(
+      x, dout, dxn, ln_s, mu, rstd, partial ? nullptr : static_cast<T*>(dx),
+      partial ? static_cast<float*>(dx) : nullptr, M, D);
   BASD_CHECK_LAUNCH();
   const int chunks = (M + row_chunk - 1) / row_chunk;
   dim3 grid((D + 127) / 128, chunks);
@@ -136,7 +155,7 @@ static int mlp_bwd(const void* x, const float* mask, const void* dout,
                    float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre,
                    void* ws_h, void* ws_dyb, void* ws_dpre, float* ws_f32,
                    float* ws_part, int B, int N, int D, int F, int row_chunk,
-                   float eps, void* stream) {
+                   int partial, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
   const T* xb = static_cast<const T*>(x);
@@ -158,8 +177,10 @@ static int mlp_bwd(const void* x, const float* mask, const void* dout,
   if (rc) return rc;
   rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
   if (rc) return rc;
-  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
-  if (rc) return rc;
+  if (db2) {
+    rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, D, st);
+    if (rc) return rc;
+  }
   rc = weight_grad(dyb, D, hid, F, M, ws_part, dw2, st);
   if (rc) return rc;
   // dpre = (dyb W2) * gelu'(pre), its copy in T, db1 its column sums
@@ -169,22 +190,23 @@ static int mlp_bwd(const void* x, const float* mask, const void* dout,
   if (rc) return rc;
   rc = input_grad<EPI_F32>(dpre, w1b, M, F, D, nullptr, ws_f32, st);  // dxn
   if (rc) return rc;
-  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<T*>(dx),
-                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
+  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, dx, partial, dln_s,
+                     dln_b, ws_part, M, D, row_chunk, st);
 }
 
 }  // namespace basd
 
 using basd::bf16;
 
-// K3b. x, dout, dx: (B, N, D) bf16; mask (B,) f32; lse (B, H, N) f32;
-// w_qkv (3D, D), w_proj (D, D) bf16; LN affine and b_qkv f32. Outputs in
-// f32: dw_qkv (3D, D), db_qkv (3D), dw_proj (D, D), db_proj, dln_s, dln_b
-// (D). Workspaces: ws_xn, ws_dyb, ws_attn (B*N, D) bf16; ws_qkv, ws_dqkv
-// (B*N, 3D) bf16; ws_stats (2 B*N) f32; ws_f32 (B*N, D) f32; ws_part f32
-// of max(splits * m * n over dW_proj and dW_qkv (split_k_chunk),
-// B * ceil(N / 64) * 3D, 2 * row chunks * D) elements; ws_delta (B, H, N)
-// f32.
+// K3b. x, dout: (B, N, D) bf16; dx (B, N, D) bf16, or f32 with `partial`;
+// mask (B,) f32; lse (B, H, N) f32; w_qkv (3 Dh, D), w_proj (D, Dh) bf16,
+// Dh = H E; LN affine and b_qkv f32. Outputs in f32: dw_qkv (3 Dh, D),
+// db_qkv (3 Dh), dw_proj (D, Dh), db_proj (or null), dln_s, dln_b (D).
+// Workspaces: ws_xn, ws_dyb (B*N, D) bf16; ws_attn (B*N, Dh) bf16; ws_qkv,
+// ws_dqkv (B*N, 3 Dh) bf16; ws_stats (2 B*N) f32; ws_f32 (B*N, D) f32;
+// ws_part f32 of max(splits * m * n over dW_proj and dW_qkv
+// (split_k_chunk), B * ceil(N / 64) * 3 Dh, 2 * row chunks * D) elements;
+// ws_delta (B, H, N) f32.
 extern "C" int basd_block_attn_train_bwd(
     const void* x, const float* mask, const void* dout, const float* lse,
     const float* ln_s, const float* ln_b, const void* w_qkv,
@@ -192,11 +214,12 @@ extern "C" int basd_block_attn_train_bwd(
     float* db_qkv, float* dw_proj, float* db_proj, float* dln_s, float* dln_b,
     void* ws_xn, float* ws_stats, void* ws_qkv, void* ws_dyb, float* ws_f32,
     void* ws_attn, void* ws_dqkv, float* ws_part, float* ws_delta, int B,
-    int N, int D, int H, int row_chunk, float eps, float scale,
-    void* stream) {
+    int N, int D, int H, int E, int row_chunk, int partial, float eps,
+    float scale, void* stream) {
   using namespace basd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * N;
+  const int Dh = H * E;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* dob = static_cast<const bf16*>(dout);
   const bf16* wq = static_cast<const bf16*>(w_qkv);
@@ -211,14 +234,17 @@ extern "C" int basd_block_attn_train_bwd(
 
   int rc = launch_layernorm(xb, ln_s, ln_b, xn, mu, rstd, M, D, eps, st);
   if (rc) return rc;
-  rc = launch_gemm_nk<EPI_BIAS>(xn, wq, b_qkv, qkv, M, 3 * D, D, nullptr,
+  rc = launch_gemm_nk<EPI_BIAS>(xn, wq, b_qkv, qkv, M, 3 * Dh, D, nullptr,
                                 nullptr, 1, nullptr, st);
   if (rc) return rc;
   rc = launch_dy(dob, mask, dyb, ws_part, M, N, D, row_chunk, st);
   if (rc) return rc;
-  rc = launch_reduce(ws_part, db_proj, (M + row_chunk - 1) / row_chunk, D, st);
-  if (rc) return rc;
-  rc = input_grad<EPI_F32>(dyb, wp, M, D, D, nullptr, ws_f32, st);  // dattn
+  if (db_proj) {
+    rc = launch_reduce(ws_part, db_proj, (M + row_chunk - 1) / row_chunk, D,
+                       st);
+    if (rc) return rc;
+  }
+  rc = input_grad<EPI_F32>(dyb, wp, M, D, Dh, nullptr, ws_f32, st);  // dattn
   if (rc) return rc;
 
   // the attention backward (csrc/attention_bwd.cuh): attn, dqkv and the
@@ -233,28 +259,29 @@ extern "C" int basd_block_attn_train_bwd(
   a.part = ws_part;
   a.B = B;
   a.N = N;
-  a.D = D;
+  a.D = Dh;
   a.H = H;
   a.scale = scale;
   int part_rows = 0;
   rc = launch_attention_bwd<true, bf16>(a, &part_rows, st);
   if (rc) return rc;
-  rc = launch_reduce(ws_part, db_qkv, part_rows, 3 * D, st);
+  rc = launch_reduce(ws_part, db_qkv, part_rows, 3 * Dh, st);
   if (rc) return rc;
 
-  rc = weight_grad(dyb, D, attn, D, M, ws_part, dw_proj, st);
+  rc = weight_grad(dyb, D, attn, Dh, M, ws_part, dw_proj, st);
   if (rc) return rc;
-  rc = weight_grad(dqkv, 3 * D, xn, D, M, ws_part, dw_qkv, st);
+  rc = weight_grad(dqkv, 3 * Dh, xn, D, M, ws_part, dw_qkv, st);
   if (rc) return rc;
-  rc = input_grad<EPI_F32>(dqkv, wq, M, 3 * D, D, nullptr, ws_f32, st);  // dxn
+  rc = input_grad<EPI_F32>(dqkv, wq, M, 3 * Dh, D, nullptr, ws_f32, st);  // dxn
   if (rc) return rc;
-  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, static_cast<bf16*>(dx),
-                     dln_s, dln_b, ws_part, M, D, row_chunk, st);
+  return ln_backward(xb, dob, ws_f32, ln_s, mu, rstd, dx, partial, dln_s,
+                     dln_b, ws_part, M, D, row_chunk, st);
 }
 
-// K4b. x, dout, dx: (B, N, D) bf16 (f32 for the _f32 entry); mask (B,)
-// f32; w1 (F, D), w2 (D, F) in x's type; LN affine and b1 f32. Outputs in
-// f32: dw1 (F, D), db1 (F), dw2 (D, F), db2, dln_s, dln_b (D). Workspaces
+// K4b. x, dout, dx: (B, N, D) bf16 (f32 for the _f32 entry; dx f32 with
+// `partial`); mask (B,) f32; w1 (F, D), w2 (D, F) in x's type; LN affine
+// and b1 f32. Outputs in f32: dw1 (F, D), db1 (F), dw2 (D, F), db2 (or
+// null), dln_s, dln_b (D). Workspaces
 // in x's type: ws_xn, ws_dyb (B*N, D); ws_pre, ws_h, ws_dpre (B*N, F); in
 // f32: ws_stats (2 B*N), ws_f32 (B*N, D), ws_part of max(splits * F * D
 // over dW2 and dW1 (split_k_chunk), GELU-gradient row tiles * F,
@@ -265,11 +292,11 @@ extern "C" int basd_block_mlp_bwd(
     void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
     float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
     void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
-    int D, int F, int row_chunk, float eps, void* stream) {
+    int D, int F, int row_chunk, int partial, float eps, void* stream) {
   return basd::mlp_bwd<bf16>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
                              db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
                              ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part, B,
-                             N, D, F, row_chunk, eps, stream);
+                             N, D, F, row_chunk, partial, eps, stream);
 }
 extern "C" int basd_block_mlp_bwd_f32(
     const void* x, const float* mask, const void* dout, const float* ln_s,
@@ -277,9 +304,9 @@ extern "C" int basd_block_mlp_bwd_f32(
     void* dx, float* dw1, float* db1, float* dw2, float* db2, float* dln_s,
     float* dln_b, void* ws_xn, float* ws_stats, void* ws_pre, void* ws_h,
     void* ws_dyb, void* ws_dpre, float* ws_f32, float* ws_part, int B, int N,
-    int D, int F, int row_chunk, float eps, void* stream) {
+    int D, int F, int row_chunk, int partial, float eps, void* stream) {
   return basd::mlp_bwd<float>(x, mask, dout, ln_s, ln_b, w1, b1, w2, dx, dw1,
                               db1, dw2, db2, dln_s, dln_b, ws_xn, ws_stats,
                               ws_pre, ws_h, ws_dyb, ws_dpre, ws_f32, ws_part,
-                              B, N, D, F, row_chunk, eps, stream);
+                              B, N, D, F, row_chunk, partial, eps, stream);
 }

@@ -36,6 +36,13 @@
 // or dpre (each round to T is the identity at f32), tanh-GELU as at bf16.
 // A plain right kernel, not a fast one.
 //
+// Tensor parallelism (basd_tpu_torch/parallel/mesh.py): a rank holds F of
+// the hidden units (w1's rows, w2's columns). With `partial` set, K11a
+// writes the f32 sums of fc2 over them to out (float), without b2, and
+// K11b writes the f32 input gradient dpre W1 to dx (float), without
+// rounding, and leaves db2 (the replicated bias's) to the caller: the
+// ranks' shares add up to the whole MLP's.
+//
 // Every entry returns the first non-zero cudaGetLastError() after a launch,
 // or 0. Nothing here allocates or synchronises.
 
@@ -46,7 +53,7 @@ namespace basd {
 template <typename T>
 static int fused_mlp_fwd(const void* x, const void* w1, const float* b1,
                          const void* w2, const float* b2, void* out,
-                         void* ws_h, int M, int D, int F, int Do,
+                         void* ws_h, int M, int D, int F, int Do, int partial,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   T* hid = static_cast<T*>(ws_h);
@@ -54,6 +61,13 @@ static int fused_mlp_fwd(const void* x, const void* w1, const float* b1,
       static_cast<const T*>(x), static_cast<const T*>(w1), b1, hid, M, F, D,
       nullptr, nullptr, 1, nullptr, st);
   if (rc) return rc;
+  if (partial) {
+    return launch_gemm_nk<EPI_F32>(static_cast<const T*>(hid),
+                                   static_cast<const T*>(w2), nullptr,
+                                   static_cast<T*>(nullptr), M, Do, F, nullptr,
+                                   nullptr, 1, nullptr, st,
+                                   static_cast<float*>(out));
+  }
   return launch_gemm_nk<EPI_BIAS>(static_cast<const T*>(hid),
                                   static_cast<const T*>(w2), b2,
                                   static_cast<T*>(out), M, Do, F, nullptr,
@@ -65,7 +79,8 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
                          const float* b1, const void* w2, void* dx, float* dw1,
                          float* db1, float* dw2, float* db2, void* ws_pre,
                          void* ws_h, void* ws_dpre, float* ws_part, int M,
-                         int D, int F, int Do, int row_chunk, void* stream) {
+                         int D, int F, int Do, int row_chunk, int partial,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xb = static_cast<const T*>(x);
   const T* dob = static_cast<const T*>(dout);
@@ -77,10 +92,12 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
   int rc = launch_gemm_nk<EPI_BIAS_PRE_GELU>(xb, w1b, b1, pre, M, F, D,
                                              nullptr, nullptr, 1, hid, st);
   if (rc) return rc;
-  rc = launch_dy(dob, nullptr, nullptr, ws_part, M, 1, Do, row_chunk, st);
-  if (rc) return rc;
-  rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, Do, st);
-  if (rc) return rc;
+  if (!partial) {
+    rc = launch_dy(dob, nullptr, nullptr, ws_part, M, 1, Do, row_chunk, st);
+    if (rc) return rc;
+    rc = launch_reduce(ws_part, db2, (M + row_chunk - 1) / row_chunk, Do, st);
+    if (rc) return rc;
+  }
   rc = weight_grad(dob, Do, static_cast<const T*>(hid), F, M, ws_part, dw2,
                    st);
   if (rc) return rc;
@@ -91,7 +108,10 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
   rc = weight_grad(static_cast<const T*>(dpre), F, xb, D, M, ws_part, dw1,
                    st);
   if (rc) return rc;
-  // dx = T(dpre W1), W1 (F, D) read as K x N
+  // dx = T(dpre W1), W1 (F, D) read as K x N; a rank's share in f32
+  if (partial)
+    return input_grad<EPI_F32>(static_cast<const T*>(dpre), w1b, M, F, D,
+                               nullptr, static_cast<float*>(dx), st);
   return input_grad<EPI_ROUND>(static_cast<const T*>(dpre), w1b, M, F, D,
                                static_cast<T*>(dx), nullptr, st);
 }
@@ -101,26 +121,28 @@ static int fused_mlp_bwd(const void* x, const void* dout, const void* w1,
 using basd::bf16;
 
 // K11a. x (M, D), out (M, Do); w1 (F, D), w2 (Do, F), all bf16 (f32 for
-// the _f32 entry); b1, b2 f32. Workspace: ws_h (M, F) in x's type.
+// the _f32 entry); b1, b2 f32; with `partial` out is f32 and b2 unused.
+// Workspace: ws_h (M, F) in x's type.
 extern "C" int basd_fused_mlp_fwd(const void* x, const void* w1,
                                   const float* b1, const void* w2,
                                   const float* b2, void* out, void* ws_h,
-                                  int M, int D, int F, int Do, void* stream) {
+                                  int M, int D, int F, int Do, int partial,
+                                  void* stream) {
   return basd::fused_mlp_fwd<bf16>(x, w1, b1, w2, b2, out, ws_h, M, D, F, Do,
-                                   stream);
+                                   partial, stream);
 }
 extern "C" int basd_fused_mlp_fwd_f32(const void* x, const void* w1,
                                       const float* b1, const void* w2,
                                       const float* b2, void* out, void* ws_h,
                                       int M, int D, int F, int Do,
-                                      void* stream) {
+                                      int partial, void* stream) {
   return basd::fused_mlp_fwd<float>(x, w1, b1, w2, b2, out, ws_h, M, D, F, Do,
-                                    stream);
+                                    partial, stream);
 }
 
 // K11b. x (M, D), dout (M, Do), dx (M, D); w1 (F, D), w2 (Do, F), all bf16
 // (f32 for the _f32 entry); b1 f32. Outputs in f32: dw1 (F, D), db1 (F),
-// dw2 (Do, F), db2 (Do). Workspaces: ws_pre, ws_h, ws_dpre (M, F) in x's
+// dw2 (Do, F), db2 (Do); with `partial` dx is f32 and db2 unused. Workspaces: ws_pre, ws_h, ws_dpre (M, F) in x's
 // type; ws_part f32 of max(splits * m * n over dW2 and dW1 (split_k_chunk),
 // GELU-gradient row tiles * F, row chunks * Do) elements.
 extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
@@ -129,10 +151,10 @@ extern "C" int basd_fused_mlp_bwd(const void* x, const void* dout,
                                   float* db1, float* dw2, float* db2,
                                   void* ws_pre, void* ws_h, void* ws_dpre,
                                   float* ws_part, int M, int D, int F, int Do,
-                                  int row_chunk, void* stream) {
+                                  int row_chunk, int partial, void* stream) {
   return basd::fused_mlp_bwd<bf16>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
                                    db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
-                                   F, Do, row_chunk, stream);
+                                   F, Do, row_chunk, partial, stream);
 }
 extern "C" int basd_fused_mlp_bwd_f32(const void* x, const void* dout,
                                       const void* w1, const float* b1,
@@ -140,8 +162,9 @@ extern "C" int basd_fused_mlp_bwd_f32(const void* x, const void* dout,
                                       float* db1, float* dw2, float* db2,
                                       void* ws_pre, void* ws_h, void* ws_dpre,
                                       float* ws_part, int M, int D, int F,
-                                      int Do, int row_chunk, void* stream) {
+                                      int Do, int row_chunk, int partial,
+                                      void* stream) {
   return basd::fused_mlp_bwd<float>(x, dout, w1, b1, w2, dx, dw1, db1, dw2,
                                     db2, ws_pre, ws_h, ws_dpre, ws_part, M, D,
-                                    F, Do, row_chunk, stream);
+                                    F, Do, row_chunk, partial, stream);
 }

@@ -12,6 +12,11 @@
   datasets and efficiency, one dict (``metrics.py:223-292``);
 - ``save_metrics`` -> ``metrics.json`` (``metrics.py:295-300``), with the
   reference's keys.
+
+With a model group (``tp``, a sharded student) every rank of the group runs
+the suite together on the sharded forward; parameters and FLOPs are the
+whole model's (a gathered CPU copy, ``models.vit.whole_vit``) and only its
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from basd_tpu_torch.data.sources import (
     stats_from_config,
     subset_indices_from_names,
 )
+from basd_tpu_torch.models.vit import whole_vit
 
 
 def make_eval_step(apply_logits_fn: Callable, *, img_size: int, stats: tuple,
@@ -122,7 +128,7 @@ def logits_fn(model: torch.nn.Module) -> Callable:
 def measure_efficiency(model: torch.nn.Module, *, img_size: int,
                        in_channels: int = 3, batch_size: int = 64,
                        num_warmup: int = 50,
-                       num_batches: int = 200) -> dict[str, float]:
+                       num_batches: int = 200, tp=None) -> dict[str, float]:
     """Parameter count, GFLOPs of one image's forward, and the throughput
     of ``num_batches`` bf16 forwards of ``batch_size`` images after
     ``min(num_warmup, WARMUP_FORWARDS)`` warm-up ones.
@@ -141,10 +147,17 @@ def measure_efficiency(model: torch.nn.Module, *, img_size: int,
     launched by hand). It counts 2 per multiply-add of the products and
     convolutions only; the reference's number is XLA's cost analysis of the
     compiled forward (``compiled.cost_analysis()['flops']``), which also
-    counts elementwise work, so the two differ by that share."""
-    param_count = sum(p.numel() for p in model.parameters())
+    counts elementwise work, so the two differ by that share.
+
+    With ``tp`` (a rank of the model group over which ``model``'s blocks
+    are sharded; every rank of it calls) the parameters and FLOPs are
+    counted on the whole model, gathered into the CPU copy, and the timed
+    forwards, whose sums over the group cannot be captured in a CUDA graph,
+    run one after another between the two events."""
     device = next(model.parameters()).device
-    cpu_model = copy.deepcopy(model).cpu()
+    cpu_model = (copy.deepcopy(model).cpu() if tp is None
+                 else whole_vit(model, tp))
+    param_count = sum(p.numel() for p in cpu_model.parameters())
     x1 = torch.zeros((1, img_size, img_size, in_channels), dtype=torch.bfloat16)
     with FlopCounterMode(display=False) as counter:
         logits_fn(cpu_model)(x1)
@@ -157,15 +170,20 @@ def measure_efficiency(model: torch.nn.Module, *, img_size: int,
     for _ in range(max(1, min(num_warmup, WARMUP_FORWARDS))):
         forward(xb)
     if device.type == "cuda":
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            forward(xb)
+        graph = None
+        if tp is None:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                forward(xb)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(device)
         start.record()
         for _ in range(num_batches):
-            graph.replay()
+            if graph is None:
+                forward(xb)
+            else:
+                graph.replay()
         end.record()
         torch.cuda.synchronize(device)
         elapsed = start.elapsed_time(end) / 1e3
@@ -184,11 +202,13 @@ def measure_efficiency(model: torch.nn.Module, *, img_size: int,
 
 
 def run_eval_suite(model: torch.nn.Module, config, *, config_path: str,
-                   efficiency_batches: int = 200) -> dict[str, Any]:
+                   efficiency_batches: int = 200, tp=None) -> dict[str, Any]:
     """The primary dataset, each of ``data.eval_datasets`` (its classes
     remapped into the primary label space) and efficiency, for ``model``
     (the student holding its eval weights, on its device), each over its
-    whole eval split."""
+    whole eval split; ``tp``: the model group ``model``'s blocks are
+    sharded over (every rank of it calls)."""
+    log = print if tp is None or tp.rank == 0 else (lambda *a, **k: None)
     device = next(model.parameters()).device
     datasets = [config.data.dataset] + list(config.data.eval_datasets)
     stats = stats_from_config(config)
@@ -218,12 +238,12 @@ def run_eval_suite(model: torch.nn.Module, config, *, config_path: str,
             primary = metrics
         else:
             robustness[name] = metrics
-        print(f"eval {name} top1={metrics['val_acc']:.4f} "
+        log(f"eval {name} top1={metrics['val_acc']:.4f} "
               f"top5={metrics['val_acc_top5']:.4f} loss={metrics['loss']:.6f}")
 
     efficiency = measure_efficiency(model, img_size=img_size,
-                                    num_batches=efficiency_batches)
-    print(f"efficiency params_m={efficiency['param_count_m']:.4f} "
+                                    num_batches=efficiency_batches, tp=tp)
+    log(f"efficiency params_m={efficiency['param_count_m']:.4f} "
           f"gflops={efficiency['gflops']:.4f} "
           f"throughput={efficiency['throughput_img_per_sec']:.2f} img/s")
     return {

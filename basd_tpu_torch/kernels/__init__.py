@@ -14,25 +14,39 @@ products (``gemm.gemm_bwd_variant``), four a launch. ``PARTS`` lists the
 variants and launches of K7, K8 and K9 that count on their own: K7's three
 variants (``ns_polar_hybrid.variants``), K8's rounds by variant
 (``jacobi_rounds.variants``) and its vectors pass (``jacobi_vectors``),
-K9's two variants (``geom_shift3.variants``).
+K9's two variants (``geom_shift3.variants``). ``TP_KERNELS`` names the
+partial entries of K1-K4 and K11 that a rank of a model group launches
+(``parallel.mesh``: its share of a block half, summed over the group),
+each a wrapper with its own count; a one-process run launches none.
 """
 
 from basd_tpu_torch.kernels.block_attn import (
     fused_block_attn,
+    fused_block_attn_partial,
     fused_block_attn_train_bwd,
+    fused_block_attn_train_bwd_partial,
     fused_block_attn_train_fwd,
+    fused_block_attn_train_fwd_partial,
 )
 from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_bwd,
+    fused_ln_mlp_bwd_partial,
     fused_ln_mlp_collect,
+    fused_ln_mlp_collect_partial,
     fused_ln_mlp_fwd,
+    fused_ln_mlp_fwd_partial,
 )
 from basd_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_imp,
 )
-from basd_tpu_torch.kernels.fused_mlp import fused_mlp_bwd, fused_mlp_fwd
+from basd_tpu_torch.kernels.fused_mlp import (
+    fused_mlp_bwd,
+    fused_mlp_bwd_partial,
+    fused_mlp_fwd,
+    fused_mlp_fwd_partial,
+)
 from basd_tpu_torch.kernels.geom_shift import geom_shift3
 from basd_tpu_torch.kernels.jacobi_eigh import (
     jacobi_eigh,
@@ -84,7 +98,27 @@ KERNELS = (
      _PALLAS + "fused_mlp.py:165", fused_mlp_fwd),
     ("K11b fused_mlp bwd", "cuda", _CSRC + "fused_mlp.cu",
      _PALLAS + "fused_mlp.py:192", fused_mlp_bwd),
+    # the partial entries of tensor parallelism: the same kernels with
+    # ``partial`` set, at a rank's heads or hidden units
+    ("K1 fused_block_attn: partial", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_attn.py:156", fused_block_attn_partial),
+    ("K2 fused_ln_mlp_collect: partial", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_mlp.py:345", fused_ln_mlp_collect_partial),
+    ("K3a fused_block_attn_train fwd: partial", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_attn.py:390", fused_block_attn_train_fwd_partial),
+    ("K3b fused_block_attn_train bwd: partial", "cuda",
+     _CSRC + "block_train.cu", _PALLAS + "fused_block_attn.py:433",
+     fused_block_attn_train_bwd_partial),
+    ("K4a fused_ln_mlp fwd: partial", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_mlp.py:170", fused_ln_mlp_fwd_partial),
+    ("K4b fused_ln_mlp bwd: partial", "cuda", _CSRC + "block_train.cu",
+     _PALLAS + "fused_block_mlp.py:202", fused_ln_mlp_bwd_partial),
+    ("K11a fused_mlp fwd: partial", "cuda", _CSRC + "fused_mlp.cu",
+     _PALLAS + "fused_mlp.py:165", fused_mlp_fwd_partial),
+    ("K11b fused_mlp bwd: partial", "cuda", _CSRC + "fused_mlp.cu",
+     _PALLAS + "fused_mlp.py:192", fused_mlp_bwd_partial),
 )
+TP_KERNELS = tuple(k[0] for k in KERNELS if k[0].endswith(": partial"))
 
 
 # the variants and launches of K7, K8 and K9 that count on their own: (name,
@@ -114,14 +148,19 @@ PARTS = (
 # forward and csrc/attention_bwd.cuh's backward
 ATTENTION_CORE = ("K1 fused_block_attn", "K3a fused_block_attn_train fwd",
                   "K3b fused_block_attn_train bwd", "K10a flash_attention fwd",
-                  "K10b flash_attention bwd", "K10c flash_attention importance")
+                  "K10b flash_attention bwd", "K10c flash_attention importance",
+                  "K1 fused_block_attn: partial",
+                  "K3a fused_block_attn_train fwd: partial",
+                  "K3b fused_block_attn_train bwd: partial")
 
 
 # the wrappers that count their forward products by GEMM variant, and
 # those that count their backward products
-GEMM_NK = ("K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd")
+GEMM_NK = ("K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd",
+           "K2 fused_ln_mlp_collect: partial", "K4a fused_ln_mlp fwd: partial")
 GEMM_BWD = ("K3b fused_block_attn_train bwd", "K4b fused_ln_mlp bwd",
-            "K11b fused_mlp bwd")
+            "K11b fused_mlp bwd", "K3b fused_block_attn_train bwd: partial",
+            "K4b fused_ln_mlp bwd: partial", "K11b fused_mlp bwd: partial")
 
 
 def reset_launch_counts() -> None:

@@ -33,19 +33,19 @@ _F = ctypes.c_float
 # C signatures of the exported entry points (see csrc/*.cu)
 _SIGNATURES = {
     "basd_block_attn_fwd": (
-        [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P]
+        [_P] * 12 + [_I] * 7 + [_F, _F, _P]
     ),
     "basd_block_mlp_collect_fwd": (
-        [_P] * 12 + [_I, _I, _I, _I, _F, _P]
+        [_P] * 12 + [_I] * 5 + [_F, _P]
     ),
     "basd_block_attn_train_fwd": (
-        [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P]
+        [_P] * 12 + [_I] * 6 + [_F, _F, _P]
     ),
     "basd_block_attn_train_bwd": (
-        [_P] * 25 + [_I] * 5 + [_F, _F, _P]
+        [_P] * 25 + [_I] * 7 + [_F, _F, _P]
     ),
     "basd_block_mlp_bwd": (
-        [_P] * 23 + [_I] * 5 + [_F, _P]
+        [_P] * 23 + [_I] * 6 + [_F, _P]
     ),
     "basd_flash_attn_fwd": [_P] * 3 + [_I] * 4 + [_F, _P],
     "basd_flash_attn_imp": [_P] * 4 + [_I] * 4 + [_F, _P],
@@ -53,8 +53,8 @@ _SIGNATURES = {
     "basd_gemm_nk": [_P] * 4 + [_I] * 4 + [_P],
     "basd_gemm_bwd": [_P] * 6 + [_I] * 6 + [_P],
     "basd_layernorm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
-    "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 5 + [_P],
+    "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_ns_polar_onchip": [_P, _P, _I, _I, _I, _P],
     "basd_ns_polar_stream": [_P, _P, _P, _I, _I, _I, _P],

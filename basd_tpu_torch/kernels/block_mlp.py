@@ -25,6 +25,17 @@ rounded to x's dtype, mask and residual in f32, rounded once; the
 backward's rounding points are listed at ``block_mlp_plain_bwd``. Weights
 are in torch's (out, in) layout.
 
+Tensor parallelism (``parallel.mesh.ModelParallel``): a rank holds F of
+the hidden units, w1 (F, D) and w2 (D, F). The ``*_partial`` wrappers run
+the same entries with ``partial`` set: the forward stops at the f32 sums
+of fc2 over the rank's units (no b2, mask, residual or collection slab;
+``fused_ln_mlp_collect_partial`` is the teacher's K2, ``fused_ln_mlp_fwd_partial``
+the student's K4a, one entry, counted apart), the backward returns the f32
+LN VJP of the rank's own dxn without do, and its LN-parameter sums.
+``FusedLnMlpTP`` sums the shares over the model group and finishes the
+block once (``block_attn.residual_add``); the teacher's caller writes the
+finished output into the collection stack itself.
+
 At bf16 the two forward products of K2 and K4a (and of every other
 ``launch_gemm_nk`` caller) take ``csrc/gemm_sm90.cuh``'s wgmma GEMM when
 ``gemm.gemm_nk_variant`` says so, and K4b's four backward products (dW2,
@@ -39,7 +50,13 @@ from __future__ import annotations
 import torch
 
 from basd_tpu_torch.kernels import _build
-from basd_tpu_torch.kernels.block_attn import _ROW_CHUNK, _check, _mm
+from basd_tpu_torch.kernels.block_attn import (
+    _ROW_CHUNK,
+    _check,
+    _mm,
+    residual_add,
+    split_flat,
+)
 from basd_tpu_torch.kernels.gemm import (
     count_products,
     gemm_bwd_variant,
@@ -74,16 +91,24 @@ def gelu_tanh_grad(p: torch.Tensor) -> torch.Tensor:
 def block_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                     eps: float = 1e-6):
     b, n, d = x.shape
-    xnb = layernorm_plain_fwd(x, ln_scale, ln_bias, eps)[0]
-    pre = (_mm(xnb, w1) + b1).to(x.dtype).float()
-    h = gelu_tanh(pre).to(x.dtype)
-    y = (_mm(h, w2) + b2).to(x.dtype).float()
+    y = (block_mlp_plain_partial(x, ln_scale, ln_bias, w1, b1, w2, eps)
+         + b2).to(x.dtype).float()
     m = mask.float().reshape(b, 1, 1)
     return (x.float() + y * m).to(x.dtype)
 
 
+def block_mlp_plain_partial(x, ln_scale, ln_bias, w1, b1, w2,
+                            eps: float = 1e-6):
+    """The f32 sums of fc2 over w1's rows (a tensor-parallel rank's hidden
+    units), no b2, mask or residual."""
+    xnb = layernorm_plain_fwd(x, ln_scale, ln_bias, eps)[0]
+    pre = (_mm(xnb, w1) + b1).to(x.dtype).float()
+    h = gelu_tanh(pre).to(x.dtype)
+    return _mm(h, w2)
+
+
 def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
-                        eps: float = 1e-6):
+                        eps: float = 1e-6, partial: bool = False):
     """Recompute backward of K4 (``fused_block_mlp.py:95-135``).
 
     Returns (dx in x.dtype, dw1 (F, D), db1, dw2 (D, F), db2, dln_scale,
@@ -91,7 +116,8 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     identity at f32): the LN output, pre-activation and hidden; dy =
     do * mask with a rounded copy; dh = dyb W2 f32; dpre = dh gelu'(preb)
     f32 with a rounded copy into dW1 and dxn; dW2 from the rounded hidden
-    and dy; the LN VJP per row f32; dx = round(do + dxln).
+    and dy; the LN VJP per row f32; dx = round(do + dxln), or with
+    ``partial`` (a tensor-parallel rank's hidden units) the f32 dxln alone.
     """
     dt = x.dtype
     xhat, _, rstd = ln_stats_plain(x, eps)
@@ -110,7 +136,7 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     dw1 = torch.einsum("bnf,bnd->fd", dpreb, xnb.float())
     dxn = torch.matmul(dpreb, w1.float())
     dxln = ln_vjp_rows(dxn, xhat, rstd, ln_scale)
-    dx = (dof + dxln).to(dt)
+    dx = dxln if partial else (dof + dxln).to(dt)
     return (dx, dw1, dpre.sum(sum_bn), dw2, dy.sum(sum_bn),
             (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
 
@@ -148,20 +174,24 @@ def _mlp_dims(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):
 
 
 def _mlp_fwd_call(fn, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf_rows,
-                  eps):
-    """K2's entry (K4a's with no buffer); counts the launch and the
-    variants of its two products on the wrapper ``fn``."""
+                  eps, partial: bool = False):
+    """K2's entry (K4a's with no buffer; with ``partial`` fc2's f32 sums
+    alone, mask and b2 None); counts the launch and the variants of its
+    two products on the wrapper ``fn``."""
     b, n, d = x.shape
     f = w1.shape[0]
-    out = torch.empty_like(x)
+    out = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+           if partial else torch.empty_like(x))
     ws_xn = torch.empty((b * n, d), dtype=x.dtype, device=x.device)
     ws_h = torch.empty((b * n, f), dtype=x.dtype, device=x.device)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
     _build.call(
         _build.entry("basd_block_mlp_collect_fwd", x.dtype),
-        x.data_ptr(), mask.data_ptr(), ln_scale.data_ptr(),
+        x.data_ptr(), ptr(mask), ln_scale.data_ptr(),
         ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), buf_rows, ws_xn.data_ptr(),
-        ws_h.data_ptr(), b, n, d, f, float(eps), _build.stream_ptr(x.device),
+        ptr(b2), out.data_ptr(), buf_rows, ws_xn.data_ptr(),
+        ws_h.data_ptr(), b, n, d, f, int(partial), float(eps),
+        _build.stream_ptr(x.device),
     )
     fn.launches += 1
     for ptrs, n_out, k in (((ws_xn, w1, ws_h), f, d), ((ws_h, w2, out), d, f)):
@@ -304,6 +334,32 @@ def fused_ln_mlp_fwd(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                          w2, b2, None, eps)
 
 
+def _mlp_partial(fn, x, ln_scale, ln_bias, w1, b1, w2, eps):
+    if x.device.type == "cpu":
+        return block_mlp_plain_partial(x, ln_scale, ln_bias, w1, b1, w2, eps)
+    ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    _check_mlp(fn.__name__, x, ones, ln_scale, ln_bias, w1, b1, w2, None)
+    return _mlp_fwd_call(fn, x, None, ln_scale, ln_bias, w1, b1, w2, None,
+                         None, eps, partial=True)
+
+
+def fused_ln_mlp_collect_partial(x, ln_scale, ln_bias, w1, b1, w2,
+                                 eps: float = 1e-6):
+    """K2's share on a tensor-parallel rank of F (>= 1) hidden units (the
+    teacher's; its caller writes the finished output into the stack):
+    the f32 sums of fc2, (B, N, D), no b2, mask or residual."""
+    return _mlp_partial(fused_ln_mlp_collect_partial, x, ln_scale, ln_bias,
+                        w1, b1, w2, eps)
+
+
+def fused_ln_mlp_fwd_partial(x, ln_scale, ln_bias, w1, b1, w2,
+                             eps: float = 1e-6):
+    """K4a's share on a tensor-parallel rank (the student's): as
+    ``fused_ln_mlp_collect_partial``, counted apart."""
+    return _mlp_partial(fused_ln_mlp_fwd_partial, x, ln_scale, ln_bias, w1,
+                        b1, w2, eps)
+
+
 def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
                      eps: float = 1e-6):
     """K4b: ``(dx in x's dtype, dw1, db1, dw2, db2, dln_scale,
@@ -312,19 +368,55 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
         return block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1,
                                    w2, eps)
     b, n, d = x.shape
-    f = w1.shape[0]
     f32, dt = torch.float32, x.dtype
     _check_mlp("fused_ln_mlp_bwd", x, mask, ln_scale, ln_bias, w1, b1, w2,
                None, ("dout", dout, dt, (b, n, d)))
+    dx = torch.empty_like(x)
+    db2, dln_s, dln_b = (torch.empty((d,), dtype=f32, device=x.device)
+                         for _ in range(3))
+    dw1, db1, dw2 = _mlp_bwd_call(fused_ln_mlp_bwd, x, mask, dout, ln_scale,
+                                  ln_bias, w1, b1, w2, dx, db2, dln_s, dln_b,
+                                  False, eps)
+    return dx, dw1, db1, dw2, db2, dln_s, dln_b
+
+
+def fused_ln_mlp_bwd_partial(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
+                             eps: float = 1e-6):
+    """K4b's share on a tensor-parallel rank of F (>= 1) hidden units:
+    ``(flat, dw1, db1, dw2)``, ``flat`` one f32 buffer of the rank's dxln
+    (B*N*D, without do) and its LN-parameter sums (D, D), for one
+    all-reduce (``split_flat(flat, (B, N, D), (D,), (D,))``); db2 is the
+    caller's."""
+    b, n, d = x.shape
+    if x.device.type == "cpu":
+        dx, dw1, db1, dw2, _, dls, dlb = block_mlp_plain_bwd(
+            x, mask, dout, ln_scale, ln_bias, w1, b1, w2, eps, partial=True)
+        return torch.cat([dx.reshape(-1), dls, dlb]), dw1, db1, dw2
+    _check_mlp("fused_ln_mlp_bwd_partial", x, mask, ln_scale, ln_bias, w1, b1,
+               w2, None, ("dout", dout, x.dtype, (b, n, d)))
+    flat = torch.empty((b * n * d + 2 * d,), dtype=torch.float32,
+                       device=x.device)
+    dx, dln_s, dln_b = split_flat(flat, (b, n, d), (d,), (d,))
+    dw1, db1, dw2 = _mlp_bwd_call(fused_ln_mlp_bwd_partial, x, mask, dout,
+                                  ln_scale, ln_bias, w1, b1, w2, dx, None,
+                                  dln_s, dln_b, True, eps)
+    return flat, dw1, db1, dw2
+
+
+def _mlp_bwd_call(fn, x, mask, dout, ln_scale, ln_bias, w1, b1, w2, dx, db2,
+                  dln_s, dln_b, partial, eps):
+    """K4b's entry on checked inputs (``partial``: the f32 dxln into dx, db2
+    None); counts the launch and its products on ``fn``. Returns (dw1, db1,
+    dw2)."""
+    b, n, d = x.shape
+    f = w1.shape[0]
+    f32, dt = torch.float32, x.dtype
     m = b * n
     dev = x.device
     chunks = -(-m // _ROW_CHUNK)
-    dx = torch.empty_like(x)
     dw1 = torch.empty((f, d), dtype=f32, device=dev)
     db1 = torch.empty((f,), dtype=f32, device=dev)
     dw2 = torch.empty((d, f), dtype=f32, device=dev)
-    db2, dln_s, dln_b = (torch.empty((d,), dtype=f32, device=dev)
-                         for _ in range(3))
     ws_xn, ws_dyb = (torch.empty((m, d), dtype=dt, device=dev)
                      for _ in range(2))
     ws_pre, ws_h, ws_dpre = (torch.empty((m, f), dtype=dt, device=dev)
@@ -344,31 +436,31 @@ def fused_ln_mlp_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
         x.data_ptr(), mask.data_ptr(), dout.data_ptr(), ln_scale.data_ptr(),
         ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-        db2.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), ws_xn.data_ptr(),
+        0 if db2 is None else db2.data_ptr(), dln_s.data_ptr(),
+        dln_b.data_ptr(), ws_xn.data_ptr(),
         ws_stats.data_ptr(), ws_pre.data_ptr(), ws_h.data_ptr(),
         ws_dyb.data_ptr(), ws_dpre.data_ptr(), ws_f32.data_ptr(),
-        ws_part.data_ptr(), b, n, d, f, _ROW_CHUNK, float(eps),
+        ws_part.data_ptr(), b, n, d, f, _ROW_CHUNK, int(partial), float(eps),
         _build.stream_ptr(dev),
     )
-    fused_ln_mlp_bwd.launches += 1
+    fn.launches += 1
     # dW2 = dyb^T h, dpre = (dyb W2) gelu'(pre), dW1 = dpre^T xn, dxn =
     # dpre W1 (csrc/block_train.cu)
-    count_products(fused_ln_mlp_bwd, dt, (
+    count_products(fn, dt, (
         ((d, f), (ws_dyb, ws_h, ws_part)),
         ((d, f), (ws_dyb, w2, ws_dpre, ws_part, ws_pre)),
         ((f, d), (ws_dpre, ws_xn, ws_part)),
         ((f, d), (ws_dpre, w1, ws_f32))))
-    return dx, dw1, db1, dw2, db2, dln_s, dln_b
+    return dw1, db1, dw2
 
 
-fused_ln_mlp_collect.launches = 0
-fused_ln_mlp_fwd.launches = 0
-fused_ln_mlp_bwd.launches = 0
 # forward products by GEMM variant (gemm.gemm_nk_variant), two a launch;
 # K4b's backward products (gemm.gemm_bwd_variant), four a launch
-fused_ln_mlp_collect.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
-fused_ln_mlp_fwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
-fused_ln_mlp_bwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
+for _fn in (fused_ln_mlp_collect, fused_ln_mlp_fwd, fused_ln_mlp_bwd,
+            fused_ln_mlp_collect_partial, fused_ln_mlp_fwd_partial,
+            fused_ln_mlp_bwd_partial):
+    _fn.launches = 0
+    _fn.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedLnMlp(torch.autograd.Function):
@@ -397,3 +489,74 @@ def fused_ln_mlp(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
     """``x + mask * fc2(gelu_tanh(fc1(LN(x))))``, differentiable (K4a/K4b)."""
     return FusedLnMlp.apply(x.contiguous(), mask, ln_scale, ln_bias, w1, b1,
                             w2, b2, eps)
+
+
+def _mlp_share(partial_fn, x, ln_scale, ln_bias, w1, b1, w2, eps):
+    """A rank's fc2 sums (zeros, and no launch, for a rank without hidden
+    units)."""
+    if w1.shape[0]:
+        return partial_fn(x, ln_scale, ln_bias, w1, b1, w2, eps)
+    return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
+
+def fused_ln_mlp_collect_tp(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, buf,
+                            idx: int, eps: float, reduce_):
+    """The teacher's MLP half on a tensor-parallel rank (forward only): K2's
+    share summed over the model group in place by ``reduce_``, the block
+    finished once (``residual_add``) and written into rows
+    ``[idx*B*N, (idx+1)*B*N)`` of the stack ``buf``."""
+    acc = _mlp_share(fused_ln_mlp_collect_partial, x, ln_scale, ln_bias, w1,
+                     b1, w2, eps)
+    reduce_(acc)
+    out = residual_add(x, mask, acc, b2)
+    m = out.shape[0] * out.shape[1]
+    buf[idx * m:(idx + 1) * m] = out.reshape(m, out.shape[-1])
+    return out
+
+
+class FusedLnMlpTP(torch.autograd.Function):
+    """The student's MLP half on a tensor-parallel rank: K4a's share summed
+    over the model group (``reduce_``, in place), then ``residual_add``;
+    backward: K4b's share (dxln and the LN-parameter sums in one buffer)
+    summed the same way, dx = x's dtype of do + the sum, db2 the sum of
+    do * mask (the same bits on every rank). A rank without hidden units
+    launches nothing and contributes zeros."""
+
+    @staticmethod
+    def forward(ctx, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps,
+                reduce_):
+        acc = _mlp_share(fused_ln_mlp_fwd_partial, x, ln_scale, ln_bias, w1,
+                         b1, w2, eps)
+        reduce_(acc)
+        ctx.save_for_backward(x, mask, ln_scale, ln_bias, w1, b1, w2)
+        ctx.eps, ctx.reduce_ = eps, reduce_
+        return residual_add(x, mask, acc, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, mask, ln_s, ln_b, w1, b1, w2 = ctx.saved_tensors
+        b, n, d = x.shape
+        dout = dout.to(x.dtype).contiguous()
+        if w1.shape[0]:
+            flat, dw1, db1, dw2 = fused_ln_mlp_bwd_partial(
+                x, mask, dout, ln_s, ln_b, w1, b1, w2, ctx.eps)
+        else:
+            flat = torch.zeros((b * n * d + 2 * d,), dtype=torch.float32,
+                               device=x.device)
+            dw1, db1, dw2 = (torch.zeros(t.shape, dtype=torch.float32,
+                                         device=x.device) for t in (w1, b1, w2))
+        ctx.reduce_(flat)
+        dxln, dls, dlb = split_flat(flat, (b, n, d), (d,), (d,))
+        dy = dout.float() * mask.float().reshape(-1, 1, 1)
+        dx = (dout.float() + dxln).to(x.dtype)
+        return (dx, None, dls.to(ln_s.dtype), dlb.to(ln_b.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                dy.sum((0, 1)), None, None)
+
+
+def fused_ln_mlp_tp(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
+                    reduce_):
+    """``x + mask * fc2(gelu_tanh(fc1(LN(x))))`` on a tensor-parallel rank,
+    differentiable (``FusedLnMlpTP``)."""
+    return FusedLnMlpTP.apply(x.contiguous(), mask, ln_scale, ln_bias, w1, b1,
+                              w2, b2, eps, reduce_)

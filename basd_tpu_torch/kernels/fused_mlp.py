@@ -20,6 +20,13 @@ every dtype: the fused MLP never takes erf), the hidden state rounded into
 fc2, ``out = (acc + b2)`` rounded once; the backward's points are listed at
 ``fused_mlp_plain_bwd``. Weights are in torch's (out, in) layout, the
 transpose of the JAX kernel's (in, out).
+
+Tensor parallelism (``parallel.mesh.ModelParallel``): a rank holds F of the
+hidden units. ``fused_mlp_fwd_partial`` (K11a with ``partial`` set) returns
+the f32 sums of fc2 over them without b2; ``fused_mlp_bwd_partial`` (K11b)
+the f32 input gradient without rounding, db2 left to the caller; each
+counts its own launches. ``FusedMlpPartial`` wraps them for the module
+chain, which sums the shares over the model group and adds b2 once.
 """
 
 from __future__ import annotations
@@ -38,14 +45,17 @@ from basd_tpu_torch.kernels.gemm import (
 
 
 def fused_mlp_plain_fwd(x, w1, b1, w2, b2):
-    """(B, N, Do) in x.dtype; w1 (F, D), w2 (Do, F)."""
+    """(B, N, Do) in x.dtype; w1 (F, D), w2 (Do, F); ``b2`` None: the f32
+    sums of fc2 alone (a tensor-parallel rank's share)."""
     dt = x.dtype
     pre = (_mm(x, w1) + b1.float()).to(dt).float()
     h = gelu_tanh(pre).to(dt)
+    if b2 is None:
+        return _mm(h, w2)
     return (_mm(h, w2) + b2.float()).to(dt)
 
 
-def fused_mlp_plain_bwd(x, dout, w1, b1, w2):
+def fused_mlp_plain_bwd(x, dout, w1, b1, w2, partial: bool = False):
     """Recompute backward of K11 (``fused_mlp.py:93-133``).
 
     Returns (dx in x.dtype, dw1 (F, D), db1 (F), dw2 (Do, F), db2 (Do)),
@@ -64,7 +74,9 @@ def fused_mlp_plain_bwd(x, dout, w1, b1, w2):
     dpre = dh * gelu_tanh_grad(pre)
     dpreb = dpre.to(dt).float()
     dw1 = torch.matmul(dpreb.t(), x2.float())
-    dx = torch.matmul(dpreb, w1.float()).to(dt)
+    dx = torch.matmul(dpreb, w1.float())
+    if not partial:  # a tensor-parallel share stays f32
+        dx = dx.to(dt)
     return dx.reshape(x.shape), dw1, dpre.sum(0), dw2, do2.sum(0)
 
 
@@ -106,16 +118,34 @@ def fused_mlp_fwd(x, w1, b1, w2, b2):
     """
     if x.device.type == "cpu":
         return fused_mlp_plain_fwd(x, w1, b1, w2, b2)
-    m, d, f, do_ = _check_mlp("fused_mlp_fwd", x, w1, b1, w2,
-                              ("b2", b2, torch.float32, (w2.shape[0],)))
-    out = torch.empty(x.shape[:-1] + (do_,), dtype=x.dtype, device=x.device)
+    _check_mlp("fused_mlp_fwd", x, w1, b1, w2,
+               ("b2", b2, torch.float32, (w2.shape[0],)))
+    return _fwd_call(fused_mlp_fwd, x, w1, b1, w2, b2)
+
+
+def _fwd_call(fn, x, w1, b1, w2, b2):
+    """K11a's entry on checked inputs (``b2`` None: the partial mode, f32
+    out); counts the launch on ``fn``."""
+    m, f, do_ = x.shape[0] * x.shape[1], w1.shape[0], w2.shape[0]
+    dt = x.dtype if b2 is not None else torch.float32
+    out = torch.empty(x.shape[:-1] + (do_,), dtype=dt, device=x.device)
     ws_h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     _build.call(_build.entry("basd_fused_mlp_fwd", x.dtype), x.data_ptr(),
-                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                out.data_ptr(),
-                ws_h.data_ptr(), m, d, f, do_, _build.stream_ptr(x.device))
-    fused_mlp_fwd.launches += 1
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                0 if b2 is None else b2.data_ptr(), out.data_ptr(),
+                ws_h.data_ptr(), m, x.shape[-1], f, do_, int(b2 is None),
+                _build.stream_ptr(x.device))
+    fn.launches += 1
     return out
+
+
+def fused_mlp_fwd_partial(x, w1, b1, w2):
+    """K11a's share on a tensor-parallel rank of F (>= 1) hidden units: the
+    f32 sums of fc2, (B, N, Do), no b2."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain_fwd(x, w1, b1, w2, None)
+    _check_mlp("fused_mlp_fwd_partial", x, w1, b1, w2)
+    return _fwd_call(fused_mlp_fwd_partial, x, w1, b1, w2, None)
 
 
 def fused_mlp_bwd(x, dout, w1, b1, w2):
@@ -123,13 +153,31 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
     and summed over the rows."""
     if x.device.type == "cpu":
         return fused_mlp_plain_bwd(x, dout, w1, b1, w2)
-    m, d, f, do_ = _check_mlp(
-        "fused_mlp_bwd", x, w1, b1, w2,
-        ("dout", dout, x.dtype, x.shape[:-1] + (w2.shape[0],)))
+    _check_mlp("fused_mlp_bwd", x, w1, b1, w2,
+               ("dout", dout, x.dtype, x.shape[:-1] + (w2.shape[0],)))
+    return _bwd_call(fused_mlp_bwd, x, dout, w1, b1, w2, False)
+
+
+def fused_mlp_bwd_partial(x, dout, w1, b1, w2):
+    """K11b's share on a tensor-parallel rank of F (>= 1) hidden units:
+    ``(dx f32, dw1, db1, dw2)``, dx = dpre W1 unrounded; db2 is the
+    caller's."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain_bwd(x, dout, w1, b1, w2, partial=True)[:4]
+    _check_mlp("fused_mlp_bwd_partial", x, w1, b1, w2,
+               ("dout", dout, x.dtype, x.shape[:-1] + (w2.shape[0],)))
+    return _bwd_call(fused_mlp_bwd_partial, x, dout, w1, b1, w2, True)[:4]
+
+
+def _bwd_call(fn, x, dout, w1, b1, w2, partial):
+    """K11b's entry on checked inputs (``partial``: f32 dx, no db2);
+    counts the launch and its products on ``fn``."""
+    m, d, f, do_ = x.shape[0] * x.shape[1], x.shape[-1], w1.shape[0], w2.shape[0]
     dev = x.device
     f32 = torch.float32
     chunks = -(-m // _ROW_CHUNK)
-    dx = torch.empty_like(x)
+    dx = (torch.empty(x.shape, dtype=f32, device=dev) if partial
+          else torch.empty_like(x))
     dw1 = torch.empty((f, d), dtype=f32, device=dev)
     db1 = torch.empty((f,), dtype=f32, device=dev)
     dw2 = torch.empty((do_, f), dtype=f32, device=dev)
@@ -149,12 +197,12 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
         b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws_pre.data_ptr(),
         ws_h.data_ptr(), ws_dpre.data_ptr(), ws_part.data_ptr(), m, d, f, do_,
-        _ROW_CHUNK, _build.stream_ptr(dev),
+        _ROW_CHUNK, int(partial), _build.stream_ptr(dev),
     )
-    fused_mlp_bwd.launches += 1
+    fn.launches += 1
     # dW2 = do^T h, dpre = (do W2) gelu'(pre), dW1 = dpre^T x, dx = dpre W1
     # (csrc/fused_mlp.cu)
-    count_products(fused_mlp_bwd, x.dtype, (
+    count_products(fn, x.dtype, (
         ((do_, f), (dout, ws_h, ws_part)),
         ((do_, f), (dout, w2, ws_dpre, ws_part, ws_pre)),
         ((f, d), (ws_dpre, x, ws_part)),
@@ -162,10 +210,12 @@ def fused_mlp_bwd(x, dout, w1, b1, w2):
     return dx, dw1, db1, dw2, db2
 
 
-fused_mlp_fwd.launches = 0
-fused_mlp_bwd.launches = 0
+for _fn in (fused_mlp_fwd, fused_mlp_bwd, fused_mlp_fwd_partial,
+            fused_mlp_bwd_partial):
+    _fn.launches = 0
 # backward products by GEMM variant (gemm.gemm_bwd_variant), four a launch
 fused_mlp_bwd.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
+fused_mlp_bwd_partial.gemm_variants = {"sm90": 0, "wmma": 0, "f32": 0}
 
 
 class FusedMlp(torch.autograd.Function):
@@ -189,3 +239,30 @@ class FusedMlp(torch.autograd.Function):
 def fused_mlp(x, w1, b1, w2, b2):
     """``fc2(gelu_tanh(fc1(x)))``, differentiable (K11a/K11b)."""
     return FusedMlp.apply(x.contiguous(), w1, b1, w2, b2)
+
+
+class FusedMlpPartial(torch.autograd.Function):
+    """A tensor-parallel rank's share of the fused MLP: K11a's f32 sums
+    forward, K11b's backward. ``x`` comes in f32 (the model group's
+    ``copy_in`` sums its gradient in f32) holding values of ``dtype``, which
+    the kernels take; its gradient goes back in f32, unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, dtype):
+        xd = x.to(dtype)
+        ctx.save_for_backward(xd, w1, b1, w2)
+        return fused_mlp_fwd_partial(xd, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        xd, w1, b1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2 = fused_mlp_bwd_partial(
+            xd, dout.to(xd.dtype).contiguous(), w1, b1, w2)
+        return (dx.float(), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), None)
+
+
+def fused_mlp_partial(x, w1, b1, w2, dtype):
+    """``fc2(gelu_tanh(fc1(x)))``'s f32 sums without b2 on a tensor-parallel
+    rank, differentiable (``FusedMlpPartial``)."""
+    return FusedMlpPartial.apply(x.contiguous(), w1, b1, w2, dtype)

@@ -38,6 +38,23 @@ CUDA and dense otherwise. ``Block`` hands ``flash`` / ``fused`` / ``auto``
 through and maps ``module`` to ``einsum`` / ``dense``, as
 ``layers.py:481-483`` and ``553-555`` do. On a CPU tensor every kernel
 wrapper takes its plain version.
+
+Tensor parallelism (``parallel.mesh.ModelParallel``, ``Block.set_tp``): a
+block on a rank of a model group holds its heads' qkv rows and proj
+columns and its hidden units' fc1 rows and fc2 columns. Each half computes
+its share of the row-parallel product in f32 without bias, sums the shares
+over the group, then adds bias, LayerScale, mask and residual once, so the
+rounding points of the one-rank block survive: the fused halves through
+``block_attn.fused_block_attn_tp`` (K1), ``FusedBlockAttnTrainTP`` (K3),
+``block_mlp.fused_ln_mlp_collect_tp`` (K2) and ``FusedLnMlpTP`` (K4), which
+sum in place inside (forward: the share; backward: dxln with the LN
+gradients); the module chain through ``copy_in`` on the normalised input
+(f32), ``Attention.share`` / ``Mlp.share`` (K10 on the rank's heads, K11's
+partial entry) and ``reduce``. The CLS importance is each rank's heads'
+rows over the block's head count, summed the same way. Under remat the
+recompute runs a half's forward sum again; the backward's sums are
+``copy_in``'s (module chain) or the fused Functions' own. ``tp`` None (one
+process, or ``model: 1``) runs the code above unchanged.
 """
 
 from __future__ import annotations
@@ -52,14 +69,21 @@ from torch import nn
 
 from basd_tpu_torch.kernels.block_attn import (
     fused_block_attn,
+    fused_block_attn_tp,
     fused_block_attn_train,
+    fused_block_attn_train_tp,
 )
-from basd_tpu_torch.kernels.block_mlp import fused_ln_mlp, fused_ln_mlp_collect
+from basd_tpu_torch.kernels.block_mlp import (
+    fused_ln_mlp,
+    fused_ln_mlp_collect,
+    fused_ln_mlp_collect_tp,
+    fused_ln_mlp_tp,
+)
 from basd_tpu_torch.kernels.flash_attention import (
     flash_attention_qkv,
     flash_attention_qkv_with_importance,
 )
-from basd_tpu_torch.kernels.fused_mlp import fused_mlp
+from basd_tpu_torch.kernels.fused_mlp import fused_mlp, fused_mlp_partial
 from basd_tpu_torch.kernels.layernorm import fused_layernorm
 
 
@@ -172,13 +196,34 @@ class Mlp(nn.Module):
         self.compute_dtype = dtype
         self.mlp_impl = mlp_impl
 
+    def _impl(self, x, impl):
+        impl = impl or self.mlp_impl
+        if impl == "auto":
+            impl = ("fused" if x.is_cuda and self.compute_dtype == torch.bfloat16
+                    and x.dim() == 3 else "dense")
+        return impl
+
+    def share(self, x32, tp, impl: Optional[str] = None):
+        """A tensor-parallel rank's share: the f32 sums of fc2 over its
+        hidden units, no bias, from ``x32`` (the normalised input in f32,
+        after ``copy_in``); zeros for a rank without units."""
+        dt = self.compute_dtype
+        if not self.fc1.out_features:
+            return tp.zero_share(x32, x32.shape)
+        if self._impl(x32, impl) == "fused":
+            with unkept_products():
+                return fused_mlp_partial(x32, self.fc1.weight.to(dt),
+                                         self.fc1.bias, self.fc2.weight.to(dt),
+                                         dt)
+        approx = "tanh" if dt == torch.bfloat16 else "none"
+        h = F.gelu(self.fc1(x32), approximate=approx)
+        with unkept_products():
+            return torch.matmul(h.float(), self.fc2.weight.float().t())
+
     def forward(self, x, impl: Optional[str] = None):
         """``impl``: overrides ``mlp_impl`` for this call."""
         dt = self.compute_dtype
-        impl = impl or self.mlp_impl
-        if impl == "auto":
-            impl = ("fused" if x.is_cuda and dt == torch.bfloat16
-                    and x.dim() == 3 else "dense")
+        impl = self._impl(x, impl)
         if impl == "fused":
             with unkept_products():
                 return fused_mlp(x.to(dt), self.fc1.weight.to(dt),
@@ -201,34 +246,55 @@ class Attention(nn.Module):
                  attention_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.importance_mode = importance_mode
         self.qkv = Linear(dim, 3 * dim, dtype)
         self.proj = Linear(dim, dim, dtype)
         self.compute_dtype = dtype
         self.attention_impl = attention_impl
 
-    def forward(self, x, impl: Optional[str] = None):
-        """``impl``: overrides ``attention_impl`` for this call."""
-        b, n, d = x.shape
-        h = self.num_heads
-        e = d // h
+    @property
+    def local_heads(self) -> int:
+        """The heads this module holds (all of them without a model
+        group)."""
+        return self.qkv.out_features // (3 * self.head_dim)
+
+    def share(self, x32, tp, impl: Optional[str] = None):
+        """A tensor-parallel rank's share: ``(the f32 sums of proj over its
+        heads, no bias; its heads' importance rows over the block's head
+        count, or None)`` from ``x32`` (the normalised input in f32, after
+        ``copy_in``); zeros for a rank without heads."""
+        b, n, d = x32.shape
+        h, e = self.local_heads, self.head_dim
+        mode = self.importance_mode
+        n_imp = n if mode == "mean" else n - 1
+        if not h:
+            imp = (x32.new_zeros((b, n_imp), dtype=torch.float32)
+                   if mode else None)
+            return tp.zero_share(x32, (b, n, d)), imp
+        out, imp = self._heads_out(self.qkv(x32), h, e, impl)
+        if imp is not None:  # the head sum over the block's head count
+            imp = imp * (h / self.num_heads)
+        return torch.matmul(out.float(), self.proj.weight.float().t()), imp
+
+    def _heads_out(self, qkv, h: int, e: int, impl):
+        """The attention output (B, N, h E) of the slab's ``h`` heads and
+        the head-mean importance (or None)."""
+        b, n, _ = qkv.shape
         scale = e ** -0.5
-        qkv = self.qkv(x)
         impl = impl or self.attention_impl
         if impl == "auto":
             impl = attention_auto_impl(qkv.is_cuda)
-        importance = None
         if impl == "flash" and self.importance_mode != "mean":
             if self.importance_mode == "cls":
                 out, imp_full = flash_attention_qkv_with_importance(
                     qkv, h, float(scale))
-                importance = imp_full[:, 1:]  # strip the CLS key
-            else:
-                out = flash_attention_qkv(qkv, h, float(scale))
-            return self.proj(out), importance
+                return out, imp_full[:, 1:]  # strip the CLS key
+            return flash_attention_qkv(qkv, h, float(scale)), None
         q, k, v = (t.reshape(b, n, h, e).transpose(1, 2)
-                   for t in qkv.split(d, dim=-1))  # (B, H, N, E)
+                   for t in qkv.split(h * e, dim=-1))  # (B, H, N, E)
         scores = torch.matmul(q, k.transpose(-1, -2))
+        importance = None
         if self.importance_mode == "mean":
             probs = torch.softmax(scores.float() * scale, dim=-1)
             importance = probs.mean(dim=(1, 2))
@@ -239,7 +305,12 @@ class Attention(nn.Module):
                 importance = cls_probs[..., 1:].mean(1)
             probs = torch.softmax((scores * scale).float(), dim=-1)
             out = torch.matmul(probs.to(self.compute_dtype), v)
-        out = out.transpose(1, 2).reshape(b, n, d)
+        return out.transpose(1, 2).reshape(b, n, h * e), importance
+
+    def forward(self, x, impl: Optional[str] = None):
+        """``impl``: overrides ``attention_impl`` for this call."""
+        out, importance = self._heads_out(self.qkv(x), self.num_heads,
+                                          x.shape[-1] // self.num_heads, impl)
         return self.proj(out), importance
 
 
@@ -288,6 +359,22 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.ls2 = (LayerScale(dim, layerscale_init)
                     if layerscale_init is not None else None)
+        self.tp = None  # the model group (set_tp)
+
+    def set_tp(self, tp, shard: dict) -> None:
+        """Make this block a rank's of the model group ``tp``: its qkv,
+        proj, fc1 and fc2 parameters become the tensors of ``shard`` (keys
+        relative to the block, e.g. ``'attn.qkv.weight'``, cut by
+        ``port.shard_state_dict``), their ``requires_grad`` kept."""
+        for name, t in shard.items():
+            mod_name, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(mod_name)
+            old = getattr(mod, leaf)
+            setattr(mod, leaf, nn.Parameter(t.to(old.device, old.dtype),
+                                            requires_grad=old.requires_grad))
+            if leaf == "weight":
+                mod.out_features, mod.in_features = t.shape
+        self.tp = tp
 
     def _attn_path(self, x, drop) -> str:
         """``layers.py:392-429``: 'fused_block' (K1), 'fused_block_train'
@@ -316,14 +403,16 @@ class Block(nn.Module):
         return block_mlp_path(self.mlp_impl, x.is_cuda, self.compute_dtype,
                               x.dim())
 
-    @staticmethod
-    def _fold(w, b, ls):
+    def _fold(self, w, b, ls):
         """LayerScale folded into the (out, in) weight and bias, outside
-        the kernel (``layers.py:438-445``, ``528-532``)."""
+        the kernel (``layers.py:438-445``, ``528-532``). On a rank of a
+        model group the weight is its shard: gamma enters it through
+        ``copy_in``, so that gamma's gradient sums the ranks' shares."""
         if ls is None:
             return w, b
         g = ls.gamma.float()
-        return w * g[:, None], b * g
+        gw = g if self.tp is None else self.tp.copy_in(g)
+        return w * gw[:, None], b * g
 
     @staticmethod
     def _mask(drop, branch: int, b: int, device) -> torch.Tensor:
@@ -342,6 +431,8 @@ class Block(nn.Module):
         (2, B) bool draw for the two residual branches. ``buf``: the flat
         (L*B*N, D) collection stack that receives this block's output at
         rows ``[idx*B*N, (idx+1)*B*N)``."""
+        if self.tp is not None:
+            return self._forward_tp(x, drop, buf, idx)
         bf = torch.bfloat16
         attn_path = self._attn_path(x, drop)
         importance = None
@@ -403,6 +494,79 @@ class Block(nn.Module):
                         f"does not match block output {tuple(x.shape)}/"
                         f"{x.dtype}"
                     )
+                buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
+
+        if importance is None:
+            n_tok = x.shape[1] - 1 if self.has_cls_token else x.shape[1]
+            importance = torch.zeros((x.shape[0], n_tok), device=x.device)
+        return x, importance
+
+    # ------------------------------------------------- tensor parallelism
+
+    def _finish(self, x, acc, bias, ls, drop, branch: int):
+        """The module chain's end of a half on a model group's rank, after
+        the shares' sum ``acc`` (f32): bias, rounded to the block's dtype
+        once, LayerScale, stochastic depth, residual."""
+        y = (acc + bias.float()).to(self.compute_dtype)
+        if ls is not None:
+            y = ls(y)
+        if drop is not None:
+            y = drop_path(y, drop[1][branch], drop[0])
+        return x + y
+
+    def _forward_tp(self, x, drop, buf, idx):
+        tp = self.tp
+        bf, dt = torch.bfloat16, self.compute_dtype
+        attn_path = self._attn_path(x, drop)
+        importance = None
+        if attn_path in ("fused_block", "fused_block_train"):
+            wp, bp = self._fold(self.attn.proj.weight, self.attn.proj.bias,
+                                self.ls1)
+            args = (self.norm1.weight.float(), self.norm1.bias.float(),
+                    self.attn.qkv.weight.to(bf), self.attn.qkv.bias.float(),
+                    wp.to(bf), bp.float(), self.attn.local_heads,
+                    self.attn.head_dim)
+            if attn_path == "fused_block":
+                x, imp_full = fused_block_attn_tp(
+                    x.contiguous(), *args, self.num_heads, self.norm_eps,
+                    tp.all_reduce_)
+                importance = imp_full[:, 1:]  # strip the CLS key
+            else:
+                with unkept_products():
+                    x = fused_block_attn_train_tp(
+                        x, self._mask(drop, 0, x.shape[0], x.device), *args,
+                        self.norm_eps, tp.all_reduce_)
+        else:
+            acc, importance = self.attn.share(
+                tp.copy_in(self.norm1(x).float()), tp,
+                {"module": "einsum"}.get(attn_path, attn_path))
+            if importance is not None:
+                importance = tp.reduce(importance)
+            x = self._finish(x, tp.reduce(acc), self.attn.proj.bias, self.ls1,
+                             drop, 0)
+
+        mlp_path = self._mlp_path(x)
+        if mlp_path == "fused_ln":
+            w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
+                                self.ls2)
+            args = (self._mask(drop, 1, x.shape[0], x.device),
+                    self.norm2.weight.float(), self.norm2.bias.float(),
+                    self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.float(),
+                    w2.to(dt), b2.float())
+            if buf is not None:
+                x = fused_ln_mlp_collect_tp(x.contiguous(), *args, buf, idx,
+                                            self.norm_eps, tp.all_reduce_)
+            else:
+                with unkept_products():
+                    x = fused_ln_mlp_tp(x, *args, self.norm_eps,
+                                        tp.all_reduce_)
+        else:
+            acc = self.mlp.share(tp.copy_in(self.norm2(x).float()), tp,
+                                 {"module": "dense"}.get(mlp_path, mlp_path))
+            x = self._finish(x, tp.reduce(acc), self.mlp.fc2.bias, self.ls2,
+                             drop, 1)
+            if buf is not None:
+                m = x.shape[0] * x.shape[1]
                 buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
 
         if importance is None:

@@ -20,6 +20,12 @@ included), the inverse of ``port.py:232-329``; ``selector_state_from_jax``
 the selector's parameter and buffers (``basd_tpu/losses/selector.py:71-90``).
 All are re-implemented here (importing the JAX modules would import jax),
 so both packages compute the same function from the same weights.
+
+Tensor parallelism (``parallel.mesh``): ``shard_state_dict`` cuts a full
+ViT state dict (the one layout, e.g. ``state_dict_from_jax``'s output) down
+to one rank's shard of its blocks, ``gather_state_dict`` puts the ranks'
+shards back together over the model group: a checkpoint is always the
+whole, one-process state.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from basd_tpu_torch.parallel.mesh import split_range
 
 
 def _t(x) -> torch.Tensor:
@@ -324,3 +333,93 @@ def port_torch_checkpoint(sd: dict, bundle) -> None:
         if k.endswith("num_batches_tracked") and k not in out:
             out[k] = v
     module.load_state_dict(out, strict=True)
+
+
+# the block parameters a tensor-parallel rank holds a shard of: column-
+# parallel qkv and fc1 (rows, with their biases), row-parallel proj and fc2
+# (columns); every other key is replicated
+_TP_KEY = re.compile(r"(?:^|\.)blocks\.\d+\.(attn\.qkv\.weight|attn\.qkv\.bias|"
+                     r"attn\.proj\.weight|mlp\.fc1\.weight|mlp\.fc1\.bias|"
+                     r"mlp\.fc2\.weight)$")
+
+
+def tp_key(key: str) -> str | None:
+    """Which sharded block parameter ``key`` names (``'attn.qkv.weight'``
+    ...), or None for a replicated one; any prefix (``'student.'``)."""
+    m = _TP_KEY.search(key)
+    return m.group(1) if m else None
+
+
+def _tp_pieces(kind: str, rank_world, num_heads: int, dim: int, hidden: int):
+    """The (axis, [(start, stop), ...]) of the full tensor that rank
+    ``(rank, world)`` holds, in its shard's order: its heads' rows of q,
+    k and v, its heads' columns of proj, its hidden units' rows of fc1 and
+    columns of fc2."""
+    rank, world = rank_world
+    if kind.startswith("attn"):
+        e = dim // num_heads
+        h0, h1 = split_range(num_heads, world, rank)
+        if kind == "attn.proj.weight":
+            return 1, [(h0 * e, h1 * e)]
+        return 0, [(p * dim + h0 * e, p * dim + h1 * e) for p in range(3)]
+    f0, f1 = split_range(hidden, world, rank)
+    return (1 if kind == "mlp.fc2.weight" else 0), [(f0, f1)]
+
+
+def shard_state_dict(sd: dict, tp, num_heads: int) -> dict:
+    """A full ViT state dict (keys of any prefix) -> this rank's: qkv
+    weight rows (3 h E, D) and bias of its heads of q, then k, then v;
+    proj weight columns (D, h E); fc1 weight rows (F_r, D) and bias; fc2
+    weight columns (D, F_r); every other entry as it is (the same
+    tensor)."""
+    out = {}
+    for key, t in sd.items():
+        kind = tp_key(key)
+        if kind is None:
+            out[key] = t
+            continue
+        dim = t.shape[-1] if kind == "attn.qkv.weight" else None
+        dim = dim or (t.shape[0] // 3 if kind == "attn.qkv.bias"
+                      else t.shape[0])
+        hidden = t.shape[1] if kind == "mlp.fc2.weight" else t.shape[0]
+        axis, pieces = _tp_pieces(kind, (tp.rank, tp.world), num_heads, dim,
+                                  hidden)
+        out[key] = torch.cat([t.narrow(axis, a, b - a) for a, b in pieces],
+                             axis).contiguous()
+    return out
+
+
+def gather_state_dict(sd: dict, tp, num_heads: int, dim: int,
+                      hidden: int) -> dict:
+    """The inverse of ``shard_state_dict`` over the model group: every
+    rank's shard of each sharded entry (all-gathered, padded to the largest
+    shard), put back in rank order into the full tensor, bit for bit; the
+    replicated entries as they are. Every rank of the group must call it,
+    with the same keys in the same order."""
+    out = {}
+    for key, t in sd.items():
+        kind = tp_key(key)
+        if kind is None or tp.world == 1:
+            out[key] = t
+            continue
+        layouts = [_tp_pieces(kind, (r, tp.world), num_heads, dim, hidden)
+                   for r in range(tp.world)]
+        axis = layouts[0][0]
+        sizes = [sum(b - a for a, b in pieces) for _, pieces in layouts]
+        pad = list(t.shape)
+        pad[axis] = max(sizes)
+        mine = torch.zeros(pad, dtype=t.dtype, device=t.device)
+        mine.narrow(axis, 0, t.shape[axis]).copy_(t)
+        parts = [torch.empty_like(mine) for _ in range(tp.world)]
+        dist.all_gather(parts, mine, group=tp.group)
+        full_shape = list(t.shape)
+        full_shape[axis] = (3 * dim if kind.startswith("attn.qkv")
+                            else dim if kind == "attn.proj.weight" else hidden)
+        full = torch.empty(full_shape, dtype=t.dtype, device=t.device)
+        for part, (_, pieces) in zip(parts, layouts):
+            i = 0
+            for a, b in pieces:
+                full.narrow(axis, a, b - a).copy_(part.narrow(axis, i, b - a))
+                i += b - a
+        out[key] = full
+    return out

@@ -23,10 +23,20 @@ more: there ``dots`` is ``full`` (``remat_block``). With
 (``collection_init``), and returns it as ``PackedTokens``.
 ``attention_impl``/``mlp_impl`` select every block's kernel dispatch
 (``layers.Block``); the final norm is ``layers.LayerNorm`` (K5 on CUDA).
+``shard_vit`` makes a built model one rank's of a model group
+(``parallel.mesh.ModelParallel``): its blocks keep their shards of qkv,
+proj, fc1 and fc2 and sum their halves over the group (``layers.Block``);
+the embeddings, norms and head stay whole. Which collectives run in which
+pass: each block half's forward sums its shares once (the fused halves in
+place, the module chain through ``reduce``); under remat the recompute in
+the backward sums them again; the backward sums each half's input
+gradient once (the fused halves with their LN gradients, in place; the
+module chain through ``copy_in``).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -47,7 +57,13 @@ from basd_tpu_torch.models.layers import (
     PatchEmbed,
     products_unkept,
 )
+from basd_tpu_torch.models.port import (
+    gather_state_dict,
+    shard_state_dict,
+    tp_key,
+)
 from basd_tpu_torch.models.tokens import PackedTokens
+from basd_tpu_torch.parallel.mesh import check_shards
 
 _aten = torch.ops.aten
 # the operators whose outputs ``remat_policy='dots'`` keeps
@@ -155,6 +171,7 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(d, cfg.norm_eps, dtype)
         self.head = (Linear(d, cfg.num_classes, dtype)
                      if cfg.num_classes > 0 else None)
+        self.tp = None  # the model group (shard_vit)
 
     def forward(self, x, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
@@ -224,3 +241,38 @@ class VisionTransformer(nn.Module):
         logits = self.head(pooled) if self.head is not None else pooled
         return {"logits": logits, "tokens": tok_out,
                 "importance": torch.stack(importance)}
+
+
+def shard_vit(module: "VisionTransformer", tp) -> "VisionTransformer":
+    """Cut ``module``'s blocks, in place, down to rank ``tp.rank``'s shards
+    of the full weights it holds (``port.shard_state_dict``): its heads of
+    every attention, its hidden units of every MLP; refuses a split whose
+    shards break TMA's 16-byte rows (``mesh.check_shards``). Returns it."""
+    cfg = module.cfg
+    check_shards(tp.world, cfg.embed_dim, cfg.num_heads,
+                 module.blocks[0].mlp.fc1.out_features)
+    for blk in module.blocks:
+        full = {k: v.detach() for k, v in blk.named_parameters()}
+        shard = shard_state_dict({"blocks.0." + k: v for k, v in full.items()},
+                                 tp, cfg.num_heads)
+        blk.set_tp(tp, {k[len("blocks.0."):]: v for k, v in shard.items()
+                        if v is not full[k[len("blocks.0."):]]})
+    module.tp = tp
+    return module
+
+
+def whole_vit(module: "VisionTransformer", tp) -> "VisionTransformer":
+    """A copy of the sharded ``module`` on the CPU with whole blocks, the
+    ranks' shards gathered over the model group ``tp`` (every rank of it
+    must call; ``port.gather_state_dict``)."""
+    cfg = module.cfg
+    params = {k: p.detach() for k, p in module.named_parameters()}
+    full = gather_state_dict(params, tp, cfg.num_heads, cfg.embed_dim,
+                             int(cfg.embed_dim * cfg.mlp_ratio))
+    out = copy.deepcopy(module, memo={id(tp): None}).cpu()
+    for i, blk in enumerate(out.blocks):
+        prefix = f"blocks.{i}."
+        blk.set_tp(None, {k[len(prefix):]: v.cpu() for k, v in full.items()
+                          if k.startswith(prefix) and tp_key(k)})
+    out.tp = None
+    return out

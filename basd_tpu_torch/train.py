@@ -31,6 +31,18 @@ GPU under ``torchrun``, each on ``cuda:LOCAL_RANK`` over NCCL::
 world size. A caller that initialised a default process group itself
 (e.g. gloo over CPU processes) trains over it. Rank 0 writes the logs,
 checkpoints, ``config.yaml`` and ``metrics.json`` and runs the eval suite.
+
+Tensor parallelism (``tpu.mesh.model``): the world is ``data x model``
+ranks (``parallel.mesh.init_mesh``), each ViT block split over the ranks of
+a model group (``models.vit.shard_vit``)::
+
+    torchrun --nproc_per_node=4 -m basd_tpu_torch.train \
+        experiment=smoke_synthetic tpu.mesh.data=2 tpu.mesh.model=2
+
+``data.batch_size`` is then a multiple of ``tpu.mesh.data``. On the CPU the
+same command with ``--device=cpu`` runs the ranks over gloo. The ranks of
+data group 0 run the eval suite on the sharded student together; rank 0
+of the grid writes, the whole (gathered) state in the one-process format.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ from basd_tpu_torch.models import (
     probe,
 )
 from basd_tpu_torch.ops.linalg import set_full_f32_precision
-from basd_tpu_torch.parallel.mesh import DataParallel, init_data_parallel
+from basd_tpu_torch.models.vit import shard_vit
+from basd_tpu_torch.parallel.mesh import DataParallel, ModelParallel, init_mesh
 from basd_tpu_torch.training.trainer import Trainer
 
 _CONFIG_DIR = Path(__file__).parent.parent / "configs"
@@ -86,39 +99,44 @@ def main(argv: list[str] | None = None,
     set_full_f32_precision()
     overrides = list(sys.argv[1:] if argv is None else argv)
     config = compose(_CONFIG_DIR, overrides=overrides)
-    dp = init_data_parallel(config.tpu.get("mesh"), device)
+    dp, tp = init_mesh(config.tpu.get("mesh"), device)
     try:
-        return _train(config, device, dp)
+        return _train(config, device, dp, tp)
     finally:
         dp.close()
 
 
-def _train(config, device: torch.device, dp: DataParallel) -> Trainer:
+def _train(config, device: torch.device, dp: DataParallel,
+           tp: ModelParallel | None = None) -> Trainer:
     output_dir = Path(config.run.output_dir) / config.run.name
-    trainer = build_trainer(config, device, dp)
-    if dp.is_main:
+    trainer = build_trainer(config, device, dp, tp)
+    if trainer.writer:
         save_config(config, output_dir / "config.yaml")
     start_epoch = 0
     if config.checkpoint.resume_from:
         start_epoch = trainer.load_checkpoint(config.checkpoint.resume_from)
     trainer.train(source_from_config(config), start_epoch=start_epoch)
 
-    if dp.is_main:
+    if dp.is_main:  # the whole model group of data rank 0
         results = run_eval_suite(
             trainer.eval_student(), config,
             config_path=str(output_dir / "config.yaml"),
             efficiency_batches=int(config.get("eval", {}).get(
                 "efficiency_batches", 200)),
+            tp=tp,
         )
-        save_metrics(results, output_dir)
+        if trainer.writer:
+            save_metrics(results, output_dir)
     dp.barrier()
     return trainer
 
 
 def build_trainer(config, device: torch.device,
-                  dp: DataParallel | None = None) -> Trainer:
+                  dp: DataParallel | None = None,
+                  tp: ModelParallel | None = None) -> Trainer:
     """The composed run's teacher, calibrated student and ``Trainer`` on
-    ``device`` (this rank's, with ``dp``), seeded from ``run.seed``."""
+    ``device`` (this rank's, with ``dp``; with ``tp`` the ViTs' blocks cut
+    to this rank's shards), seeded from ``run.seed``."""
     dp = dp or DataParallel()
     np.random.seed(config.run.seed)
     torch.manual_seed(config.run.seed)
@@ -127,11 +145,14 @@ def build_trainer(config, device: torch.device,
     output_dir.mkdir(parents=True, exist_ok=True)
     img_size = config.model.vit.img_size
     compute_dtype = torch.bfloat16
-    log = print if dp.is_main else (lambda *a, **k: None)
+    writer = dp.is_main and (tp is None or tp.rank == 0)
+    log = print if writer else (lambda *a, **k: None)
     log(f"device={device} "
         f"name={torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    distributed = dp.group is not None or tp is not None
     log(f"data_parallel world={dp.world} "
-        f"backend={torch.distributed.get_backend() if dp.group else None}")
+        f"model_parallel world={tp.world if tp else 1} "
+        f"backend={torch.distributed.get_backend() if distributed else None}")
 
     teacher_arch = config.basd.get("teacher_arch")
     teacher = load_teacher(
@@ -145,12 +166,15 @@ def build_trainer(config, device: torch.device,
         ),
         attention_impl=config.tpu.get("teacher_attention_impl", "auto"),
     )
+    if tp is not None and teacher.info["feature_format"] == "token":
+        shard_vit(teacher.module, tp)  # a CNN teacher stays whole
 
     # calibration: intrinsic-dim student auto-sizing for a token teacher
     # (reference src/train.py:88-114)
     arch_overrides = None
     if teacher.info["feature_format"] == "token":
-        arch_overrides = calibrate(config, teacher, device, compute_dtype, dp)
+        arch_overrides = calibrate(config, teacher, device, compute_dtype, dp,
+                                   log)
         config.model.arch_overrides = dict(arch_overrides)
 
     student = create_model(
@@ -164,6 +188,8 @@ def build_trainer(config, device: torch.device,
         mlp_impl=config.tpu.get("student_mlp_impl", "auto"),
     )
     init_model(student, config.run.seed, fan_in_init=True)
+    if tp is not None:
+        shard_vit(student.module, tp)
     s_info = probe(student)
     log(
         f"student_probed embed_dim={s_info['embed_dim']} "
@@ -176,13 +202,13 @@ def build_trainer(config, device: torch.device,
     return Trainer(
         config, student_bundle=student, teacher_bundle=teacher,
         device=device, dataset_stats=stats_from_config(config),
-        teacher_stats=(teacher.mean, teacher.std), dp=dp,
+        teacher_stats=(teacher.mean, teacher.std), dp=dp, tp=tp,
     )
 
 
 def calibrate(config, teacher, device: torch.device,
               compute_dtype: torch.dtype,
-              dp: DataParallel | None = None) -> dict:
+              dp: DataParallel | None = None, log=print) -> dict:
     """The student's arch from the MP rank of the teacher's last-layer
     tokens over ~10 D_t tokens of eval-view train images. Every rank
     calibrates on the same images; rank 0's rank is taken by all."""
@@ -204,7 +230,7 @@ def calibrate(config, teacher, device: torch.device,
         torch.tensor([intrinsic_dim], device=device)).item())
     arch_overrides = derive_student_arch(teacher.info, intrinsic_dim)
     if dp.is_main:
-        print(
+        log(
             f"student_arch_derived intrinsic_dim={intrinsic_dim} "
             f"embed_dim={arch_overrides['embed_dim']} "
             f"depth={arch_overrides['depth']} "
@@ -214,5 +240,16 @@ def calibrate(config, teacher, device: torch.device,
     return arch_overrides
 
 
+def cli(entry=None, argv: list[str] | None = None):
+    """The command line of ``entry`` (default this module's ``main``):
+    hydra-style overrides, and ``--device=cpu`` (or another device) to run
+    off the default CUDA card, e.g. each rank of a CPU grid under
+    ``torchrun`` (gloo)."""
+    args = list(sys.argv[1:] if argv is None else argv)
+    devices = [a.split("=", 1)[1] for a in args if a.startswith("--device=")]
+    return (entry or main)([a for a in args if not a.startswith("--device=")],
+                           device=devices[-1] if devices else "cuda")
+
+
 if __name__ == "__main__":
-    main()
+    cli()

@@ -28,6 +28,18 @@ the loss is the global batch's (``basd_loss(..., dp)``); the gradients are
 all-reduced as one flat buffer in the dict's fixed key order. The epoch's
 sums and the eval metrics are all-reduced once each. Rank 0 writes the
 logs and the checkpoints; every rank reads a checkpoint.
+
+Tensor parallelism (``tp``, a ``parallel.mesh.ModelParallel``): the
+teacher's and the student's ViT blocks hold this rank's shards
+(``models.vit.shard_vit``), and so do the student's x, z and v; each rank
+updates its shard. Everything else is replicated in the model group and
+computed identically there (views, draws, selector, loss), so the
+replicated parameters' gradients come out equal on its ranks (their
+block-input gradients are summed by ``copy_in``) and are not summed
+again: gradients are all-reduced over the data group only. A checkpoint is
+the whole state, gathered over the model group
+(``port.gather_state_dict``) and written by rank 0 of the grid, in the
+one-process format; loading one re-shards it.
 """
 
 from __future__ import annotations
@@ -46,9 +58,14 @@ from basd_tpu_torch.data.pipeline import prefetch
 from basd_tpu_torch.data import augment as aug
 from basd_tpu_torch.evaluation import metrics as metrics_mod
 from basd_tpu_torch.losses import BASDLossConfig, basd_loss, init_basd_loss
+from basd_tpu_torch.models.port import gather_state_dict, shard_state_dict
 from basd_tpu_torch.models.registry import ModelBundle, teacher_extract
 from basd_tpu_torch.models.vit import drop_path_rates
-from basd_tpu_torch.parallel.mesh import DataParallel, shard_batch
+from basd_tpu_torch.parallel.mesh import (
+    DataParallel,
+    ModelParallel,
+    shard_batch,
+)
 from basd_tpu_torch.training import schedulefree as sf
 from basd_tpu_torch.utils import checkpoint as ckpt
 from basd_tpu_torch.utils.logging import MetricsLogger
@@ -73,10 +90,14 @@ class Trainer:
     def __init__(self, config, *, student_bundle: ModelBundle,
                  teacher_bundle: ModelBundle, device: torch.device,
                  dataset_stats: tuple, teacher_stats: tuple,
-                 dp: Optional[DataParallel] = None):
+                 dp: Optional[DataParallel] = None,
+                 tp: Optional[ModelParallel] = None):
         self.config = config
         self.device = torch.device(device)
         self.dp = dp or DataParallel()
+        self.tp = tp  # the modules' blocks are sharded already (shard_vit)
+        # rank 0 of the grid writes the logs, checkpoints and metrics
+        self.writer = self.dp.is_main and (tp is None or tp.rank == 0)
         # the MixUp roll's shards of the global batch: one per rank (a
         # one-process trainer may set more, to compute an N-rank step)
         self.num_shards = self.dp.world
@@ -122,7 +143,7 @@ class Trainer:
         self.generator.manual_seed(int(config.run.seed))
         out_dir = Path(config.run.output_dir) / config.run.name
         self._mlog = (MetricsLogger(out_dir / "metrics.jsonl")
-                      if self.dp.is_main else None)
+                      if self.writer else None)
         self.source = None  # the data source of the last ``train`` call
         # the teacher's (L*B*N, D) collect buffer: allocated once per batch
         # size, every slab overwritten by each step's teacher forward
@@ -314,7 +335,7 @@ class Trainer:
                 f"basd.max_rank or set it to null for exact reference "
                 f"semantics)"
             )
-            if self.dp.is_main:
+            if self.writer:
                 print(msg, file=sys.stderr)
             if cfg.basd.get("error_on_rank_cap", False):
                 raise RuntimeError(msg)
@@ -365,7 +386,7 @@ class Trainer:
             val_metrics = self.evaluate(source)
             dt = time.perf_counter() - t0
             losses = " ".join(f"{v:.6f}" for v in train_metrics["step_losses"])
-            if self.dp.is_main:
+            if self.writer:
                 print(
                     f"epoch {epoch + 1}/{num_epochs} "
                     f"train_loss={train_metrics['train_loss']:.6f} "
@@ -385,7 +406,7 @@ class Trainer:
                 self.save_weights("best_model_weights", epoch)
             self.save_checkpoint("latest", epoch)
         self.save_weights("final_model_weights", num_epochs - 1)
-        if self.dp.is_main:
+        if self.writer:
             print(f"training complete best_val_acc={self.best_val_acc:.4f}")
         return dict(self.metrics_history)
 
@@ -395,13 +416,29 @@ class Trainer:
         cfg = self.config
         return Path(cfg.run.output_dir) / cfg.run.name / "checkpoints"
 
+    def _student_arch(self) -> tuple[int, int, int]:
+        cfg = self.student.cfg
+        return (cfg.num_heads, cfg.embed_dim,
+                int(cfg.embed_dim * cfg.mlp_ratio))
+
+    def _whole(self, tensors: dict) -> dict:
+        """The student's sharded entries of ``tensors`` gathered over the
+        model group (every rank of it must call), the others as they are."""
+        if self.tp is None:
+            return tensors
+        return gather_state_dict(tensors, self.tp, *self._student_arch())
+
     def save_checkpoint(self, name: str, epoch: int) -> None:
-        """Rank 0 writes; the state is the same on every rank."""
+        """Rank 0 of the grid writes the whole state, the same on every
+        data rank (gathered over its model group first)."""
         if not self.dp.is_main:
             return
         st = self.opt_state
+        x, z, v = (self._whole(t) for t in (st.x, st.z, st.v))
+        if not self.writer:
+            return
         state = {
-            "x": st.x, "z": st.z, "v": st.v,
+            "x": x, "z": z, "v": v,
             "scalars": {"k": st.k, "lr_max": st.lr_max,
                         "weight_sum": st.weight_sum},
             "sel_buffers": self.sel_buffers,
@@ -417,12 +454,20 @@ class Trainer:
         if not self.dp.is_main:
             return
         params = {k[len(_STUDENT):]: v
-                  for k, v in sf.eval_params(self.opt_state).items()
+                  for k, v in self._whole(
+                      sf.eval_params(self.opt_state)).items()
                   if k.startswith(_STUDENT)}
-        ckpt.save_weights(self._ckpt_dir() / name, params, epoch)
+        if self.writer:
+            ckpt.save_weights(self._ckpt_dir() / name, params, epoch)
 
     def load_checkpoint(self, path: str) -> int:
+        """Every rank reads the whole state; a rank of a model group keeps
+        its shards of the student's entries."""
         state, custom = ckpt.load_state(path, map_location=self.device)
+        if self.tp is not None:
+            for f in ("x", "z", "v"):
+                state[f] = shard_state_dict(state[f], self.tp,
+                                            self.student.cfg.num_heads)
         self.opt_state = sf.ScheduleFreeState(
             x=state["x"], z=state["z"], v=state["v"], **state["scalars"]
         )

@@ -55,7 +55,13 @@ the script exits non-zero without printing a result:
    bit at (46, 224, 224, 3), (128, 224, 224, 3) and, on its device-memory
    variant, (8, 320, 320, 3), timed with L2 flushed (``time_cold_ms``: at
    46 images its 13.9 MB would stay in the 50 MB L2 back to back), the
-   back-to-back time printed beside it;
+   back-to-back time printed beside it; the partial entries of K1-K4
+   and K11 (``kernels.TP_KERNELS``, ``tp_kernel_checks``) at the shards
+   of a model group of 2 (the teacher's 3 heads of 6 and 768 hidden units
+   of 1536, the student's 2 and 1 heads of 3 and 384 units of 768), each
+   against its plain version, the two shares summed with bias, mask and
+   residual added once against the whole kernel, the backward's shares
+   against its gradients' slices, rank 0's shard timed;
 3. train: ``basd_tpu_torch.train.main`` for 3 steps of B=128 at 224 px,
    DeiT-Small teacher, DeiT-Tiny preset student sized by calibration, on
    synthetic ImageNet-100, default ``tpu.*_impl=auto``, gram spectral
@@ -105,7 +111,17 @@ the script exits non-zero without printing a result:
    equal, CE within ``DP_CE_RTOL``, geo within rtol 3e-3, parameters
    within rtol 0.2 / atol 1e-2), the kernels built before the spawn; NCCL
    across two cards the same way, or a line saying it was not run;
-3g. remat dots: the flash and gram trainers, 3 steps on the same batches
+3g. tensor-parallel train (``tp_phase``): two spawned ranks of a model
+   group on the one card over gloo, ``tpu.mesh.data=1 tpu.mesh.model=2``,
+   the jacobi run's 2 steps of the global 128 rows each, against one
+   process on the same batches under ``dp_compare``'s contract, every
+   block half through the partial entries (``tp_expected``: K1, K2, K3b,
+   K4b 12 a step, K3a, K4a 24, no whole K1-K4; the tensor-core attention
+   and the sm90 GEMM on every launch), then one flash-path step (K10 on
+   each rank's heads, K11's partial entries); the ranks' peak device
+   memory and step times printed; NCCL across two cards the same way
+   where the machine has them;
+3h. remat dots: the flash and gram trainers, 3 steps on the same batches
    under ``tpu.remat_policy`` full and dots from the same state
    (``remat_policy_runs``): gradients bit-equal, the student's K10a once
    a block a step under dots (twice under full) on the flash path, the
@@ -135,7 +151,8 @@ earlier slices' runs, which had none), K7's streaming variant at
 The last three lines of standard output are the kernels' JSON (each
 kernel's launches from the train run that takes it, its eval suite
 included: K8 the jacobi run;
-K5, K10 and K11 the flash run, which takes K5 in every block; K7's
+the partial entries rank 0 of the tensor-parallel check (K11's its flash
+step); K5, K10 and K11 the flash run, which takes K5 in every block; K7's
 streaming variant the cross-arch run; the rest the gram run; then K7's and
 K9's variants and K8's launches,
 ``kernels.PARTS``,
@@ -653,9 +670,286 @@ def kernel_phase(torch, device):
            lambda: fused_mlp.fused_mlp_plain_bwd(*args11b),
            nbytes(*args11b, *grads), 10 * s_rows * ds * fs, PEAK_BF16)
 
+    tp_kernel_checks(torch, device, block_attn, block_mlp, fused_mlp, record,
+                     tw, sw, mask)
+
     for name, rec in results.items():
         print(f"kernel {name}: " + " ".join(f"{k}={v}" for k, v in rec.items()))
     return results
+
+
+# -- tensor parallelism -----------------------------------------------------
+
+# the qkv, proj, fc1 and fc2 names of one block (models.port.shard_state_dict)
+TP_BLOCK_KEYS = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight",
+                 "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight")
+
+
+def tp_shards(weights: dict, heads: int, world: int) -> list:
+    """Each rank's (w_qkv, b_qkv, w_proj) and (w1, b1, w2) of a block's
+    ``weights`` (``block_weights``'s) over ``world`` ranks."""
+    from basd_tpu_torch.models.port import shard_state_dict
+    from basd_tpu_torch.parallel.mesh import ModelParallel
+
+    full = dict(zip(TP_BLOCK_KEYS, weights["attn"][:3] + weights["mlp"][:3]))
+    out = []
+    for r in range(world):
+        sd = shard_state_dict({"blocks.0." + k: v for k, v in full.items()},
+                              ModelParallel(r, world), heads)
+        w = [sd["blocks.0." + k] for k in TP_BLOCK_KEYS]
+        out.append((tuple(w[:3]), tuple(w[3:])))
+    return out
+
+
+def tp_kernel_checks(torch, device, block_attn, block_mlp, fused_mlp, record,
+                     tw, sw, mask, world: int = 2) -> None:
+    """The partial entries of K1-K4 and K11 (``kernels.TP_KERNELS``) at the
+    shard shapes of the tensor-parallel train check, ``world`` = 2 ranks:
+    the DeiT-S teacher's 3 heads of 6 and 768 hidden units of 1536, the
+    student's 2 and 1 heads of 3 and 384 units of 768; each against its
+    plain version, and the ranks' shares summed, with bias, mask and
+    residual added once (``block_attn.residual_add``), against the whole
+    kernel on the same inputs. Rank 0's shard is timed (its row of the
+    kernels line), rank 1's student shard (h = 1) printed beside it."""
+    from basd_tpu_torch.models.port import shard_state_dict
+    from basd_tpu_torch.parallel.mesh import ModelParallel
+
+    g = torch.Generator(device=device).manual_seed(14)
+    bf = torch.bfloat16
+    b, n, e = BATCH, 197, 64
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def shards_of(t, key, heads, r):
+        return shard_state_dict({"blocks.0." + key: t}, ModelParallel(r, world),
+                                heads)["blocks.0." + key]
+
+    for who, wts, d, heads in (("teacher", tw, 384, 6), ("student", sw, 192, 3)):
+        x = rn(b, n, d).to(bf)
+        m_rows = b * n
+        ln = wts["ln"]
+        shards = tp_shards(wts, heads, world)
+        f = wts["mlp"][0].shape[0]
+        if who == "teacher":
+            # K1: the proj sums and the importance, one buffer
+            accs, imps = [], []
+            for r, (attn_r, _) in enumerate(shards):
+                h = attn_r[0].shape[0] // (3 * e)
+                args = (x, *ln, *attn_r, h, e, heads)
+                flat = block_attn.fused_block_attn_partial(*args)
+                acc, imp = block_attn.split_flat(flat, (b, n, d), (b, n))
+                racc, rimp = block_attn.block_attn_plain_partial(*args)
+                err = max(check_close(f"K1 partial r{r} acc", acc, racc,
+                                      2 ** -5, 1.0),
+                          check_close(f"K1 partial r{r} imp", imp, rimp, 2e-2))
+                accs.append(acc)
+                imps.append(imp)
+                if r == 0:
+                    dh = h * e
+                    record("K1 fused_block_attn: partial", err,
+                           lambda: block_attn.fused_block_attn_partial(*args),
+                           lambda: block_attn.block_attn_plain_partial(*args),
+                           nbytes(x, *ln, *attn_r, flat),
+                           2 * m_rows * d * 4 * dh + 4 * b * n * n * dh,
+                           PEAK_BF16)
+            whole, wimp = block_attn.fused_block_attn(x, *ln, *wts["attn"],
+                                                      heads)
+            total = accs[0] + accs[1]
+            err = check_close("K1 shares summed", block_attn.residual_add(
+                x, None, total, wts["attn"][3]), whole, 2 ** -5, 1.0)
+            ierr = check_close("K1 importance summed", imps[0] + imps[1], wimp,
+                               2e-2)
+            print(f"kernel K1 partial: {world} shares + bias + residual vs "
+                  f"K1 max_abs_err={err} importance {ierr}")
+            # K2: the fc2 sums (the teacher's; the stack is written after)
+            accs = []
+            for r, (_, mlp_r) in enumerate(shards):
+                args = (x, *ln, *mlp_r)
+                acc = block_mlp.fused_ln_mlp_collect_partial(*args)
+                err = check_close(f"K2 partial r{r}", acc,
+                                  block_mlp.block_mlp_plain_partial(*args),
+                                  2 ** -5, 1.0)
+                accs.append(acc)
+                if r == 0:
+                    record("K2 fused_ln_mlp_collect: partial", err,
+                           lambda: block_mlp.fused_ln_mlp_collect_partial(*args),
+                           lambda: block_mlp.block_mlp_plain_partial(*args),
+                           nbytes(*args, acc), 4 * m_rows * d * mlp_r[0].shape[0],
+                           PEAK_BF16)
+            ones = torch.ones(b, device=device)
+            buf = torch.empty((m_rows, d), dtype=bf, device=device)
+            whole = block_mlp.fused_ln_mlp_collect(x, ones, *ln, *wts["mlp"],
+                                                   buf, 0)
+            err = check_close("K2 shares summed", block_mlp.residual_add(
+                x, ones, accs[0] + accs[1], wts["mlp"][3]), whole, 2 ** -5, 1.0)
+            print(f"kernel K2 partial: {world} shares + bias + residual vs K2 "
+                  f"max_abs_err={err}")
+            continue
+
+        # the student: K3a / K3b, K4a / K4b, K11a / K11b
+        dout = rn(b, n, d).to(bf)
+        whole, wlse = block_attn.fused_block_attn_train_fwd(
+            x, mask, *ln, *wts["attn"], heads)
+        wgrads = block_attn.fused_block_attn_train_bwd(
+            x, mask, dout, wlse, *ln, *wts["attn"][:3], heads)
+        accs, flats = [], []
+        for r, (attn_r, _) in enumerate(shards):
+            h = attn_r[0].shape[0] // (3 * e)
+            h0 = sum(s[0][0].shape[0] // (3 * e) for s in shards[:r])
+            args = (x, *ln, *attn_r, h, e)
+            acc, lse = block_attn.fused_block_attn_train_fwd_partial(*args)
+            racc, rlse = block_attn.block_attn_train_plain_fwd_partial(*args)
+            err = max(check_close(f"K3a partial r{r} acc", acc, racc, 2 ** -5,
+                                  1.0),
+                      check_close(f"K3a partial r{r} lse", lse, rlse, 1e-3, 1.0),
+                      check_close(f"K3a partial r{r} lse vs K3a", lse,
+                                  wlse[:, h0:h0 + h], 1e-3, 1.0))
+            accs.append(acc)
+            bargs = (x, mask, dout, lse, *ln, *attn_r, h, e)
+            flat, dwq, dbq, dwp = block_attn.fused_block_attn_train_bwd_partial(
+                *bargs)
+            pref = block_attn.block_attn_train_plain_bwd(
+                *bargs[:-2], h, 1e-6, e, partial=True)
+            berr = max(check_close(f"K3b partial r{r} dxln",
+                                   flat[:b * n * d].view(b, n, d), pref[0],
+                                   2 ** -5, 1.0),
+                       *(check_close(f"K3b partial r{r} grad {i}", a_, r_, 1e-2)
+                         for i, (a_, r_) in enumerate(
+                             ((dwq, pref[1]), (dbq, pref[2]), (dwp, pref[3]),
+                              (flat[b * n * d:b * n * d + d], pref[5]),
+                              (flat[b * n * d + d:], pref[6])))))
+            for key, a_, full in (("attn.qkv.weight", dwq, wgrads[1]),
+                                  ("attn.qkv.bias", dbq, wgrads[2]),
+                                  ("attn.proj.weight", dwp, wgrads[3])):
+                check_close(f"K3b partial r{r} {key} vs K3b's slice", a_,
+                            shards_of(full, key, heads, r), 1e-2)
+            flats.append(flat)
+            label = "r0" if r == 0 else f"r{r}"
+            dh = h * e
+            fwd_flops = 2 * m_rows * d * 4 * dh + 4 * b * n * n * dh
+            bwd_flops = 2 * m_rows * d * dh * 11 + 12 * b * n * n * dh
+            if r == 0:
+                check_repeatable(torch, "K3b partial", (flat, dwq, dbq, dwp),
+                                 block_attn.fused_block_attn_train_bwd_partial(
+                                     *bargs))
+                record("K3a fused_block_attn_train fwd: partial", err,
+                       lambda: block_attn.fused_block_attn_train_fwd_partial(*args),
+                       lambda: block_attn.block_attn_train_plain_fwd_partial(*args),
+                       nbytes(x, *ln, *attn_r, acc, lse), fwd_flops, PEAK_BF16)
+                record("K3b fused_block_attn_train bwd: partial", berr,
+                       lambda: block_attn.fused_block_attn_train_bwd_partial(*bargs),
+                       lambda: block_attn.block_attn_train_plain_bwd(
+                           *bargs[:-2], h, 1e-6, e, partial=True),
+                       nbytes(*bargs[:-2], flat, dwq, dbq, dwp), bwd_flops,
+                       PEAK_BF16)
+            else:
+                print(f"kernel K3a partial {label} (h={h}): max_abs_err={err} "
+                      f"ms={time_ms(torch, lambda: block_attn.fused_block_attn_train_fwd_partial(*args))} "
+                      f"bound_ms={bound(nbytes(x, *ln, *attn_r, acc, lse), fwd_flops, PEAK_BF16)[0]}")
+                print(f"kernel K3b partial {label} (h={h}): max_abs_err={berr} "
+                      f"ms={time_ms(torch, lambda: block_attn.fused_block_attn_train_bwd_partial(*bargs))} "
+                      f"bound_ms={bound(nbytes(*bargs[:-2], flat, dwq, dbq, dwp), bwd_flops, PEAK_BF16)[0]}")
+        err = check_close("K3a shares summed", block_attn.residual_add(
+            x, mask, accs[0] + accs[1], wts["attn"][3]), whole, 2 ** -5, 1.0)
+        dxs = [fl[:b * n * d].view(b, n, d) for fl in flats]
+        berr = check_close("K3b shares summed", (dout.float() + dxs[0] + dxs[1]
+                                                 ).to(bf), wgrads[0],
+                           2 ** -5, 1.0)
+        for i, off in ((5, b * n * d), (6, b * n * d + d)):
+            check_close(f"K3b LN grad {i} summed",
+                        flats[0][off:off + d] + flats[1][off:off + d],
+                        wgrads[i], 1e-2)
+        print(f"kernel K3a/K3b partial: {world} shares + bias + mask + "
+              f"residual vs K3a max_abs_err={err}; do + dxln shares vs K3b dx "
+              f"max_abs_err={berr}")
+
+        for kind in ("K4", "K11"):
+            if kind == "K4":
+                whole = block_mlp.fused_ln_mlp_fwd(x, mask, *ln, *wts["mlp"])
+                wgrads = block_mlp.fused_ln_mlp_bwd(x, mask, dout, *ln,
+                                                    *wts["mlp"][:3])
+            else:
+                whole = fused_mlp.fused_mlp_fwd(x, *wts["mlp"])
+                wgrads = fused_mlp.fused_mlp_bwd(x, dout, *wts["mlp"][:3])
+            accs, dxs, lns = [], [], []
+            for r, (_, mlp_r) in enumerate(shards):
+                f_r = mlp_r[0].shape[0]
+                if kind == "K4":
+                    args = (x, *ln, *mlp_r)
+                    fwd, plain = (block_mlp.fused_ln_mlp_fwd_partial,
+                                  block_mlp.block_mlp_plain_partial)
+                    bargs = (x, mask, dout, *ln, *mlp_r)
+                    bwd = block_mlp.fused_ln_mlp_bwd_partial
+                    pref = block_mlp.block_mlp_plain_bwd(*bargs, partial=True)
+                    pref = (pref[0].reshape(-1),) + pref[1:4] + pref[5:]
+                else:
+                    args = (x, *mlp_r)
+                    fwd = fused_mlp.fused_mlp_fwd_partial
+                    plain = (lambda *a: fused_mlp.fused_mlp_plain_fwd(*a, None))
+                    bargs = (x, dout, *mlp_r)
+                    bwd = fused_mlp.fused_mlp_bwd_partial
+                    pref = fused_mlp.fused_mlp_plain_bwd(*bargs, partial=True)[:4]
+                acc = fwd(*args)
+                err = check_close(f"{kind}a partial r{r}", acc, plain(*args),
+                                  2 ** -5, 1.0)
+                grads = bwd(*bargs)
+                if kind == "K4":
+                    flat = grads[0]
+                    outs = (flat[:b * n * d],) + grads[1:] + (
+                        flat[b * n * d:b * n * d + d], flat[b * n * d + d:])
+                    lns.append(flat[b * n * d:])
+                    dx = flat[:b * n * d].view(b, n, d)
+                else:
+                    outs = grads
+                    dx = grads[0]
+                berr = max(check_close(f"{kind}b partial r{r} dx", outs[0],
+                                       pref[0], 2 ** -5, 1.0),
+                           *(check_close(f"{kind}b partial r{r} grad {i}", a_,
+                                         r_, 1e-2)
+                             for i, (a_, r_) in enumerate(zip(outs[1:],
+                                                              pref[1:]), 1)))
+                for key, a_, full in (("mlp.fc1.weight", outs[1], wgrads[1]),
+                                      ("mlp.fc1.bias", outs[2], wgrads[2]),
+                                      ("mlp.fc2.weight", outs[3], wgrads[3])):
+                    check_close(f"{kind}b partial r{r} {key} vs the slice", a_,
+                                shards_of(full, key, heads, r), 1e-2)
+                accs.append(acc)
+                dxs.append(dx)
+                if r == 0:
+                    check_repeatable(torch, f"{kind}b partial", grads,
+                                     bwd(*bargs))
+                    name_a = ("K4a fused_ln_mlp fwd: partial" if kind == "K4"
+                              else "K11a fused_mlp fwd: partial")
+                    name_b = ("K4b fused_ln_mlp bwd: partial" if kind == "K4"
+                              else "K11b fused_mlp bwd: partial")
+                    record(name_a, err, lambda: fwd(*args), lambda: plain(*args),
+                           nbytes(*args, acc), 4 * m_rows * d * f_r, PEAK_BF16)
+                    record(name_b, berr, lambda: bwd(*bargs),
+                           lambda: (block_mlp.block_mlp_plain_bwd(*bargs, partial=True)
+                                    if kind == "K4" else
+                                    fused_mlp.fused_mlp_plain_bwd(*bargs, partial=True)),
+                           nbytes(*bargs, *grads), 10 * m_rows * d * f_r,
+                           PEAK_BF16)
+            total = accs[0] + accs[1]
+            if kind == "K4":
+                err = check_close("K4a shares summed", block_mlp.residual_add(
+                    x, mask, total, wts["mlp"][3]), whole, 2 ** -5, 1.0)
+                berr = check_close("K4b shares summed", (
+                    dout.float() + dxs[0] + dxs[1]).to(bf), wgrads[0],
+                                   2 ** -5, 1.0)
+                for i, sl in ((5, slice(0, d)), (6, slice(d, 2 * d))):
+                    check_close(f"K4b LN grad {i} summed",
+                                lns[0][sl] + lns[1][sl], wgrads[i], 1e-2)
+            else:
+                err = check_close("K11a shares summed", (
+                    total + wts["mlp"][3]).to(bf), whole, 2 ** -5, 1.0)
+                berr = check_close("K11b shares summed",
+                                   (dxs[0] + dxs[1]).to(bf), wgrads[0],
+                                   2 ** -5, 1.0)
+            print(f"kernel {kind} partial: {world} shares summed (+ bias"
+                  f"{', mask, residual' if kind == 'K4' else ''}) vs {kind}a "
+                  f"max_abs_err={err}; vs {kind}b dx max_abs_err={berr}")
 
 
 def f32_checks(torch, rn, flash_attention, fused_mlp, b: int = 8, n: int = 197):
@@ -1828,11 +2122,16 @@ def dp_world1_check(torch, device, kernels, root: str, ref_state: dict,
 
 
 def dp_steps(torch, args: list, world: int, num_shards: int, device,
-             out_dir: str, dp=None) -> dict:
+             out_dir: str, dp=None, tp=None, steps: int = DP_STEPS) -> dict:
     """``train.build_trainer`` on the run ``args`` give (the jacobi path,
-    B=128 global) and ``DP_STEPS`` train steps on this rank's rows of the
-    source's batches: per-step metrics, host-clock step times, the eval
-    point x, launches."""
+    B=128 global; with ``tp`` the ViTs' blocks cut to this rank's shards)
+    and ``steps`` train steps on this rank's rows of the source's batches:
+    per-step metrics, host-clock step times, the eval point x (gathered
+    over the model group), launches and the GEMM and attention-core
+    variants, the peak device memory of the process during the steps and
+    that peak above what the process held before them (its working set:
+    in the smoke's own process the earlier phases' trainers stay
+    allocated)."""
     from basd_tpu_torch import kernels, train
     from basd_tpu_torch.config import compose, register_resolvers
     from basd_tpu_torch.data.sources import source_from_config
@@ -1844,23 +2143,35 @@ def dp_steps(torch, args: list, world: int, num_shards: int, device,
     register_resolvers()
     config = compose(train._CONFIG_DIR, overrides=args + [
         f"tpu.mesh.data={world}", f"run.output_dir={out_dir}"])
-    trainer = train.build_trainer(config, device, dp)
+    trainer = train.build_trainer(config, device, dp, tp)
     trainer.num_shards = num_shards
     kernels.reset_launch_counts()
+    held = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     mets, step_ms = [], []
     for images, labels in trainer.device_batches(
             source_from_config(config), "train", seed=DP_SEED, shuffle=True,
-            drop_last=True, limit=DP_STEPS):
+            drop_last=True, limit=steps):
         sync()
         t0 = time.perf_counter()
         m = trainer.step(images, labels)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         mets.append({k: v.detach().double().cpu() for k, v in m.items()})
+    counts = kernels.launch_counts()
     return {"mets": mets, "step_ms": step_ms, "rows": images.shape[0],
-            "params": {k: v.double().cpu()
-                       for k, v in trainer.opt_state.x.items()},
-            "counts": kernels.launch_counts()}
+            "params": {k: v.double().cpu() for k, v in
+                       trainer._whole(trainer.opt_state.x).items()},
+            "counts": counts, "variants": kernels.variant_counts(),
+            "gemm": kernels.gemm_variant_counts(),
+            "gemm_bwd": kernels.gemm_variant_counts(kernels.GEMM_BWD),
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                         if device.type == "cuda" else None),
+            "step_gib": ((torch.cuda.max_memory_allocated(device) - held)
+                         / 2 ** 30 if device.type == "cuda" else None)}
 
 
 def dp_rank_main(rank: int, world: int, backend: str, store: str,
@@ -1872,7 +2183,7 @@ def dp_rank_main(rank: int, world: int, backend: str, store: str,
     import torch.distributed as dist
 
     from basd_tpu_torch.ops.linalg import set_full_f32_precision
-    from basd_tpu_torch.parallel.mesh import init_data_parallel
+    from basd_tpu_torch.parallel.mesh import init_mesh
 
     device = torch.device(device)
     if device.type == "cuda":
@@ -1881,7 +2192,7 @@ def dp_rank_main(rank: int, world: int, backend: str, store: str,
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        dp = init_data_parallel({"data": world, "model": 1}, device)
+        dp, _ = init_mesh({"data": world, "model": 1}, device)
         out = dp_steps(torch, args, world, world, device,
                        str(Path(out_dir) / f"r{rank}"), dp)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
@@ -1890,15 +2201,15 @@ def dp_rank_main(rank: int, world: int, backend: str, store: str,
 
 
 def spawn_ranks(torch, world: int, backend: str, out_dir: str,
-                devices: list, args: list) -> list:
-    """``world`` spawned ranks of ``dp_rank_main``, rank r on
+                devices: list, args: list, target=None) -> list:
+    """``world`` spawned ranks of ``target`` (``dp_rank_main``), rank r on
     ``devices[r]``; each is killed if it outlives ``DP_JOIN_S``."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     Path(out_dir).mkdir(parents=True, exist_ok=True)
     store = Path(out_dir) / "store"
-    procs = [ctx.Process(target=dp_rank_main,
+    procs = [ctx.Process(target=target or dp_rank_main,
                          args=(r, world, backend, str(store), out_dir,
                                devices[r], args)) for r in range(world)]
     for proc in procs:
@@ -1917,12 +2228,16 @@ def spawn_ranks(torch, world: int, backend: str, out_dir: str,
             for r in range(world)]
 
 
-def dp_compare(torch, label: str, ranks: list, ref: dict) -> None:
+def dp_compare(torch, label: str, ranks: list, ref: dict,
+               data_ranks=None) -> None:
     """The ranks against the one-process run with the same MixUp shards,
     under ``tests/test_train_e2e.py:290-332``'s contract at bf16: the
     replicated values (CE, geo, ranks, mixing weights, x) equal on every
     rank; step 1's count and MP ranks equal, its CE within ``DP_CE_RTOL``,
-    its geo within rtol 3e-3; every parameter within rtol 0.2 / atol 1e-2."""
+    its geo within rtol 3e-3; every parameter within rtol 0.2 / atol 1e-2.
+    ``data_ranks``: the ranks whose rows make up the batch (default all;
+    one rank of a model group, whose ranks share their rows)."""
+    data_ranks = ranks if data_ranks is None else data_ranks
     first = ranks[0]
     for other in ranks[1:]:
         for m0, m1 in zip(first["mets"], other["mets"]):
@@ -1933,14 +2248,14 @@ def dp_compare(torch, label: str, ranks: list, ref: dict) -> None:
             check(torch.equal(first["params"][k], other["params"][k]),
                   f"{label}: parameter {k} differs between ranks")
     m, r = first["mets"][0], ref["mets"][0]
-    count = sum(int(rk["mets"][0]["count"]) for rk in ranks)
-    correct = sum(int(rk["mets"][0]["correct"]) for rk in ranks)
+    count = sum(int(rk["mets"][0]["count"]) for rk in data_ranks)
+    correct = sum(int(rk["mets"][0]["correct"]) for rk in data_ranks)
     ce_rel = abs(float(m["ce"]) - float(r["ce"])) / abs(float(r["ce"]))
     geo_rel = abs(float(m["geo"]) - float(r["geo"])) / abs(float(r["geo"]))
     worst = max(
         ((first["params"][k] - v).abs() / (1e-2 + 0.2 * v.abs())).max().item()
         for k, v in ref["params"].items())
-    print(f"{label} vs one process with {len(ranks)} shards: step-1 count "
+    print(f"{label} vs one process with {len(data_ranks)} shards: step-1 count "
           f"{count}/{int(r['count'])} correct {correct}/{int(r['correct'])} "
           f"ranks {m['ranks'].tolist()} / {r['ranks'].tolist()} ce rel err "
           f"{ce_rel} geo rel err {geo_rel} step losses "
@@ -1983,6 +2298,126 @@ def dp_phase(torch, device, root: str) -> None:
     else:
         print(f"dp nccl two-card check: not run "
               f"({torch.cuda.device_count()} CUDA device)")
+
+
+# the tensor-parallel check: the jacobi path over a model group of 2
+# (tpu.mesh.data=1 tpu.mesh.model=2), then one step of the flash path
+TP_MESH = {"data": 1, "model": 2}
+TP_FLASH_STEPS = 1
+
+
+def tp_rank_main(rank: int, world: int, backend: str, store: str,
+                 out_dir: str, device: str, args: list) -> None:
+    """One spawned rank of a model group of ``world``: ``dp_steps`` on the
+    jacobi run ``args`` give, then ``TP_FLASH_STEPS`` of the flash path
+    (K10 on the rank's heads, K11's partial entries); writes
+    ``rank<r>.pt``."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from basd_tpu_torch.ops.linalg import set_full_f32_precision
+    from basd_tpu_torch.parallel.mesh import init_mesh
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    set_full_f32_precision()
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        dp, tp = init_mesh({"data": 1, "model": world}, device)
+        out = dp_steps(torch, args, 1, 1, device,
+                       str(Path(out_dir) / f"r{rank}"), dp, tp)
+        flash = dp_steps(torch, args + FLASH_ARGS, 1, 1, device,
+                         str(Path(out_dir) / f"f{rank}"), dp, tp,
+                         steps=TP_FLASH_STEPS)
+        out["flash"] = {k: flash[k] for k in ("mets", "counts", "step_ms")}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_expected(label: str, counts: dict, steps: int, flash: bool) -> None:
+    """Launches of ``steps`` train steps over a model group, from the
+    models' depths (12 blocks each): the teacher's partial K1 (or K10c on
+    the flash path) and K2 once a block a step, the remat'd student's
+    partial K3a and K4a (or K10a and K11a) twice (forward and recompute),
+    K3b and K4b (or K10b and K11b) once; no whole K1-K4 or K11."""
+    from basd_tpu_torch import kernels
+
+    per = 12 * steps
+    want = {"K2 fused_ln_mlp_collect: partial": per}
+    if flash:
+        want.update({"K10c flash_attention importance": per,
+                     "K10a flash_attention fwd": 2 * per,
+                     "K10b flash_attention bwd": per,
+                     "K11a fused_mlp fwd: partial": 2 * per,
+                     "K11b fused_mlp bwd: partial": per})
+    else:
+        want.update({"K1 fused_block_attn: partial": per,
+                     "K3a fused_block_attn_train fwd: partial": 2 * per,
+                     "K3b fused_block_attn_train bwd: partial": per,
+                     "K4a fused_ln_mlp fwd: partial": 2 * per,
+                     "K4b fused_ln_mlp bwd: partial": per})
+    whole = ("K1 fused_block_attn", "K2 fused_ln_mlp_collect",
+             "K11a fused_mlp fwd", "K11b fused_mlp bwd") + BLOCK_KERNELS
+    want.update({name: 0 for name in whole})
+    want.update({name: 0 for name in kernels.TP_KERNELS if name not in want})
+    for name, n in want.items():
+        check(counts[name] == n, f"{label}: {name} launched {counts[name]} "
+              f"times, not {n}")
+
+
+def tp_phase(torch, device, root: str) -> dict:
+    """Two ranks of a model group on the one card over gloo: the jacobi
+    path at full width under ``tpu.mesh.data=1 tpu.mesh.model=2`` (teacher
+    heads 3 + 3, hidden 768 + 768; student heads 2 + 1, hidden 384 + 384),
+    ``DP_STEPS`` steps of B=128, against the one-process run on the same
+    batches under ``dp_compare``'s contract, every block half through the
+    partial entries of K1-K4 (``tp_expected``, the tensor-core attention
+    and the sm90 GEMM on every launch); then one flash-path step (K10 on
+    each rank's heads, K11's partial entries). NCCL across two cards the
+    same way where the machine has them. Returns rank 0's launches of both
+    runs."""
+    ref = dp_steps(torch, DP_ARGS, 1, 1, device, str(Path(root) / "tp_ref"))
+    one = (f"cuda:{device.index or 0}" if device.type == "cuda"
+           else str(device))
+    runs = [("tp gloo 2 ranks on one card", "gloo", [one] * 2)]
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        runs.append(("tp nccl 2 cards", "nccl", ["cuda:0", "cuda:1"]))
+    counts = None
+    for label, backend, devices in runs:
+        ranks = spawn_ranks(torch, 2, backend,
+                            str(Path(root) / label.split()[1]), devices,
+                            DP_ARGS, target=tp_rank_main)
+        for i, rk in enumerate(ranks):
+            check(rk["rows"] == ref["rows"], f"{label} rank rows {rk['rows']}")
+            tp_expected(f"{label} rank {i}", rk["counts"], DP_STEPS, False)
+            tp_expected(f"{label} rank {i} flash", rk["flash"]["counts"],
+                        TP_FLASH_STEPS, True)
+            c = dict(rk["counts"])
+            check_core_variants(f"{label} rank {i}", c, rk["variants"])
+            check_gemm_variants(f"{label} rank {i}", c, rk["gemm"])
+            check_bwd_gemm_variants(f"{label} rank {i}", c, rk["gemm_bwd"])
+            losses = [float(m["loss_sum"] / m["count"])
+                      for m in rk["flash"]["mets"]]
+            check(all(math.isfinite(v) for v in losses),
+                  f"{label} rank {i} flash losses {losses}")
+            print(f"{label} rank {i}: peak device memory {rk['peak_gib']} GiB, "
+                  f"{rk['step_gib']} above what the rank held before the "
+                  f"steps (one process {ref['peak_gib']}, {ref['step_gib']}); "
+                  f"flash step losses {losses} step_ms "
+                  f"{rk['flash']['step_ms']}")
+        dp_compare(torch, label, ranks, ref, data_ranks=ranks[:1])
+        if counts is None:
+            counts = {k: max(ranks[0]["counts"][k],
+                             ranks[0]["flash"]["counts"][k])
+                      for k in ranks[0]["counts"]}
+    if len(runs) == 1:
+        print(f"tp nccl two-card check: not run "
+              f"({torch.cuda.device_count()} CUDA device)")
+    return counts
 
 
 def remat_policy_runs(torch, kernels, trainer, label: str,
@@ -2111,7 +2546,8 @@ def main(argv=None) -> int:
                                      "gram", [])
     for name, *_ in kernels.KERNELS:
         count = counts[name]
-        if name == "K8 jacobi_eigh" or name in FLASH_KERNELS:
+        if (name == "K8 jacobi_eigh" or name in FLASH_KERNELS
+                or name in kernels.TP_KERNELS):
             check(count == 0, f"the gram path launched {name}")
         else:
             check(count > 0, f"{name} never launched on the main path")
@@ -2156,6 +2592,9 @@ def main(argv=None) -> int:
     del jacobi_state  # would count in the later phases' peak memory
     dp_phase(torch, device, root.name)
 
+    phase("tensor-parallel train")
+    tp_counts = tp_phase(torch, device, root.name)
+
     phase("remat dots")
     remat_phase(torch, kernels, gram, flash)
 
@@ -2189,6 +2628,7 @@ def main(argv=None) -> int:
         """The train run that takes ``name``: its whole counts, and those
         before its eval suite."""
         return ((jcounts, jpre) if name.startswith("K8 jacobi_eigh")
+                else (tp_counts, tp_counts) if name in kernels.TP_KERNELS
                 else (fcounts, fpre) if name in FLASH_KERNELS + LN_KERNELS
                 else (ccounts, cpre) if name == "K7 ns_polar_hybrid: stream"
                 else (counts, pre))

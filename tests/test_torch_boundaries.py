@@ -59,6 +59,8 @@ def _wrapper_cases():
         ns_polar,
     )
     from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh_plain as jacobi_plain
+    from basd_tpu_torch.models.port import shard_state_dict
+    from basd_tpu_torch.parallel.mesh import ModelParallel
 
     rng = np.random.default_rng(3)
 
@@ -91,7 +93,54 @@ def _wrapper_cases():
     o, lse10 = flash_attention.flash_attention_plain_fwd(qkv, h, 0.25)
     k10b = (qkv, o, dout, lse10, h, 0.25)
     k11b = (x, dout, *mlp[:3])
+    # rank 1 of 2's shards (heads 2-3 of 4, E = 8; hidden units 64-127)
+    names = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight",
+             "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight")
+    shard = shard_state_dict(
+        {"blocks.0." + k: v for k, v in zip(names, attn[:3] + mlp[:3])},
+        ModelParallel(1, 2), h)
+    attn_r = tuple(shard["blocks.0." + k] for k in names[:3])
+    mlp_r = tuple(shard["blocks.0." + k] for k in names[3:])
+    lse_r = block_attn.block_attn_train_plain_fwd_partial(x, *ln, *attn_r, 2,
+                                                          8)[1]
+    k3bp = (x, mask, dout, lse_r, *ln, *attn_r, 2, 8)
+    k4bp = (x, mask, dout, *ln, *mlp_r)
+
+    def flat_bwd(grads):
+        """A plain backward's (dx, 3 weight grads, bias, dln_s, dln_b) as
+        the partial wrappers return it: (flat [dx, dln_s, dln_b], 3)."""
+        dx, g1, g2, g3, _, dls, dlb = grads
+        return torch.cat([dx.reshape(-1), dls, dlb]), g1, g2, g3
+
     return {
+        "K1 fused_block_attn: partial": (
+            (x, *ln, *attn_r, 2, 8, h),
+            lambda: torch.cat([t_.reshape(-1) for t_ in
+                               block_attn.block_attn_plain_partial(
+                                   x, *ln, *attn_r, 2, 8, h)])),
+        "K2 fused_ln_mlp_collect: partial": (
+            (x, *ln, *mlp_r),
+            lambda: block_mlp.block_mlp_plain_partial(x, *ln, *mlp_r)),
+        "K3a fused_block_attn_train fwd: partial": (
+            (x, *ln, *attn_r, 2, 8),
+            lambda: block_attn.block_attn_train_plain_fwd_partial(
+                x, *ln, *attn_r, 2, 8)),
+        "K3b fused_block_attn_train bwd: partial": (
+            k3bp, lambda: flat_bwd(block_attn.block_attn_train_plain_bwd(
+                *k3bp[:-2], 2, 1e-6, 8, partial=True))),
+        "K4a fused_ln_mlp fwd: partial": (
+            (x, *ln, *mlp_r),
+            lambda: block_mlp.block_mlp_plain_partial(x, *ln, *mlp_r)),
+        "K4b fused_ln_mlp bwd: partial": (
+            k4bp, lambda: flat_bwd(block_mlp.block_mlp_plain_bwd(
+                *k4bp, partial=True))),
+        "K11a fused_mlp fwd: partial": (
+            (x, *mlp_r),
+            lambda: fused_mlp.fused_mlp_plain_fwd(x, *mlp_r, None)),
+        "K11b fused_mlp bwd: partial": (
+            (x, dout, *mlp_r),
+            lambda: fused_mlp.fused_mlp_plain_bwd(x, dout, *mlp_r,
+                                                  partial=True)[:4]),
         "K1 fused_block_attn": (
             (x, *ln, *attn, h),
             lambda: block_attn.block_attn_plain(x, *ln, *attn, h)),

@@ -27,7 +27,7 @@ from basd_tpu.data import augment as jaug
 from basd_tpu_torch.data import augment as aug
 from basd_tpu_torch.parallel.mesh import (
     DataParallel,
-    init_data_parallel,
+    init_mesh,
     shard_batch,
 )
 from basd_tpu_torch.training.trainer import StepViews
@@ -40,7 +40,7 @@ _JOIN_S = 150.0
 
 
 def _spawn_ranks(tmp_path, world: int, steps: int, target=worker.rank_main,
-                 prefix: str = "rank") -> list[dict]:
+                 prefix: str = "rank", join_s: float = _JOIN_S) -> list[dict]:
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target,
                          args=(r, world, str(tmp_path / "store"),
@@ -48,14 +48,14 @@ def _spawn_ranks(tmp_path, world: int, steps: int, target=worker.rank_main,
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + _JOIN_S
+    deadline = time.monotonic() + join_s
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.0))
     hung = [p for p in procs if p.is_alive()]
     for p in hung:
         p.kill()
         p.join()
-    assert not hung, f"{len(hung)} rank(s) hung past {_JOIN_S} s"
+    assert not hung, f"{len(hung)} rank(s) hung past {join_s} s"
     assert [p.exitcode for p in procs] == [0] * world
     return [torch.load(tmp_path / f"{prefix}{r}.pt", weights_only=False)
             for r in range(world)]
@@ -149,8 +149,9 @@ def test_cli_two_ranks(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """A train batch the world does not divide, ``tpu.mesh.model > 1`` and a
-    ``tpu.mesh.data`` other than the world size are refused."""
+    """A train batch the world does not divide, a grid larger than the
+    world (``tpu.mesh.model=2`` in one process) and a ``tpu.mesh.data``
+    other than the world size are refused."""
     from basd_tpu_torch.train import main
 
     batch = {"image": np.zeros((6, 2, 2, 3), np.uint8),
@@ -159,12 +160,13 @@ def test_refusals(tmp_path, monkeypatch):
         shard_batch(DataParallel(rank=0, world=4), batch, allow_pad=False)
     assert shard_batch(DataParallel(rank=0, world=4), batch)["label"].shape == (2,)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        init_data_parallel({"data": 1, "model": 2}, torch.device("cpu"))
+    with pytest.raises(ValueError, match="exceeds the world"):
+        init_mesh({"data": 1, "model": 2}, torch.device("cpu"))
     with pytest.raises(ValueError, match="tpu.mesh.data=2"):
-        init_data_parallel({"data": 2, "model": 1}, torch.device("cpu"))
-    assert init_data_parallel({"data": -1}, torch.device("cpu")).group is None
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        init_mesh({"data": 2, "model": 1}, torch.device("cpu"))
+    dp, tp = init_mesh({"data": -1}, torch.device("cpu"))
+    assert dp.group is None and tp is None
+    with pytest.raises(ValueError, match="exceeds the world"):
         main(["experiment=smoke_synthetic", f"run.output_dir={tmp_path}",
               "tpu.mesh.model=2"], device="cpu")
 

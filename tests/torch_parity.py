@@ -55,12 +55,14 @@ def to_torch(a) -> torch.Tensor:
 class Pair:
     """The two packages' step on the same weights: ``jax_step(state, clean,
     mixed, targets) -> (state, loss, grads)`` (jitted) with its initial
-    ``state``, and the port's ``trainer``."""
+    ``state``, and the port's ``trainer``; ``jax_metrics_step`` is the same
+    step returning ``(state, loss, aux, logits)``."""
 
     config: Any
     jax_step: Any
     state: Any
     trainer: Trainer
+    jax_metrics_step: Any = None
 
     def flat(self, tree) -> dict:
         """A JAX trainable tree as the port's flat {name: numpy} dict."""
@@ -99,21 +101,30 @@ def make_pair(tmp_path) -> Pair:
         weight_decay=float(config.training.weight_decay))
     state = jsf.init({"student": s_vars["params"], "basd": sel_params})
 
-    @jax.jit
-    def jax_step(state, clean, mixed, targets):
+    def step(state, clean, mixed, targets):
         out_t = jteacher.apply(t_vars, clean)
         y = jsf.train_params(state, sf_cfg)
 
         def loss_fn(trainable):
             out = jstudent.apply({"params": trainable["student"]}, mixed)
             s_int = jnp.stack([out["tokens"][i] for i in jcfg.token_layers])
-            return jcombined.basd_loss(trainable["basd"], sel_buffers,
-                                       out["logits"], targets, s_int,
-                                       out_t["tokens"], out_t["importance"],
-                                       jcfg)
+            loss, aux = jcombined.basd_loss(
+                trainable["basd"], sel_buffers, out["logits"], targets, s_int,
+                out_t["tokens"], out_t["importance"], jcfg)
+            return loss, (aux, out["logits"])
 
-        (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(y)
-        return jsf.update(state, grads, sf_cfg, y=y), loss, grads
+        (loss, (aux, logits)), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(y)
+        return jsf.update(state, grads, sf_cfg, y=y), loss, grads, aux, logits
+
+    @jax.jit
+    def jax_step(state, clean, mixed, targets):
+        return step(state, clean, mixed, targets)[:3]
+
+    @jax.jit
+    def jax_metrics_step(state, clean, mixed, targets):
+        new, loss, _, aux, logits = step(state, clean, mixed, targets)
+        return new, loss, aux, logits
 
     teacher = create_model("tiny_teacher", img_size=IMG,
                            arch_overrides=dict(T_ARCH, patch_size=8),
@@ -131,4 +142,4 @@ def make_pair(tmp_path) -> Pair:
                                                          sel_buffers)
     for st in (trainer.opt_state.x, trainer.opt_state.z):
         st["basd.log_temperatures"] = temps["log_temperatures"].clone()
-    return Pair(config, jax_step, state, trainer)
+    return Pair(config, jax_step, state, trainer, jax_metrics_step)
