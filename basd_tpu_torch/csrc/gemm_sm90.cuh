@@ -56,8 +56,7 @@
 //   one CTA's epilogue overlaps the other's products.
 //
 // The tensor maps are encoded on the host at each launch (they hold the
-// operands' addresses), through cuTensorMapEncodeTiled reached with
-// cudaGetDriverEntryPoint: the library links nothing beyond the runtime.
+// operands' addresses), by tma.cuh's tensor_map.
 //
 // The rule (sm90_ok, mirrored by kernels/gemm.py: gemm_nk_variant and
 // gemm_bwd_variant): bf16, every leading dimension % 8 == 0 (TMA's 16-byte
@@ -68,11 +67,9 @@
 // uses.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
-
 #include <initializer_list>
 
-#include "wgmma.cuh"
+#include "tma.cuh"
 
 namespace basd {
 namespace sm90 {
@@ -97,18 +94,6 @@ struct Cfg {
   // 1024 bytes of slack to align the ring for the 128-byte swizzle
   static constexpr int SMEM = 1024 + BARS + 2 * STAGES * 8;
 };
-
-// TMA: the box at (c0 = column, c1 = row) of the map's matrix into
-// shared memory, its bytes counted on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
 
 template <bool MN>
 __device__ __forceinline__ uint64_t operand_desc(const uint8_t* tile, int kk) {
@@ -221,52 +206,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
   gemm_epilogue<EPI, bf16, TM, TN, C::LD>(g, c, m0, n0);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a rows x cols bf16 matrix with a row pitch of ld elements,
-// read in boxes of box_rows x 64 columns, 128-byte swizzle, zero fill
-// outside the matrix.
-static int tensor_map(CUtensorMap* map, const bf16* p, int rows, int cols,
-                      int ld, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<bf16*>(p), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // One product on the sm90 GEMM; k_chunk (a multiple of TK, or K) is the

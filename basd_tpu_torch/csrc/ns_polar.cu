@@ -12,9 +12,10 @@
 // differs from the reference.
 //
 // What bounds it on the H100: at the Procrustes batch (P*B = 512 matrices
-// of 192 x 384 at B=128) the iteration is ~240 GFLOP (counted from the
-// shapes), ~0.24 ms at the bf16 tensor-core peak, against 151 MB of input
-// and 75 MB of output (0.07 ms at 3.35 TB/s): operations, as the TPU
+// of 192 x 384 at B=128) the iteration needs ~171 GFLOP (X X^T and G G^T
+// are symmetric: r (r + 1) / 2 dot products each; kernels/ns_polar.py:
+// polar_flops), ~0.17 ms at the bf16 tensor-core peak, against 151 MB of
+// input and 75 MB of output (0.07 ms at 3.35 TB/s): operations, as the TPU
 // kernel's point is that device memory sees one read of x and one write
 // of the polar factor.
 //
@@ -50,7 +51,7 @@
 //   copies move plain bytes. The f32 Frobenius prescale reads x twice (the
 //   norm, then the first pass scales and rounds it chunk by chunk); the
 //   last pass writes the factor. The function is bound by its operations
-//   at (512, 192, 768) and (512, 192, 2048) (0.447 and 1.131 ms of bf16
+//   at (512, 192, 768) and (512, 192, 2048) (0.33 and 0.84 ms of bf16
 //   products at the peak); this design adds device-memory traffic of 2.87
 //   and 7.65 GB (x twice in f32, X in and out once a step), 0.86 and 2.28
 //   ms at 3.35 TB/s, the floor of its time at c = 2048.
@@ -58,112 +59,52 @@
 //   memory, the partial Grams reduce-scattered and all-gathered over
 //   distributed shared memory) was measured first and lost: its exchange
 //   took longer than the Gram product it serves (PERF.md).
-// - workspace (ns_polar_hybrid_kernel), for the other shapes (r > 192,
-//   e.g. (384, 768), a DeiT-S student under a DeiT-B teacher): one
-//   128-thread CTA a
-//   matrix walks the iteration on common.cuh's WMMA tile, keeping X
-//   (ping-pong), G and H in a per-matrix device-memory workspace (~0.44
-//   MB a matrix at (192, 384), read back through L2).
+// - batched (ns_batched_kernel), for rows over 192 (the DINOv2 teachers'
+//   calibrated students: (512, 320, 768) under ViT-B/14, (512, 512, 1024)
+//   under ViT-L/14; (384, 768), a DeiT-S student under a DeiT-B teacher):
+//   G (r x r bf16, 205 KB at r = 320) no longer fits beside a ring of X
+//   chunks in one CTA. Each product of each step is one launch over every
+//   matrix, the grid (output tile, matrix), each CTA a 128 x 128 tile of
+//   one matrix's product on gemm_sm90.cuh's machinery: two consumer
+//   warpgroups issuing wgmma from a TMA ring that one producer warp keeps
+//   full, fed by 3-D tensor maps (one matrix a plane: a box is zero-filled
+//   at its own matrix's edges, so ragged r needs no padding in memory); a
+//   warpgroup whose 64 rows lie past r issues nothing. G and G G^T are
+//   symmetric: only their tiles on and above the diagonal are computed,
+//   each off-diagonal one also stored transposed (6 of 9 tiles at r =
+//   320). The Newton-Schulz
+//   epilogue runs on the accumulators in registers: G rounded, H = b G +
+//   c bf16(G G^T) with G as the aux operand, a X + H X or 1.5 X - 0.5 G X
+//   with X as the aux operand, each rounded once and stored as bf16 pairs.
+//   19 products and a prescale launch a call (20 launches); X (ping-pong),
+//   G and H live in a device-memory workspace, 2 r c + 2 r r bf16 a
+//   matrix. Its floor is bytes: each product reads its operands and writes
+//   its result once, ~1.2 GB a step at (512, 320, 768), ~2.4 ms over the
+//   call at 3.35 TB/s against 0.94 ms of products at the bf16 peak; the
+//   grid keeps a matrix's tiles adjacent so that its operands are re-read
+//   from L2. Each output element is one CTA's fixed-order sum: two
+//   launches give the same bits.
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace basd {
 
-__constant__ float QUINTIC[5][3] = {
-    {4.0848f, -6.8946f, 2.9270f},
-    {3.9505f, -6.3029f, 2.6377f},
-    {3.7418f, -5.5913f, 2.3037f},
-    {2.8769f, -3.1427f, 1.2046f},
-    {2.8366f, -3.0525f, 1.2012f},
-};
+// The schedule, written once: the device copy for the on-chip and
+// streaming variants, the host copy for the batched variant's launches,
+// which take a step's coefficients as arguments.
+#define BASD_QUINTIC_SCHEDULE    \
+  {{4.0848f, -6.8946f, 2.9270f}, \
+   {3.9505f, -6.3029f, 2.6377f}, \
+   {3.7418f, -5.5913f, 2.3037f}, \
+   {2.8769f, -3.1427f, 1.2046f}, \
+   {2.8366f, -3.0525f, 1.2012f}}
+__constant__ float QUINTIC[5][3] = BASD_QUINTIC_SCHEDULE;
+constexpr float QUINTIC_HOST[5][3] = BASD_QUINTIC_SCHEDULE;
 constexpr int NUM_CUBIC = 2;
 
 enum NsPhase { NS_GRAM = 0, NS_H = 1, NS_QUINTIC_Y = 2, NS_CUBIC_Y = 3 };
-
-// One phase: every 64 x 64 tile of the M x N product, then its epilogue.
-// Reads and writes of the workspace by this block are ordered by the
-// __syncthreads inside tile_mma and at the end of the phase.
-template <bool B_NK, int PHASE>
-__device__ void ns_phase(TileSmem& sm, const bf16* A, int lda, const bf16* B,
-                         int ldb, int M, int N, int K, bf16* dst,
-                         const bf16* aux, float ca, float cb, float cc) {
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = ((M + BM - 1) / BM) * tiles_n;
-  for (int t = 0; t < tiles; ++t) {
-    const int m0 = (t / tiles_n) * BM;
-    const int n0 = (t % tiles_n) * BN;
-    tile_mma<B_NK>(sm, A, lda, true, B, ldb, true, M, N, K, m0, n0);
-    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-      const int r = i / BN;
-      const int c = i % BN;
-      const int gr = m0 + r;
-      const int gc = n0 + c;
-      if (gr >= M || gc >= N) continue;
-      const float acc = sm.c[r * C_LD + c];
-      const size_t o = (size_t)gr * N + gc;
-      float v;
-      if constexpr (PHASE == NS_GRAM) {
-        v = acc;  // G (or X X^T), rounded below
-      } else if constexpr (PHASE == NS_H) {
-        v = cb * bf2f(aux[o]) + cc * round_bf(acc);  // aux = G
-      } else if constexpr (PHASE == NS_QUINTIC_Y) {
-        v = ca * bf2f(aux[o]) + acc;  // aux = X
-      } else {
-        v = 1.5f * bf2f(aux[o]) - 0.5f * acc;  // aux = X
-      }
-      dst[o] = f2bf(v);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(TILE_THREADS)
-    ns_polar_hybrid_kernel(const float* x, bf16* out, bf16* ws, int r,
-                           int c) {
-  __shared__ __align__(128) TileSmem sm;
-  __shared__ float red[TILE_THREADS / 32];
-  const size_t rc = (size_t)r * c;
-  const size_t rr = (size_t)r * r;
-  const float* xm = x + blockIdx.x * rc;
-  bf16* xa = ws + blockIdx.x * (2 * rc + 2 * rr);
-  bf16* xb = xa + rc;
-  bf16* g = xb + rc;
-  bf16* hm = g + rr;
-
-  // f32 Frobenius prescale
-  float s = 0.f;
-  for (size_t i = threadIdx.x; i < rc; i += blockDim.x) s += xm[i] * xm[i];
-  s = warp_sum(s);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = s;
-  __syncthreads();
-  float norm2 = 0.f;
-  for (int w = 0; w < TILE_THREADS / 32; ++w) norm2 += red[w];
-  const float inv = rsqrtf(norm2 + 1e-30f);
-  for (size_t i = threadIdx.x; i < rc; i += blockDim.x) xa[i] = f2bf(xm[i] * inv);
-  __syncthreads();
-
-  for (int step = 0; step < 5; ++step) {
-    const float a = QUINTIC[step][0];
-    const float b = QUINTIC[step][1];
-    const float cq = QUINTIC[step][2];
-    ns_phase<true, NS_GRAM>(sm, xa, c, xa, c, r, r, c, g, nullptr, 0.f, 0.f, 0.f);
-    ns_phase<true, NS_H>(sm, g, r, g, r, r, r, r, hm, g, 0.f, b, cq);
-    ns_phase<false, NS_QUINTIC_Y>(sm, hm, r, xa, c, r, c, r, xb, xa, a, 0.f, 0.f);
-    bf16* tmp = xa;
-    xa = xb;
-    xb = tmp;
-  }
-  for (int step = 0; step < NUM_CUBIC; ++step) {
-    ns_phase<true, NS_GRAM>(sm, xa, c, xa, c, r, r, c, g, nullptr, 0.f, 0.f, 0.f);
-    ns_phase<false, NS_CUBIC_Y>(sm, g, r, xa, c, r, c, r, xb, xa, 0.f, 0.f, 0.f);
-    bf16* tmp = xa;
-    xa = xb;
-    xb = tmp;
-  }
-  bf16* om = out + blockIdx.x * rc;
-  for (size_t i = threadIdx.x; i < rc; i += blockDim.x) om[i] = xa[i];
-}
 
 // ---- the on-chip variant ----
 
@@ -645,18 +586,239 @@ int launch_stream(const float* x, bf16* out, bf16* ws, int batch, int r, int c,
   return 0;
 }
 
-}  // namespace basd
+// ---- the batched variant ----
 
-// The workspace variant. x: (batch, r, c) f32 with r <= c, r % 8 == 0,
-// c % 8 == 0; out: (batch, r, c) bf16; ws: batch * (2 r c + 2 r r) bf16.
-extern "C" int basd_ns_polar_hybrid(const float* x, void* out, void* ws,
-                                    int batch, int r, int c, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  basd::ns_polar_hybrid_kernel<<<batch, basd::TILE_THREADS, 0, st>>>(
-      x, static_cast<basd::bf16*>(out), static_cast<basd::bf16*>(ws), r, c);
+namespace nsb {
+constexpr int TM = 128;              // output rows a CTA: two warpgroups of 64
+constexpr int TN = 128;              // output columns a CTA
+constexpr int TK = 64;               // contraction a stage
+constexpr int BOX = 64 * TK * 2;     // an MN-major box of B: 64 N x 64 K
+constexpr int STAGES = 3;
+constexpr int A_BYTES = TM * TK * 2;
+constexpr int B_BYTES = TN * TK * 2;
+constexpr int STAGE = A_BYTES + B_BYTES;
+// alignment slack for the 128-byte swizzle, the ring, two mbarriers a
+// stage: ~97 KB, two CTAs an SM
+constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+constexpr int T_LD = TM + 8;         // row pitch of a transposed tile staged
+                                     // in the drained ring (16-byte rows)
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int PRESCALE_THREADS = 256;
+}  // namespace nsb
+
+// One product of a step over every matrix of the batch: out = epilogue(A .
+// B), A (M x K) K-major, B K-major (N x K) or MN-major (stored K x N).
+struct NsProduct {
+  bf16* out;        // (batch, M, N)
+  const bf16* aux;  // (batch, M, N): G for NS_H, X for the Y phases
+  int M, N, K;
+  float ca, cb;     // NS_H: b and c; NS_QUINTIC_Y: a
+};
+
+// The r x r products (NS_GRAM: G = X X^T; NS_H: G G^T, from which H) are
+// symmetric: a CTA computes an output tile (mt, nt) with mt <= nt and, off
+// the diagonal, writes its transpose as tile (nt, mt) too (staged in the
+// drained ring, stored in 16-byte rows). H's aux G is then symmetric bit
+// for bit off the diagonal tiles, so the transposed H is H's own value.
+template <int EPI>
+__host__ __device__ constexpr bool symmetric_epi() {
+  return EPI == NS_GRAM || EPI == NS_H;
+}
+
+// Output tile of matrix blockIdx.z: (blockIdx.y, blockIdx.x), or for a
+// symmetric product the blockIdx.x-th tile (mt, nt), mt <= nt, in row
+// order.
+template <int EPI, bool B_MN>
+__global__ void __launch_bounds__(nsb::THREADS, 2)
+    ns_batched_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const NsProduct p) {
+  constexpr bool SYM = symmetric_epi<EPI>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + nsb::STAGES * nsb::STAGE);
+  uint64_t* empty = full + nsb::STAGES;
+  int mt = blockIdx.y, nt = blockIdx.x;
+  if constexpr (SYM) {
+    const int tiles = (p.M + nsb::TM - 1) / nsb::TM;
+    int t = blockIdx.x;
+    mt = 0;
+    while (t >= tiles - mt) {
+      t -= tiles - mt;
+      ++mt;
+    }
+    nt = mt + t;
+  }
+  const int m0 = mt * nsb::TM;
+  const int n0 = nt * nsb::TN;
+  const int z = blockIdx.z;
+  const int k_tiles = (p.K + nsb::TK - 1) / nsb::TK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nsb::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], nsb::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= nsb::CONSUMERS) {
+    // the producer warp: one lane keeps the ring full
+    if (threadIdx.x == nsb::CONSUMERS) {
+      const int b_boxes = B_MN ? min(nsb::TN / 64, (p.N - n0 + 63) / 64) : 1;
+      const int bytes = nsb::A_BYTES + (B_MN ? b_boxes * nsb::BOX : nsb::B_BYTES);
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % nsb::STAGES;
+        if (kt >= nsb::STAGES) sm90::mbar_wait(&empty[s], (kt / nsb::STAGES - 1) & 1);
+        uint8_t* stage = smem + s * nsb::STAGE;
+        const int k = kt * nsb::TK;
+        sm90::mbar_expect_tx(&full[s], bytes);
+        sm90::tma_load_3d(stage, &map_a, &full[s], k, m0, z);
+        if constexpr (B_MN) {
+          for (int j = 0; j < b_boxes; ++j)
+            sm90::tma_load_3d(stage + nsb::A_BYTES + j * nsb::BOX, &map_b,
+                              &full[s], n0 + 64 * j, k, z);
+        } else {
+          sm90::tma_load_3d(stage + nsb::A_BYTES, &map_b, &full[s], k, n0, z);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int row0 = m0 + wg * 64;
+  const bool live = row0 < p.M;  // rows past M feed only discarded outputs
+  float acc[nsb::TN / 2];
+#pragma unroll
+  for (int i = 0; i < nsb::TN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % nsb::STAGES;
+    sm90::mbar_wait(&full[s], (kt / nsb::STAGES) & 1);
+    if (live) {
+      // warpgroup wg's 64 rows of A are 8 KB into the stage
+      const uint8_t* a = smem + s * nsb::STAGE + wg * 64 * 128;
+      const uint8_t* b = smem + s * nsb::STAGE + nsb::A_BYTES;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < nsb::TK / 16; ++kk) {
+        sm90::wgmma_bf16<nsb::TN, 0, B_MN>(
+            acc, sm90::smem_desc(a + kk * 32),
+            B_MN ? sm90::smem_desc_mn(b + kk * 16 * 128, nsb::BOX)
+                 : sm90::smem_desc(b + kk * 32));
+      }
+      sm90::wgmma_commit();
+      // the previous stage's products are done: release it
+      sm90::wgmma_wait<1>();
+    }
+    if (kt > 0) sm90::mbar_arrive(&empty[(kt - 1) % nsb::STAGES]);
+  }
+  const bool mirror = SYM && mt != nt;
+  if (!live && !mirror) return;
+  if (live) sm90::wgmma_wait<0>();
+
+  // the epilogue on the accumulators, a pair of neighbouring columns at a
+  // time (N % 8 == 0: a pair lies wholly inside or outside the matrix);
+  // a mirrored tile's values also go transposed into the drained ring
+  // (every stage consumed, both warpgroups' products complete)
+  if (mirror) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  bf16* tile_t = reinterpret_cast<bf16*>(smem);
+  const size_t base = (size_t)z * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < nsb::TN / 2; i += 2) {
+    const int row = row0 + acc_row(t, i);
+    const int col = n0 + acc_col(t, i);
+    if (!live || row >= p.M || col >= p.N) continue;
+    const size_t o = base + (size_t)row * p.N + col;
+    float y0 = acc[i], y1 = acc[i + 1];
+    if constexpr (EPI != NS_GRAM) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(p.aux + o));
+      if constexpr (EPI == NS_H) {  // b G + c bf16(G G^T)
+        const float2 g2 = __bfloat1622float2(__floats2bfloat162_rn(y0, y1));
+        y0 = __fadd_rn(__fmul_rn(p.ca, v.x), __fmul_rn(p.cb, g2.x));
+        y1 = __fadd_rn(__fmul_rn(p.ca, v.y), __fmul_rn(p.cb, g2.y));
+      } else if constexpr (EPI == NS_QUINTIC_Y) {  // a X + H X
+        y0 = __fadd_rn(__fmul_rn(p.ca, v.x), y0);
+        y1 = __fadd_rn(__fmul_rn(p.ca, v.y), y1);
+      } else {  // 1.5 X - 0.5 (G X)
+        y0 = __fadd_rn(__fmul_rn(1.5f, v.x), __fmul_rn(-0.5f, y0));
+        y1 = __fadd_rn(__fmul_rn(1.5f, v.y), __fmul_rn(-0.5f, y1));
+      }
+    }
+    const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+    *reinterpret_cast<__nv_bfloat162*>(p.out + o) = y;
+    if (mirror) {
+      const int rl = row - m0, cl = col - n0;
+      tile_t[cl * nsb::T_LD + rl] = y.x;
+      tile_t[(cl + 1) * nsb::T_LD + rl] = y.y;
+    }
+  }
+  if (!mirror) return;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  // tile (nt, mt): row n0 + cl of the output is column cl of the tile
+  for (int i = threadIdx.x; i < nsb::TN * (nsb::TM / 8); i += nsb::CONSUMERS) {
+    const int cl = i / (nsb::TM / 8);
+    const int rl = (i % (nsb::TM / 8)) * 8;
+    if (n0 + cl >= p.N || m0 + rl >= p.M) continue;
+    *reinterpret_cast<uint4*>(p.out + base + (size_t)(n0 + cl) * p.N + m0 + rl) =
+        *reinterpret_cast<const uint4*>(tile_t + cl * nsb::T_LD + rl);
+  }
+}
+
+// The f32 Frobenius prescale of each matrix (one CTA a matrix): the norm
+// summed in a fixed order, then x scaled and rounded into X_0.
+__global__ void __launch_bounds__(nsb::PRESCALE_THREADS)
+    ns_prescale_kernel(const float* __restrict__ x, bf16* __restrict__ x0,
+                       int rc) {
+  __shared__ float red[nsb::PRESCALE_THREADS / 32];
+  const float* xm = x + blockIdx.x * (size_t)rc;
+  bf16* om = x0 + blockIdx.x * (size_t)rc;
+  const int tid = threadIdx.x;
+  float s = 0.f;
+  for (int i = 4 * tid; i < rc; i += 4 * nsb::PRESCALE_THREADS) {
+    const float4 v = *reinterpret_cast<const float4*>(xm + i);
+    s += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  s = warp_sum(s);
+  if (tid % 32 == 0) red[tid / 32] = s;
+  __syncthreads();
+  float norm2 = 0.f;
+  for (int w = 0; w < nsb::PRESCALE_THREADS / 32; ++w) norm2 += red[w];
+  const float inv = rsqrtf(norm2 + 1e-30f);
+  for (int i = 8 * tid; i < rc; i += 8 * nsb::PRESCALE_THREADS) {
+    const float4 lo = *reinterpret_cast<const float4*>(xm + i);
+    const float4 hi = *reinterpret_cast<const float4*>(xm + i + 4);
+    __nv_bfloat162 h[4] = {
+        __floats2bfloat162_rn(__fmul_rn(lo.x, inv), __fmul_rn(lo.y, inv)),
+        __floats2bfloat162_rn(__fmul_rn(lo.z, inv), __fmul_rn(lo.w, inv)),
+        __floats2bfloat162_rn(__fmul_rn(hi.x, inv), __fmul_rn(hi.y, inv)),
+        __floats2bfloat162_rn(__fmul_rn(hi.z, inv), __fmul_rn(hi.w, inv))};
+    *reinterpret_cast<uint4*>(om + i) = *reinterpret_cast<uint4*>(h);
+  }
+}
+
+template <int EPI, bool B_MN>
+int launch_product(const CUtensorMap& a, const CUtensorMap& b,
+                   const NsProduct& p, int batch, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ns_batched_kernel<EPI, B_MN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nsb::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles_m = (p.M + nsb::TM - 1) / nsb::TM;
+  const dim3 grid = symmetric_epi<EPI>()
+                        ? dim3(tiles_m * (tiles_m + 1) / 2, 1, batch)
+                        : dim3((p.N + nsb::TN - 1) / nsb::TN, tiles_m, batch);
+  ns_batched_kernel<EPI, B_MN><<<grid, nsb::THREADS, nsb::SMEM, st>>>(a, b, p);
   BASD_CHECK_LAUNCH();
   return 0;
 }
+
+}  // namespace basd
 
 // The on-chip variant. x: (batch, r, c) f32 with r <= 192, r <= c,
 // r % 8 == 0, c % 128 == 0, 16-byte aligned; out: (batch, r, c) bf16.
@@ -711,4 +873,58 @@ extern "C" int basd_ns_polar_stream_part(const float* x, void* out, void* ws,
     case 7: return basd::launch_stream<192, 7>(x, o, w, batch, r, c, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The batched variant. x: (batch, r, c) f32 with r <= c, r % 8 == 0,
+// c % 128 == 0, 16-byte aligned; out: (batch, r, c) bf16; ws: batch *
+// (2 r c + 2 r r) bf16 (X twice, G, H).
+extern "C" int basd_ns_polar_batched(const float* x, void* out, void* ws,
+                                     int batch, int r, int c, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (r <= 0 || r > c || r % 8 != 0 || c % 128 != 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0) return 0;
+  const size_t rc = (size_t)r * c;
+  bf16* xs[2] = {static_cast<bf16*>(ws), static_cast<bf16*>(ws) + batch * rc};
+  bf16* g = xs[1] + batch * rc;
+  bf16* h = g + (size_t)batch * r * r;
+  // each X as A and as B of the Gram (K-major, 128-row boxes) and as B of
+  // the Y products (MN-major, 64 x 64 boxes); G as A and B; H as A
+  CUtensorMap x_k[2], x_mn[2], g_k, h_k;
+  int e = 0;
+  for (int i = 0; i < 2 && !e; ++i) {
+    e = sm90::tensor_map_3d(&x_k[i], xs[i], batch, r, c, nsb::TM);
+    if (!e) e = sm90::tensor_map_3d(&x_mn[i], xs[i], batch, r, c, nsb::TK);
+  }
+  if (!e) e = sm90::tensor_map_3d(&g_k, g, batch, r, r, nsb::TM);
+  if (!e) e = sm90::tensor_map_3d(&h_k, h, batch, r, r, nsb::TM);
+  if (e) return e;
+
+  ns_prescale_kernel<<<batch, nsb::PRESCALE_THREADS, 0, st>>>(x, xs[0], (int)rc);
+  BASD_CHECK_LAUNCH();
+  int cur = 0;
+  for (int step = 0; step < 5 + NUM_CUBIC; ++step) {
+    // G = X X^T; for a quintic step H = b G + c G G^T, then a X + H X; for
+    // a cubic one 1.5 X - 0.5 G X
+    e = launch_product<NS_GRAM, false>(
+        x_k[cur], x_k[cur], NsProduct{g, nullptr, r, r, c, 0.f, 0.f}, batch, st);
+    if (!e && step < 5)
+      e = launch_product<NS_H, false>(
+          g_k, g_k,
+          NsProduct{h, g, r, r, r, QUINTIC_HOST[step][1], QUINTIC_HOST[step][2]},
+          batch, st);
+    if (e) return e;
+    bf16* dst = step == 4 + NUM_CUBIC ? static_cast<bf16*>(out) : xs[1 - cur];
+    e = step < 5 ? launch_product<NS_QUINTIC_Y, true>(
+                       h_k, x_mn[cur],
+                       NsProduct{dst, xs[cur], r, c, r, QUINTIC_HOST[step][0], 0.f},
+                       batch, st)
+                 : launch_product<NS_CUBIC_Y, true>(
+                       g_k, x_mn[cur], NsProduct{dst, xs[cur], r, c, r, 0.f, 0.f},
+                       batch, st);
+    if (e) return e;
+    cur = 1 - cur;
+  }
+  return 0;
 }

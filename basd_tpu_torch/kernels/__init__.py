@@ -129,8 +129,8 @@ PARTS = (
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "onchip"),
     ("K7 ns_polar_hybrid: stream", "cuda", _CSRC + "ns_polar.cu",
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "stream"),
-    ("K7 ns_polar_hybrid: workspace", "cuda", _CSRC + "ns_polar.cu",
-     _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "workspace"),
+    ("K7 ns_polar_hybrid: batched", "cuda", _CSRC + "ns_polar.cu",
+     _PALLAS + "ns_polar.py:106", ns_polar_hybrid, "batched"),
     ("K8 jacobi_eigh: rounds smem", "cuda", _CSRC + "jacobi_eigh.cu",
      _PALLAS + "jacobi_eigh.py:215", jacobi_rounds, "smem"),
     ("K8 jacobi_eigh: rounds global", "cuda", _CSRC + "jacobi_eigh.cu",

@@ -55,10 +55,10 @@ _SIGNATURES = {
     "basd_layernorm_fwd": [_P] * 6 + [_I, _I, _F, _I, _P],
     "basd_fused_mlp_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "basd_fused_mlp_bwd": [_P] * 14 + [_I] * 6 + [_P],
-    "basd_ns_polar_hybrid": [_P, _P, _P, _I, _I, _I, _P],
     "basd_ns_polar_onchip": [_P, _P, _I, _I, _I, _P],
     "basd_ns_polar_stream": [_P, _P, _P, _I, _I, _I, _P],
     "basd_ns_polar_stream_part": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "basd_ns_polar_batched": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_rounds": [_P] * 5 + [_I] * 4 + [_P],
     "basd_jacobi_vectors": [_P] * 3 + [_I] * 3 + [_P],
     "basd_geom_shift3": [_P] * 6 + [_I] * 7 + [_P],

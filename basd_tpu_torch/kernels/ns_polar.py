@@ -10,8 +10,10 @@ the launch from the shapes (``ns_polar_variant``): ``onchip``
 on wgmma, for r <= 192 where X and G fit), ``stream``
 (``basd_ns_polar_stream``: one CTA a matrix with G in shared memory, X
 streamed through it in 64-column chunks once a step; r <= 192 beyond the
-on-chip limit) or ``workspace`` (``basd_ns_polar_hybrid``: X, G and H in
-device memory, on the WMMA tile). ``ns_polar_plain`` is the same
+on-chip limit) or ``batched`` (``basd_ns_polar_batched``: r > 192, each
+product of each step one launch over every matrix on wgmma and a TMA
+ring, X, G and H in a device-memory workspace). ``ns_polar_plain`` is the
+same
 function in plain PyTorch, taken for a CPU tensor. Forward-only: the polar
 factor is the nuclear-norm subgradient, never differentiated through.
 """
@@ -64,6 +66,18 @@ def ns_polar_plain(x: torch.Tensor, inner_dtype: torch.dtype = torch.bfloat16,
     return xb
 
 
+def polar_flops(b: int, r: int, c: int) -> int:
+    """Operations of the iteration on ``b`` (r, c) matrices, as the function
+    needs them: each quintic step G = X X^T and G G^T, both symmetric, so
+    r (r + 1) / 2 dot products each (of length c and r), and H X; each
+    cubic step X X^T and G X; two operations a multiply-add."""
+    gram_x = r * (r + 1) * c
+    gram_g = r * (r + 1) * r
+    prod_x = 2 * r * r * c
+    return b * (len(QUINTIC_SCHEDULE) * (gram_x + gram_g + prod_x)
+                + NUM_CUBIC * (gram_x + prod_x))
+
+
 def kernel_eligible(r: int, c: int) -> bool:
     """The JAX package's gate for its polar kernel (``linalg.py:296-305``),
     on the (rows, cols) of the wide orientation."""
@@ -103,32 +117,38 @@ def ns_polar_variant(r: int, c: int) -> str:
     """``onchip`` where X and G fit one block's shared memory with the rows
     padded to a multiple of 64 (at most 192, three warpgroups), else
     ``stream`` for rows padded to at most 192 and at least
-    ``_STREAM_STAGES`` chunks of 64 columns, else ``workspace``."""
+    ``_STREAM_STAGES`` chunks of 64 columns, else ``batched``."""
     rp = -(-r // 64) * 64
     if rp <= _ONCHIP_MAX_ROWS and onchip_smem_bytes(rp, c) <= _SMEM_BYTES:
         return "onchip"
     if (rp <= _ONCHIP_MAX_ROWS and c % _STREAM_COLS == 0
             and c >= _STREAM_COLS * _STREAM_STAGES):
         return "stream"
-    return "workspace"
+    return "batched"
 
 
-def _check_cuda_input(x: torch.Tensor, aligned: bool) -> None:
+def batched_workspace_elems(r: int, c: int) -> int:
+    """bf16 elements of the batched variant's workspace a matrix: X twice
+    (the step's input and output), G and H."""
+    return 2 * r * c + 2 * r * r
+
+
+def _check_cuda_input(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"ns_polar_hybrid: unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("ns_polar_hybrid: x must be contiguous float32")
-    if aligned and x.data_ptr() % 16:
+    if x.data_ptr() % 16:
         raise ValueError("ns_polar_hybrid: x must be 16-byte aligned")
 
 
-def _launch_workspace(x: torch.Tensor, out: torch.Tensor) -> None:
-    """The workspace kernel from ``x`` into ``out``, its X, G and H in a
-    device-memory workspace of 2 r c + 2 r r bf16 a matrix."""
+def _launch_batched(x: torch.Tensor, out: torch.Tensor) -> None:
+    """The batched variant from ``x`` into ``out``, X, G and H in a
+    device-memory workspace of ``batched_workspace_elems`` bf16 a matrix."""
     b, r, c = x.shape
-    ws = torch.empty((b, 2 * r * c + 2 * r * r), dtype=torch.bfloat16,
+    ws = torch.empty((b, batched_workspace_elems(r, c)), dtype=torch.bfloat16,
                      device=x.device)
-    _build.call("basd_ns_polar_hybrid", x.data_ptr(), out.data_ptr(),
+    _build.call("basd_ns_polar_batched", x.data_ptr(), out.data_ptr(),
                 ws.data_ptr(), b, r, c, _build.stream_ptr(x.device))
 
 
@@ -164,10 +184,10 @@ def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ns_polar_plain(x)
     variant = ns_polar_variant(r, c)
-    _check_cuda_input(x, aligned=variant != "workspace")
+    _check_cuda_input(x)
     out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
-    if variant == "workspace":
-        _launch_workspace(x, out)
+    if variant == "batched":
+        _launch_batched(x, out)
     elif variant == "stream":
         _launch_stream(x, out, STREAM_PARTS["all"])
     else:
@@ -180,20 +200,7 @@ def ns_polar_hybrid(x: torch.Tensor) -> torch.Tensor:
 
 ns_polar_hybrid.launches = 0
 # launches by variant
-ns_polar_hybrid.variants = {"onchip": 0, "stream": 0, "workspace": 0}
-
-
-def ns_polar_workspace(x: torch.Tensor) -> torch.Tensor:
-    """The workspace kernel on (B, r, c) CUDA ``x`` whatever variant
-    ``ns_polar_variant`` picks, counted nowhere: to time it beside the
-    variant that replaced it at a shape."""
-    b, r, c = x.shape
-    if not (kernel_eligible(r, c) and r <= c):
-        raise ValueError(f"ns_polar_workspace: unsupported shape {tuple(x.shape)}")
-    _check_cuda_input(x, aligned=False)
-    out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
-    _launch_workspace(x, out)
-    return out
+ns_polar_hybrid.variants = {"onchip": 0, "stream": 0, "batched": 0}
 
 
 def ns_polar_stream_part(x: torch.Tensor, parts: str) -> torch.Tensor:
@@ -203,7 +210,7 @@ def ns_polar_stream_part(x: torch.Tensor, parts: str) -> torch.Tensor:
     b, r, c = x.shape
     if not (ns_polar_variant(r, c) == "stream" and r > 128):
         raise ValueError(f"ns_polar_stream_part: no streaming kernel at {(r, c)}")
-    _check_cuda_input(x, aligned=True)
+    _check_cuda_input(x)
     out = torch.empty((b, r, c), dtype=torch.bfloat16, device=x.device)
     _launch_stream(x, out, STREAM_PARTS[parts])
     return out

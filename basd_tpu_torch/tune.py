@@ -25,12 +25,14 @@ measurement, and with ``--out`` writes them as JSON:
    timed), the CUDA kernel at 2-8 chunks a lane (``LN_CHUNKS``), and
    ``torch.nn.functional.layer_norm``.
 5. K7 (``ns_polar``) at the Procrustes batch (512, 192, 384), its on-chip
-   variant, at (8, 384, 768), its workspace variant, and at the CNN-to-ViT
-   paths' (512, 192, 768) and (512, 192, 2048), its streaming variant
-   beside the workspace kernel it replaced there: the kernel, the plain
-   version and, as context (never called by the port, and not a one-call
-   equivalent), the same 19 bf16 products as ``torch.bmm`` /
-   ``torch.baddbmm`` calls with K7's rounding points (``_ns_polar_bmm``);
+   variant, at the CNN-to-ViT paths' (512, 192, 768) and (512, 192,
+   2048), its streaming variant, and at (8, 384, 768) and the DINOv2
+   paths' (512, 320, 768) and (512, 512, 1024), its batched variant: the
+   kernel, the plain version and, as context (never called by the port,
+   and not a one-call equivalent), the same 19 bf16 products as
+   ``torch.bmm`` / ``torch.baddbmm`` calls with K7's rounding points
+   (``_ns_polar_bmm``); ``device_tflop_s`` over the operations the
+   function needs (``ns_polar.polar_flops``);
    the streaming kernel also taken apart (``ns_polar_stream_part``: the
    prescale and output alone, without the device-memory traffic of the
    chunks, without the products), its time split into products (the whole
@@ -308,7 +310,7 @@ def polar_sweep(torch, device) -> list:
     out = []
     g = torch.Generator(device=device).manual_seed(4)
     for nb, r, c in ((512, 192, 384), (8, 384, 768), (512, 192, 768),
-                     (512, 192, 2048)):
+                     (512, 192, 2048), (512, 320, 768), (512, 512, 1024)):
         u = torch.linalg.qr(torch.randn((nb, r, r), generator=g, device=device))[0]
         if nb * c * c > 2 ** 28:  # V's r columns from a reduced QR
             v = torch.linalg.qr(torch.randn((nb, c, r), generator=g, device=device))[0]
@@ -316,14 +318,13 @@ def polar_sweep(torch, device) -> list:
             v = torch.linalg.qr(torch.randn((nb, c, c), generator=g, device=device))[0][:, :, :r]
         s = torch.logspace(0, -2, r, device=device)
         x = torch.einsum("bik,k,bjk->bij", u, s, v).contiguous()
-        flops = nb * (5 * (4 * r * r * c + 2 * r ** 3) + 2 * 4 * r * r * c)
+        flops = ns_polar.polar_flops(nb, r, c)
         ref = ns_polar.ns_polar_plain(x)
         variant = ns_polar.ns_polar_variant(r, c)
         fns = [(f"K7 {variant}", lambda: ns_polar.ns_polar_hybrid(x)),
                ("K7 plain", lambda: ns_polar.ns_polar_plain(x)),
                ("19 bf16 bmm (context)", lambda: _ns_polar_bmm(torch, x))]
         if variant == "stream":
-            fns += [("K7 workspace", lambda: ns_polar.ns_polar_workspace(x))]
             fns += [(f"K7 stream part {part}",
                      lambda part=part: ns_polar.ns_polar_stream_part(x, part))
                     for part in ("io", "io+products", "io+traffic")]

@@ -9,8 +9,9 @@ rule ``chip_smoke.py`` holds K8 to.
   (w, V) bit for bit; ``chip_smoke.py`` holds the vectors pass alone to it.
 - K7's variant rule: the on-chip kernel where X and G fit a block's shared
   memory, the streaming kernel (G in shared memory, X streamed in chunks)
-  for the other rows up to 192, the workspace kernel beyond; the streaming
-  kernel's shared memory at each row padding.
+  for the other rows up to 192, the batched kernel (each product one
+  launch over every matrix) beyond; the streaming kernel's shared memory
+  at each row padding; the batched kernel's workspace.
 - ``ns_polar_plain`` against the Pallas kernel in interpret mode at the
   main path's width (192, 384), atol 3e-2 (bf16 intermediates rounded at
   the same points; the products' f32 sums run in another order), and
@@ -128,15 +129,42 @@ def test_rounds_variant(n, variant):
 
 @pytest.mark.parametrize("r,c,variant", [
     (192, 384, "onchip"), (96, 384, "onchip"), (16, 128, "onchip"),
-    (8, 128, "onchip"), (128, 512, "onchip"), (384, 768, "workspace"),
-    (192, 512, "stream"), (256, 256, "workspace"), (192, 768, "stream"),
+    (8, 128, "onchip"), (128, 512, "onchip"), (384, 768, "batched"),
+    (192, 512, "stream"), (256, 256, "batched"), (192, 768, "stream"),
     (192, 2048, "stream"), (192, 640, "stream"), (64, 2048, "stream"),
-    (128, 1024, "stream")])
+    (128, 1024, "stream"), (320, 768, "batched"), (512, 1024, "batched"),
+    (200, 256, "batched")])
 def test_ns_polar_variant(r, c, variant):
     """On chip where the rows pad to at most 192 (three warpgroups) and X
     and G fit one block's shared memory; else the streaming kernel where
-    the rows pad to at most 192; else the workspace kernel."""
+    the rows pad to at most 192; else the batched kernel: the DINOv2
+    students' (320, 768) and (512, 1024), and every shape the workspace
+    kernel took before it."""
     assert ns_polar.ns_polar_variant(r, c) == variant
+
+
+@pytest.mark.parametrize("r,c,mib", [(320, 768, 1.328125), (512, 1024, 3.0)])
+def test_batched_workspace(r, c, mib):
+    """The batched kernel's workspace a matrix: X twice (a step's input and
+    output), G and H, in bf16: 1.33 MiB at (320, 768), 680 MiB for the
+    512 matrices of the ViT-B/14 path's Procrustes batch."""
+    assert ns_polar.batched_workspace_elems(r, c) * 2 / 2 ** 20 == mib
+
+
+@pytest.mark.parametrize("nb,r,c", [(2, 320, 768), (1, 64, 128)])
+def test_polar_flops_counts_the_symmetric_products_once(nb, r, c):
+    """The bound's operations: the plain version's products as PyTorch's
+    flop counter counts them (every product whole), less the half below
+    the diagonal of each symmetric one, r (r - 1) / 2 dot products of
+    X X^T (7 a call, length c) and of G G^T (5, length r)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (nb, r, c)).astype(np.float32))
+    with FlopCounterMode(display=False) as counter:
+        ns_polar.ns_polar_plain(x)
+    mirrored = nb * r * (r - 1) * (7 * c + 5 * r)
+    assert ns_polar.polar_flops(nb, r, c) == counter.get_total_flops() - mirrored
 
 
 @pytest.mark.parametrize("rp,smem", [(64, 58432), (128, 132176),
@@ -172,11 +200,13 @@ def test_k7_plain_matches_pallas_at_main_width():
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("nb,r,c,reduced", [
     (4, 192, 384, False), (4, 192, 768, True), (2, 192, 2048, True),
-    (2, 384, 768, False), (2, 64, 2048, True), (2, 128, 1024, True)])
+    (2, 384, 768, False), (2, 64, 2048, True), (2, 128, 1024, True),
+    (2, 320, 768, True)])
 def test_k7_bounds_admit_rounding_and_fail_a_step_short(nb, r, c, reduced):
     """``chip_smoke.k7_bounds`` at the shapes ``k7_check`` runs (rows 192
-    under D_t = 384 / 768 / 2048, (384, 768), and the streaming variant's
-    narrower row paddings at (64, 2048) and (128, 1024)): the plain version
+    under D_t = 384 / 768 / 2048, (384, 768), the streaming variant's
+    narrower row paddings at (64, 2048) and (128, 1024), and the ViT-B/14
+    path's (320, 768) on the batched variant): the plain version
     with f32 intermediates, which rounds nowhere the bf16 one does, passes
     against the bf16 plain factor; the controls one quintic step short and
     one cubic step short fail."""
@@ -195,13 +225,13 @@ def test_k7_bounds_admit_rounding_and_fail_a_step_short(nb, r, c, reduced):
 
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("nb,r,c", [(4, 192, 384), (2, 192, 768),
-                                    (1, 192, 2048)])
+                                    (1, 192, 2048), (2, 320, 768)])
 def test_k7_bounds_hold_for_the_pallas_kernel(nb, r, c):
     """The JAX package's Pallas kernel (interpret mode), whose products sum
     in another order than the plain version's, within ``k7_bounds`` of it
-    at the on-chip variant's (192, 384) and the streaming variant's (192,
-    768) and (192, 2048): the plain version is the streaming kernel's
-    yardstick on the card."""
+    at the on-chip variant's (192, 384), the streaming variant's (192,
+    768) and (192, 2048) and the batched variant's (320, 768): the plain
+    version is the streaming and batched kernels' yardstick on the card."""
     g = torch.Generator().manual_seed(22)
     mats = chip_smoke.polar_batch(
         torch, lambda *shape: torch.randn(*shape, generator=g), nb, r, c,

@@ -1,6 +1,10 @@
 """One whole train step of the port against the JAX package's, f32, on
 given views (teacher -> student -> BASD loss -> grads -> schedule-free
-update), and a tiny end-to-end CPU run of the port's CLI entry point."""
+update), under a DeiT-like teacher and a DINOv2-like one (LayerScale,
+patch 4 against the student's 8, so N_t != N_s and the teacher's patch
+tokens are interpolated inside the loss); the calibration of a student
+from such a teacher against the JAX package's; and a tiny end-to-end CPU
+run of the port's CLI entry point."""
 
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ import jax
 import jax.numpy as jnp
 
 from basd_tpu.config import compose, register_resolvers
+from basd_tpu.data.augment import make_eval_view as jmake_eval_view
+from basd_tpu.data.sources import source_from_config as jsource_from_config
 from basd_tpu.losses import combined as jcombined
+from basd_tpu.models import registry as jregistry
 from basd_tpu.models.vit import ViTConfig as JViTConfig
 from basd_tpu.models.vit import VisionTransformer as JViT
 from basd_tpu.training import schedulefree as jsf
@@ -25,11 +32,13 @@ from basd_tpu_torch.models.port import selector_state_from_jax, state_dict_from_
 from basd_tpu_torch.models.registry import create_model
 from basd_tpu_torch.training import schedulefree as sf
 from basd_tpu_torch.training.trainer import StepViews, Trainer
-from basd_tpu_torch.train import _CONFIG_DIR, main
+from basd_tpu_torch.train import _CONFIG_DIR, calibrate, main
 
 B, C, IMG = 8, 10, 32
 T_ARCH = dict(embed_dim=64, depth=4, num_heads=4)
 S_ARCH = dict(embed_dim=32, depth=4, num_heads=2)
+# a DINOv2-like teacher: LayerScale, a patch of 4 against the student's 8
+DINO_ARCH = dict(T_ARCH, patch_size=4, layerscale_init=1e-5)
 
 
 def _f32_polar(monkeypatch):
@@ -48,7 +57,31 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
+def _random_gammas(params, rng):
+    """The LayerScale gammas of stacked JAX block params drawn from
+    U(0.5, 1.5): at their 1e-5 init the blocks would leave the tokens
+    almost as the patch embedding made them."""
+    blocks = dict(params["blocks"])
+    for key in ("ls1", "ls2"):
+        shape = blocks[key]["gamma"].shape
+        blocks[key] = {"gamma": jnp.asarray(rng.uniform(0.5, 1.5, shape),
+                                            jnp.float32)}
+    return {**params, "blocks": blocks}
+
+
 def test_step_on_views_matches_jax(monkeypatch, tmp_path):
+    _step_parity(monkeypatch, tmp_path, dict(T_ARCH, patch_size=8))
+
+
+def test_step_on_views_matches_jax_dinov2_like(monkeypatch, tmp_path):
+    """The same step under a LayerScale teacher (gammas drawn, folded
+    into the proj / fc2 weights by the port's blocks as by the JAX
+    package's) with patch 4: 64 teacher patch tokens against the student's
+    16, interpolated inside the loss (``ops/interp.py``)."""
+    _step_parity(monkeypatch, tmp_path, DINO_ARCH)
+
+
+def _step_parity(monkeypatch, tmp_path, t_arch):
     _f32_polar(monkeypatch)
     register_resolvers()
     config = compose(_CONFIG_DIR, overrides=[
@@ -66,10 +99,12 @@ def test_step_on_views_matches_jax(monkeypatch, tmp_path):
 
     # --- the JAX package's step, composed from its parts ---------------
     kw = dict(img_size=IMG, patch_size=8)
-    jteacher = JViT(JViTConfig(num_classes=0, **kw, **T_ARCH),
+    jteacher = JViT(JViTConfig(num_classes=0, img_size=IMG, **t_arch),
                     importance_mode="cls", collect_alias=True)
     jstudent = JViT(JViTConfig(num_classes=C, **kw, **S_ARCH))
     t_vars = jteacher.init(jax.random.PRNGKey(0), clean)
+    if "layerscale_init" in t_arch:
+        t_vars = {"params": _random_gammas(t_vars["params"], rng)}
     s_vars = jstudent.init(jax.random.PRNGKey(1), mixed)
     jcfg = jcombined.BASDLossConfig(
         student_dim=32, teacher_dim=64, student_depth=4,
@@ -95,8 +130,7 @@ def test_step_on_views_matches_jax(monkeypatch, tmp_path):
     new = jsf.update(state, grads, sf_cfg, y=y)
 
     # --- the port's step on the same weights and views ----------------
-    teacher = create_model("tiny_teacher", img_size=IMG,
-                           arch_overrides=dict(T_ARCH, patch_size=8),
+    teacher = create_model("tiny_teacher", img_size=IMG, arch_overrides=t_arch,
                            importance_mode="cls", collect=True)
     teacher.module.load_state_dict(state_dict_from_jax(t_vars["params"]))
     teacher.module.eval().requires_grad_(False)
@@ -155,6 +189,44 @@ def test_step_on_views_matches_jax(monkeypatch, tmp_path):
         ours = getattr(state0, field)
         for k, r in flat(getattr(new, field)).items():
             assert _rel(ours[k].numpy(), r) <= 1e-4, (field, k)
+
+
+def test_calibrate_matches_jax_on_a_dinov2_like_teacher(tmp_path):
+    """``train.calibrate`` on a LayerScale teacher with patch 4 at 32 px
+    (gammas drawn), f32: the same intrinsic dimension and student arch as
+    the JAX package's calibration (``basd_tpu/train.py:75-100``) on the
+    same weights and calibration images."""
+    register_resolvers()
+    config = compose(_CONFIG_DIR, overrides=[
+        "experiment=smoke_synthetic", f"run.output_dir={tmp_path}",
+        f"model.vit.img_size={IMG}", "model.vit.patch_size=8",
+    ])
+    jbundle, jvars = jregistry.load_teacher(
+        "dino_like", IMG, seed=3, dtype=jnp.float32, arch_overrides=DINO_ARCH)
+    jvars = {"params": _random_gammas(jvars["params"],
+                                      np.random.default_rng(5))}
+
+    # the JAX package's calibration (basd_tpu/train.py:75-100)
+    tokens_per_image = (IMG // config.model.vit.patch_size) ** 2
+    num_calib = -(-10 * jbundle.info["embed_dim"] // tokens_per_image)
+    r = round(IMG / config.data.eval_crop_ratio)
+    calib = next(jsource_from_config(config).load_batches(
+        "train", num_calib, r, shuffle=False, seed=0, drop_last=False))
+    images = jmake_eval_view(jnp.asarray(calib["image"]), IMG,
+                             (tuple(jbundle.mean), tuple(jbundle.std)))
+    j_dim = jregistry.estimate_intrinsic_dim(jbundle, jvars, images)
+    j_arch = jregistry.derive_student_arch(jbundle.info, j_dim)
+
+    teacher = create_model("dino_like", img_size=IMG, arch_overrides=DINO_ARCH,
+                           importance_mode="cls", collect=True)
+    teacher.module.load_state_dict(state_dict_from_jax(jvars["params"]))
+    teacher.module.eval().requires_grad_(False)
+    logged = []
+    arch = calibrate(config, teacher, torch.device("cpu"), torch.float32,
+                     log=logged.append)
+    assert f"intrinsic_dim={j_dim} " in logged[0], (logged, j_dim)
+    assert arch == j_arch
+    assert teacher.info["num_tokens"] == 64 != tokens_per_image
 
 
 @pytest.fixture
