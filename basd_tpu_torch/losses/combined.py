@@ -22,6 +22,7 @@ from basd_tpu_torch.ops.procrustes import (
     geometric_relational_loss_ident,
 )
 from basd_tpu_torch.parallel.mesh import DataParallel
+from basd_tpu_torch.utils import trace
 
 
 def extraction_layers(student_depth: int, num_points: int) -> list[int]:
@@ -94,10 +95,11 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
         teacher_tokens = teacher_tokens.to_dense()
     packed = isinstance(teacher_tokens, PackedTokens)
 
-    mixed_tokens, mixed_importance, sel_aux = select_and_mix(
-        params, buffers, student_intermediates, teacher_tokens,
-        teacher_importance, cfg.selector_config, dp,
-    )
+    with trace.span("selector"):
+        mixed_tokens, mixed_importance, sel_aux = select_and_mix(
+            params, buffers, student_intermediates, teacher_tokens,
+            teacher_importance, cfg.selector_config, dp,
+        )
 
     if packed:
         if teacher_tokens.num_patch_tokens == cfg.num_student_tokens:
@@ -127,17 +129,20 @@ def basd_loss(params, buffers, student_logits, targets, student_intermediates,
                   + (cfg.num_student_tokens, -1))
         s_pan, w_pan = student_intermediates, mixed_importance
 
-    if cfg.backend in ("gram", "jacobi") and cfg.relational_impl == "ident":
-        geo_per_point = geometric_relational_loss_ident(
-            s_pan, t_pan, w_pan, nuclear_backend=cfg.backend, dp=dp
-        ).mean(-1)
-    else:
-        # the reference-shaped composition, one extraction point at a time
-        # (the reference's jax.vmap over P)
-        geo_per_point = torch.stack([
-            geometric_relational_loss(s, t, w, nuclear_backend=cfg.backend)
-            for s, t, w in zip(s_pan, t_pan, w_pan)
-        ])
+    with trace.span("procrustes"):
+        if (cfg.backend in ("gram", "jacobi")
+                and cfg.relational_impl == "ident"):
+            geo_per_point = geometric_relational_loss_ident(
+                s_pan, t_pan, w_pan, nuclear_backend=cfg.backend, dp=dp
+            ).mean(-1)
+        else:
+            # the reference-shaped composition, one extraction point at a
+            # time (the reference's jax.vmap over P)
+            geo_per_point = torch.stack([
+                geometric_relational_loss(s, t, w,
+                                          nuclear_backend=cfg.backend)
+                for s, t, w in zip(s_pan, t_pan, w_pan)
+            ])
     geo_per_point = dp.mean(geo_per_point)
     geo = geo_per_point.mean()
     vals = torch.stack([ce, geo])

@@ -17,10 +17,13 @@ convolutions, which take TF32 by default.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from basd_tpu_torch.kernels import ns_polar as _ns
 from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
+from basd_tpu_torch.utils import trace
 
 _SAFE_EIG_FLOOR = 1e-30
 _EIGH_GRAD_CLAMP = 1e-6
@@ -52,13 +55,19 @@ JACOBI_SWEEPS = 6
 
 def _eigh_impl(a: torch.Tensor, impl: str):
     """Forward eigh dispatch: ``torch.linalg.eigh`` ('xla', the reference's
-    QDWH custom call) or K8's parallel Jacobi ('jacobi')."""
-    if impl == "jacobi":
-        n = a.shape[-1]
-        w, v = jacobi_eigh(a.reshape(-1, n, n).float().contiguous(),
-                           sweeps=JACOBI_SWEEPS)
-        return w.reshape(a.shape[:-1]), v.reshape(a.shape)
-    return torch.linalg.eigh(_sym(a))
+    QDWH custom call) or K8's parallel Jacobi ('jacobi'). The tracer counts
+    the calls and the matrices of each (``eigh.calls.<impl>``,
+    ``eigh.matrices.<impl>``)."""
+    n = a.shape[-1]
+    if trace.enabled():
+        trace.count(f"eigh.calls.{impl}")
+        trace.count(f"eigh.matrices.{impl}", math.prod(a.shape[:-2]))
+    with trace.span("eigh"):
+        if impl == "jacobi":
+            w, v = jacobi_eigh(a.reshape(-1, n, n).float().contiguous(),
+                               sweeps=JACOBI_SWEEPS)
+            return w.reshape(a.shape[:-1]), v.reshape(a.shape)
+        return torch.linalg.eigh(_sym(a))
 
 
 class _EigvalshOnly(torch.autograd.Function):

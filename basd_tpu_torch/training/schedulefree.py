@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
+from basd_tpu_torch.utils import trace
+
 
 @dataclass(frozen=True)
 class ScheduleFreeConfig:
@@ -73,32 +75,33 @@ def update(state: ScheduleFreeState, grads: dict, cfg: ScheduleFreeConfig,
     """One step, in place on the state's tensors. ``grads`` are evaluated
     at ``train_params(state)``; pass that dict as ``y`` to skip
     recomputing it. The scalar schedule runs in f32, as the reference's."""
-    if y is None:
-        y = train_params(state, cfg)
-    k1 = state.k + 1
-    k1f = _f32(k1)
-    sched = (torch.clamp(k1f / cfg.warmup_steps, max=1.0)
-             if cfg.warmup_steps > 0 else _f32(1.0))
-    bc2 = 1.0 - _f32(cfg.b2) ** k1f
-    lr_t = cfg.learning_rate * sched * torch.sqrt(bc2)
-    lr_max = torch.maximum(_f32(state.lr_max), lr_t)
-    weight = k1f ** cfg.r * lr_max ** cfg.weight_lr_power
-    weight_sum = _f32(state.weight_sum) + weight
-    c = weight / weight_sum if float(weight_sum) > 0 else _f32(0.0)
-    lr_t_f, c_f, omc_f = float(lr_t), float(c), float(1.0 - c)
+    with trace.span("update"):
+        if y is None:
+            y = train_params(state, cfg)
+        k1 = state.k + 1
+        k1f = _f32(k1)
+        sched = (torch.clamp(k1f / cfg.warmup_steps, max=1.0)
+                 if cfg.warmup_steps > 0 else _f32(1.0))
+        bc2 = 1.0 - _f32(cfg.b2) ** k1f
+        lr_t = cfg.learning_rate * sched * torch.sqrt(bc2)
+        lr_max = torch.maximum(_f32(state.lr_max), lr_t)
+        weight = k1f ** cfg.r * lr_max ** cfg.weight_lr_power
+        weight_sum = _f32(state.weight_sum) + weight
+        c = weight / weight_sum if float(weight_sum) > 0 else _f32(0.0)
+        lr_t_f, c_f, omc_f = float(lr_t), float(c), float(1.0 - c)
 
-    for key in state.x:
-        g = grads[key].float()
-        v_new = cfg.b2 * state.v[key].float() + (1.0 - cfg.b2) * (g * g)
-        u = g / (torch.sqrt(v_new) + cfg.eps)
-        if cfg.weight_decay:
-            u = u + cfg.weight_decay * y[key].float()
-        z_new = state.z[key].float() - lr_t_f * u
-        x_new = omc_f * state.x[key].float() + c_f * z_new
-        state.x[key].copy_(x_new)
-        state.z[key].copy_(z_new)
-        state.v[key].copy_(v_new)
-    state.k = k1
-    state.lr_max = float(lr_max)
-    state.weight_sum = float(weight_sum)
-    return state
+        for key in state.x:
+            g = grads[key].float()
+            v_new = cfg.b2 * state.v[key].float() + (1.0 - cfg.b2) * (g * g)
+            u = g / (torch.sqrt(v_new) + cfg.eps)
+            if cfg.weight_decay:
+                u = u + cfg.weight_decay * y[key].float()
+            z_new = state.z[key].float() - lr_t_f * u
+            x_new = omc_f * state.x[key].float() + c_f * z_new
+            state.x[key].copy_(x_new)
+            state.z[key].copy_(z_new)
+            state.v[key].copy_(v_new)
+        state.k = k1
+        state.lr_max = float(lr_max)
+        state.weight_sum = float(weight_sum)
+        return state

@@ -68,6 +68,7 @@ from basd_tpu_torch.parallel.mesh import (
 )
 from basd_tpu_torch.training import schedulefree as sf
 from basd_tpu_torch.utils import checkpoint as ckpt
+from basd_tpu_torch.utils import trace
 from basd_tpu_torch.utils.logging import MetricsLogger
 
 _STUDENT = "student."
@@ -179,59 +180,68 @@ class Trainer:
     def make_views(self, images_u8: torch.Tensor,
                    labels: torch.Tensor) -> StepViews:
         """Views of this rank's rows: the draws are the global batch's."""
-        world = self.dp.world
-        b = images_u8.shape[0] * world
-        rows = self.dp.rows(b) if world > 1 else None
-        g = self.generator
-        clean, augmented = aug.make_train_views(
-            aug.draw_train_views(g, b, self.device), images_u8, self.img_size,
-            self.dataset_stats, self.teacher_stats, rows,
-        )
-        mixed, targets = aug.mixup_cutmix(
-            aug.draw_mixup(g, self.img_size, self.device), augmented, labels,
-            self.num_classes, num_shards=self.num_shards // world,
-        )
-        cfg = self.student.cfg
-        drop_masks = None
-        if cfg.drop_path_rate > 0.0:
-            keeps = torch.as_tensor(1.0 - drop_path_rates(cfg),
-                                    device=self.device)
-            u = torch.rand((cfg.depth, 2, b), generator=g, device=self.device)
-            drop_masks = u < keeps[:, None, None]
-            if rows is not None:
-                drop_masks = drop_masks[:, :, rows]
-        return StepViews(clean, mixed, targets, drop_masks)
+        with trace.span("views"):
+            world = self.dp.world
+            b = images_u8.shape[0] * world
+            rows = self.dp.rows(b) if world > 1 else None
+            g = self.generator
+            clean, augmented = aug.make_train_views(
+                aug.draw_train_views(g, b, self.device), images_u8,
+                self.img_size, self.dataset_stats, self.teacher_stats, rows,
+            )
+            mixed, targets = aug.mixup_cutmix(
+                aug.draw_mixup(g, self.img_size, self.device), augmented,
+                labels, self.num_classes,
+                num_shards=self.num_shards // world,
+            )
+            cfg = self.student.cfg
+            drop_masks = None
+            if cfg.drop_path_rate > 0.0:
+                keeps = torch.as_tensor(1.0 - drop_path_rates(cfg),
+                                        device=self.device)
+                u = torch.rand((cfg.depth, 2, b), generator=g,
+                               device=self.device)
+                drop_masks = u < keeps[:, None, None]
+                if rows is not None:
+                    drop_masks = drop_masks[:, :, rows]
+            return StepViews(clean, mixed, targets, drop_masks)
 
     def teacher_forward(self, clean: torch.Tensor):
-        return teacher_extract(
-            self.teacher, clean.to(torch.bfloat16),
-            collection_init=self._collect_buffer(clean.shape[0]),
-        )
+        with trace.span("teacher"):
+            return teacher_extract(
+                self.teacher, clean.to(torch.bfloat16),
+                collection_init=self._collect_buffer(clean.shape[0]),
+            )
 
     def loss_and_grads(self, views: StepViews, t_tokens, t_imp):
         """Loss, aux and gradients at the schedule-free point ``y``."""
-        y = sf.train_params(self.opt_state, self.sf_cfg)
-        params = dict(self.student.module.named_parameters())
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(y[_STUDENT + k])
-        temps = y[_TEMPS].clone().requires_grad_(True)
-        out = self.student.module(
-            views.mixed.to(torch.bfloat16), deterministic=False,
-            drop_masks=views.drop_masks,
-        )
-        s_int = torch.stack([out["tokens"][i] for i in self.token_layers])
-        loss, aux = basd_loss(
-            {"log_temperatures": temps}, self.sel_buffers, out["logits"],
-            views.targets, s_int, t_tokens, t_imp, self.loss_cfg, self.dp,
-        )
-        wrt = list(params.values()) + [temps]
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        names = [_STUDENT + k for k in params] + [_TEMPS]
-        grads = {k: (torch.zeros_like(p) if g is None else g)
-                 for k, p, g in zip(names, wrt, grads)}
-        return (loss.detach(), aux, out["logits"].detach(),
-                self._reduce_grads(grads), y)
+        with trace.span("loss_and_grads"):
+            y = sf.train_params(self.opt_state, self.sf_cfg)
+            params = dict(self.student.module.named_parameters())
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(y[_STUDENT + k])
+            temps = y[_TEMPS].clone().requires_grad_(True)
+            with trace.span("student_forward"):
+                out = self.student.module(
+                    views.mixed.to(torch.bfloat16), deterministic=False,
+                    drop_masks=views.drop_masks,
+                )
+            s_int = torch.stack([out["tokens"][i] for i in self.token_layers])
+            with trace.span("basd_loss"):
+                loss, aux = basd_loss(
+                    {"log_temperatures": temps}, self.sel_buffers,
+                    out["logits"], views.targets, s_int, t_tokens, t_imp,
+                    self.loss_cfg, self.dp,
+                )
+            wrt = list(params.values()) + [temps]
+            with trace.span("backward"):
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+            names = [_STUDENT + k for k in params] + [_TEMPS]
+            grads = {k: (torch.zeros_like(p) if g is None else g)
+                     for k, p, g in zip(names, wrt, grads)}
+            return (loss.detach(), aux, out["logits"].detach(),
+                    self._reduce_grads(grads), y)
 
     def _reduce_grads(self, grads: dict) -> dict:
         """The global batch's gradient on every rank. Each rank
@@ -242,7 +252,10 @@ class Trainer:
         if dp.group is None:
             return grads
         flat = torch.cat([g.reshape(-1) for g in grads.values()])
-        dp.all_reduce_(flat).div_(dp.world)
+        with trace.span("grad_reduce"):
+            dp.all_reduce_(flat).div_(dp.world)
+        trace.count("grad_reduce.calls")
+        trace.count("grad_reduce.bytes", flat.numel() * flat.element_size())
         out, i = {}, 0
         for k, g in grads.items():
             out[k] = flat[i:i + g.numel()].view_as(g)
@@ -274,9 +287,10 @@ class Trainer:
         }
 
     def step(self, images_u8: torch.Tensor, labels: torch.Tensor) -> dict:
-        with torch.no_grad():
-            views = self.make_views(images_u8, labels)
-        return self.step_on_views(views, labels)
+        with trace.span("step"):
+            with torch.no_grad():
+                views = self.make_views(images_u8, labels)
+            return self.step_on_views(views, labels)
 
     # ------------------------------------------------------------- loops
 
@@ -296,15 +310,26 @@ class Trainer:
         batches = source.load_batches(split, cfg.data.batch_size, r,
                                       shuffle=shuffle, seed=seed,
                                       drop_last=drop_last)
-        for batch in itertools.islice(prefetch(batches), limit):
-            if self.dp.group is not None:
-                batch = shard_batch(self.dp, batch, allow_pad=not drop_last)
-            yield self.to_device(batch)
+        it = itertools.islice(prefetch(batches), limit)
+        while True:
+            # the host's wait for the next batch and its copy to the device,
+            # on the host's clock alone
+            with trace.span("data_wait", device=False):
+                batch = next(it, None)
+                if batch is None:
+                    return
+                if self.dp.group is not None:
+                    batch = shard_batch(self.dp, batch,
+                                        allow_pad=not drop_last)
+                out = self.to_device(batch)
+            yield out
 
     def train_epoch(self, source, epoch: int) -> dict[str, float]:
         cfg = self.config
         acc = None
         step_losses = []
+        if trace.enabled():
+            trace.reset()  # the record below covers this epoch's steps
         for images, labels in self.device_batches(
                 source, "train", seed=cfg.run.seed * 100003 + epoch,
                 shuffle=True, drop_last=True,
@@ -326,6 +351,9 @@ class Trainer:
         for i, v in enumerate(losses):
             if self._mlog is not None:
                 self._mlog.log("step", epoch=epoch + 1, step=i, loss=v)
+        if trace.enabled() and self._mlog is not None:
+            self._mlog.log("trace", epoch=epoch + 1,
+                           **trace.per_step(trace.summary()))
         cap_hits = int(host["rank_cap_hits"])
         if cap_hits:
             msg = (
@@ -380,31 +408,39 @@ class Trainer:
         cfg = self.config
         self.source = source
         num_epochs = cfg.training.num_epochs
-        for epoch in range(start_epoch, num_epochs):
-            t0 = time.perf_counter()
-            train_metrics = self.train_epoch(source, epoch)
-            val_metrics = self.evaluate(source)
-            dt = time.perf_counter() - t0
-            losses = " ".join(f"{v:.6f}" for v in train_metrics["step_losses"])
-            if self.writer:
-                print(
-                    f"epoch {epoch + 1}/{num_epochs} "
-                    f"train_loss={train_metrics['train_loss']:.6f} "
-                    f"train_acc={train_metrics['train_acc']:.4f} "
-                    f"val_acc={val_metrics['val_acc']:.4f} "
-                    f"epoch_time={dt:.1f}s step_losses=[{losses}]"
-                )
-            for k, v in {**train_metrics, **val_metrics}.items():
-                self.metrics_history[k].append(v)
-            if self._mlog is not None:
-                self._mlog.log("epoch", epoch=epoch + 1,
-                               epoch_time_s=round(dt, 2), **train_metrics,
-                               **val_metrics)
-            if val_metrics["val_acc"] > self.best_val_acc:
-                self.best_val_acc = val_metrics["val_acc"]
-                self.save_checkpoint("best_model", epoch)
-                self.save_weights("best_model_weights", epoch)
-            self.save_checkpoint("latest", epoch)
+        traced = bool(cfg.run.get("trace", False))
+        if traced:
+            trace.enable()
+        try:
+            for epoch in range(start_epoch, num_epochs):
+                t0 = time.perf_counter()
+                train_metrics = self.train_epoch(source, epoch)
+                val_metrics = self.evaluate(source)
+                dt = time.perf_counter() - t0
+                losses = " ".join(f"{v:.6f}"
+                                  for v in train_metrics["step_losses"])
+                if self.writer:
+                    print(
+                        f"epoch {epoch + 1}/{num_epochs} "
+                        f"train_loss={train_metrics['train_loss']:.6f} "
+                        f"train_acc={train_metrics['train_acc']:.4f} "
+                        f"val_acc={val_metrics['val_acc']:.4f} "
+                        f"epoch_time={dt:.1f}s step_losses=[{losses}]"
+                    )
+                for k, v in {**train_metrics, **val_metrics}.items():
+                    self.metrics_history[k].append(v)
+                if self._mlog is not None:
+                    self._mlog.log("epoch", epoch=epoch + 1,
+                                   epoch_time_s=round(dt, 2),
+                                   **train_metrics, **val_metrics)
+                if val_metrics["val_acc"] > self.best_val_acc:
+                    self.best_val_acc = val_metrics["val_acc"]
+                    self.save_checkpoint("best_model", epoch)
+                    self.save_weights("best_model_weights", epoch)
+                self.save_checkpoint("latest", epoch)
+        finally:
+            if traced:
+                trace.disable()
         self.save_weights("final_model_weights", num_epochs - 1)
         if self.writer:
             print(f"training complete best_val_acc={self.best_val_acc:.4f}")

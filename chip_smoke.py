@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``basd_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile [--profile-out FILE]]
+    python3 chip_smoke.py
 
 Phases, each closed by ``torch.cuda.synchronize()``; any failure raises and
 the script exits non-zero without printing a result:
@@ -160,12 +160,10 @@ the script exits non-zero without printing a result:
    batch of real tokens under (gram, ident), (jacobi, ident), (gram,
    composed) and (svd, composed) at ``max_rank=96``: equal ranks,
    principal-angle distances and losses within the stated tolerances of
-   svd's, finite gradients; then per-stage CUDA-event times and peak
-   device memory of further train steps of the seven trainers;
-5. with ``--profile`` only: ``torch.profiler`` over 3 more steps of each
-   trainer, for the device-busy share, device activities per step, the
-   top device ops and the device time per launch of the attention
-   backward's kernels.
+   svd's, finite gradients; then the program tracer's summary
+   (``basd_tpu_torch/utils/trace.py``: device and host ms a step by span,
+   counters a step) and peak device memory of further train steps of the
+   seven trainers. ``portbench/run.py --trace 1`` is the profiled run.
 
 Before them, ``ranking`` orders the kernels by launches x (ms - bound_ms)
 over the train runs' launches before their eval suites (the counts of
@@ -242,8 +240,6 @@ K7_VITL = "K7 ns_polar_hybrid: batched (vitl)"
 K7_VARIANTS = ("onchip", "stream", "batched")
 # the LayerNorms, which the flash path takes in every block
 LN_KERNELS = ("K5a fused_layernorm fwd", "K5b fused_layernorm bwd")
-# the tracer's own buffer activity, which the profiler lists as device time
-PROFILER_OVERHEAD = ("Buffer Flush", "Activity Buffer Request")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # non-tensor f32 FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -1965,96 +1961,27 @@ def train_batches(trainer, count: int, seed: int) -> list:
 
 
 def stage_times(torch, trainer, steps: int = 5) -> dict:
-    """CUDA-event time of each stage of further train steps, B=128."""
-    from basd_tpu_torch.training import schedulefree as sf
+    """The program tracer over further train steps, B=128, after one
+    warm-up: each span's device and host ms a step and the counters a step
+    (``trace.per_step``), and the peak device memory."""
+    from basd_tpu_torch.utils import trace
 
-    cfg = trainer.config
     data = train_batches(trainer, steps + 1, seed=7)
-    names = ("views", "teacher", "student_loss_grads", "update")
-    per = {k: [] for k in names}
-    total = []
+    trainer.step(*data[0])
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i, (images, labels) in enumerate(data):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        with torch.no_grad():
-            views = trainer.make_views(images, labels)
-        ev[1].record()
-        t_tokens, t_imp = trainer.teacher_forward(views.clean)
-        ev[2].record()
-        _, _, _, grads, y = trainer.loss_and_grads(views, t_tokens, t_imp)
-        ev[3].record()
-        sf.update(trainer.opt_state, grads, trainer.sf_cfg, y=y)
-        ev[4].record()
-        torch.cuda.synchronize()
-        if i == 0:
-            continue  # warm-up
-        for k, (a, b_) in zip(names, zip(ev[:-1], ev[1:])):
-            per[k].append(a.elapsed_time(b_))
-        total.append(ev[0].elapsed_time(ev[4]))
-    out = {k: statistics.median(v) for k, v in per.items()}
-    out["step"] = statistics.median(total)
-    out["img_per_s"] = cfg.data.batch_size / (out["step"] / 1000.0)
+    trace.reset()
+    trace.enable()
+    try:
+        for images, labels in data[1:]:
+            trainer.step(images, labels)
+        out = trace.per_step(trace.summary())
+    finally:
+        trace.disable()
+    step_ms = out["spans"]["step"]["device_ms"]
+    out["img_per_s"] = trainer.config.data.batch_size / (step_ms / 1000.0)
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
-
-
-def profile_steps(torch, trainer, out_path, steps: int = 3) -> dict:
-    """``torch.profiler`` over ``steps`` train steps after two warm-ups.
-
-    Returns the wall time per step, the device-busy share (union of the
-    card's kernel and copy intervals over the wall time, so overlapping
-    activity counts once) and the device activities per step; prints the
-    ops with the most device time and, with ``out_path``, writes the full
-    tables there. Profiling slows the host, so the busy share it reads is
-    a lower bound for an unprofiled step.
-    """
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    data = train_batches(trainer, steps + 2, seed=11)
-    for images, labels in data[:2]:
-        trainer.step(images, labels)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for images, labels in data[2:]:
-            trainer.step(images, labels)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.name not in PROFILER_OVERHEAD)
-    busy_us, end = 0.0, -math.inf
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    averages = prof.key_averages()
-    top = sorted((a for a in averages if a.key not in PROFILER_OVERHEAD),
-                 key=lambda a: -a.self_device_time_total)[:12]
-    for a in top:
-        print(f"profile op {a.key[:60]!r}: self_device_ms_per_step="
-              f"{a.self_device_time_total / 1e3 / steps} calls_per_step="
-              f"{a.count / steps}")
-    for a in averages:  # the attention backward's kernels, per launch
-        if "attn_bwd" in a.key and a.count:
-            print(f"profile kernel {a.key[:70]!r}: device_ms_per_launch="
-                  f"{a.self_device_time_total / 1e3 / a.count} calls_per_step="
-                  f"{a.count / steps}")
-    if out_path is not None:
-        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
-        Path(out_path).write_text(
-            averages.table(sort_by="self_device_time_total", row_limit=60,
-                           max_name_column_width=80)
-            + "\n" + averages.table(sort_by="device_time_total",
-                                    row_limit=40, max_name_column_width=80))
-    return {"profiled_step_ms": wall_us / 1e3 / steps,
-            "device_busy_ms_per_step": busy_us / 1e3 / steps,
-            "device_busy_share": busy_us / wall_us,
-            "device_activities_per_step": len(spans) / steps}
 
 
 def check_flash_counts(trainer, counts) -> None:
@@ -2647,12 +2574,7 @@ def remat_phase(torch, kernels, gram, flash) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="add a torch.profiler phase: device-busy share, "
-                             "device activities and top ops per step")
-    parser.add_argument("--profile-out", default=None,
-                        help="file for the profiler's full op tables")
-    args = parser.parse_args(argv)
+    parser.parse_args(argv)
 
     import torch
 
@@ -2773,20 +2695,8 @@ def main(argv=None) -> int:
     trainers = (("gram", gram), ("jacobi", jacobi), ("flash", flash),
                 ("cross", cross), ("resnet", resnet), ("dinov2", dinov2),
                 ("vitl", vitl))
-    times = {}
     for label, trainer in trainers:
-        times[label] = stage_times(torch, trainer)
-        torch.cuda.synchronize()
-        print(f"step_ms {label} " + json.dumps(times[label]))
-    if args.profile:
-        phase("profile")
-        for label, trainer in trainers:
-            out = args.profile_out
-            if out is not None and label != "gram":
-                out = str(Path(out).with_suffix(f".{label}.txt"))
-            prof = profile_steps(torch, trainer, out)
-            torch.cuda.synchronize()
-            print(f"profile {label} " + json.dumps(prof))
+        print(f"trace {label} " + json.dumps(stage_times(torch, trainer)))
     root.cleanup()
 
     def path_of(name):
