@@ -3,7 +3,8 @@
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor; it counts its launches in a plain integer
 attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
-replaces and its source. The six wrappers of the attention cores
+replaces (K8 converged: the family it belongs to; it takes the eigh the
+reference leaves to XLA) and its source. The six wrappers of the attention cores
 (``ATTENTION_CORE``: the forward of K1, K3a, K10a and K10c, the backward of
 K3b and K10b) also count each of its two variants, ``tc_launches`` (tensor
 cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
@@ -36,6 +37,7 @@ from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_fwd,
     fused_ln_mlp_fwd_partial,
 )
+from basd_tpu_torch.kernels.converged_eigh import converged_eigh
 from basd_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
@@ -86,6 +88,10 @@ KERNELS = (
      _PALLAS + "ns_polar.py:106", ns_polar_hybrid),
     ("K8 jacobi_eigh", "cuda", _CSRC + "jacobi_eigh.cu",
      _PALLAS + "jacobi_eigh.py:215", jacobi_eigh),
+    # K8's rotations run to convergence in one launch: the 'xla' eigh route
+    # on the card (the reference leaves it to XLA's eigh)
+    ("K8 converged", "cuda", _CSRC + "converged_eigh.cu",
+     _PALLAS + "jacobi_eigh.py:215", converged_eigh),
     ("K9 geom_shift3", "cuda", _CSRC + "geom_shift.cu",
      _PALLAS + "geom_shift.py:103", geom_shift3),
     ("K10a flash_attention fwd", "cuda", _CSRC + "flash_attention.cu",

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "basd_ns_polar_batched": [_P, _P, _P, _I, _I, _I, _P],
     "basd_jacobi_rounds": [_P] * 5 + [_I] * 4 + [_P],
     "basd_jacobi_vectors": [_P] * 3 + [_I] * 3 + [_P],
+    "basd_ceigh_plan": [_I] * 3 + [_P],
+    "basd_ceigh": [_P] * 4 + [_I] * 3 + [_P],
     "basd_geom_shift3": [_P] * 6 + [_I] * 7 + [_P],
 }
 # the f32 twins of K2/K4's, K5a's, K10's and K11's entries take the same

@@ -5,8 +5,10 @@ reference: singular values via the smaller Gram's eigenvalues, subspaces
 via Gram eigenvectors, the nuclear-norm subgradient via a Newton-Schulz
 polar factor. ``safe_eigh`` and ``eigvalsh_only`` are
 ``torch.autograd.Function``s with the reference's degeneracy-safe
-backwards; their forward is ``torch.linalg.eigh`` or, with
-``impl="jacobi"``, K8 (``kernels/jacobi_eigh.py``). ``backend="svd"`` keeps
+backwards; their forward (``impl="xla"``, the reference's XLA eigh) is K8
+converged (``kernels/converged_eigh.py``) on an f32 CUDA tensor up to n =
+512 and ``torch.linalg.eigh`` elsewhere, or, with ``impl="jacobi"``, K8 at six
+sweeps (``kernels/jacobi_eigh.py``). ``backend="svd"`` keeps
 ``torch.linalg.svd`` as the parity path.
 
 Precision policy (the reference's ``HI``): spectral-path f32 products run
@@ -22,6 +24,8 @@ import math
 import torch
 
 from basd_tpu_torch.kernels import ns_polar as _ns
+from basd_tpu_torch.kernels.converged_eigh import MAX_N as _CONVERGED_MAX_N
+from basd_tpu_torch.kernels.converged_eigh import converged_eigh
 from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh
 from basd_tpu_torch.utils import trace
 
@@ -53,19 +57,38 @@ def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
 JACOBI_SWEEPS = 6
 
 
+def _eigh_route(a: torch.Tensor, impl: str) -> str:
+    """The route of an eigh call: 'converged' (K8 converged) for the 'xla'
+    impl on an f32 CUDA tensor of n <= 512, else the impl itself. Beyond
+    512 ``torch.linalg.eigh`` leaves Jacobi for divide and conquer, more
+    accurate and faster there (the CLI's calibration decomposes the
+    teacher's 768- or 1024-wide covariance)."""
+    if (impl == "xla" and a.device.type == "cuda" and a.dtype == torch.float32
+            and a.shape[-1] <= _CONVERGED_MAX_N):
+        return "converged"
+    return impl
+
+
 def _eigh_impl(a: torch.Tensor, impl: str):
-    """Forward eigh dispatch: ``torch.linalg.eigh`` ('xla', the reference's
-    QDWH custom call) or K8's parallel Jacobi ('jacobi'). The tracer counts
-    the calls and the matrices of each (``eigh.calls.<impl>``,
-    ``eigh.matrices.<impl>``)."""
+    """Forward eigh dispatch (``_eigh_route``). 'xla' (the reference's QDWH
+    custom call): K8 converged, run to convergence on the card, or
+    ``torch.linalg.eigh`` (the CPU, where the parity tests hold it to
+    ``jnp.linalg.eigh``); 'jacobi': K8's parallel Jacobi at six sweeps. The
+    tracer counts the calls and the matrices of each route
+    (``eigh.calls.<route>``, ``eigh.matrices.<route>``: ``converged``,
+    ``xla``, ``jacobi``)."""
     n = a.shape[-1]
+    route = _eigh_route(a, impl)
     if trace.enabled():
-        trace.count(f"eigh.calls.{impl}")
-        trace.count(f"eigh.matrices.{impl}", math.prod(a.shape[:-2]))
+        trace.count(f"eigh.calls.{route}")
+        trace.count(f"eigh.matrices.{route}", math.prod(a.shape[:-2]))
     with trace.span("eigh"):
-        if impl == "jacobi":
+        if route == "jacobi":
             w, v = jacobi_eigh(a.reshape(-1, n, n).float().contiguous(),
                                sweeps=JACOBI_SWEEPS)
+            return w.reshape(a.shape[:-1]), v.reshape(a.shape)
+        if route == "converged":
+            w, v, _ = converged_eigh(a.reshape(-1, n, n).contiguous())
             return w.reshape(a.shape[:-1]), v.reshape(a.shape)
         return torch.linalg.eigh(_sym(a))
 
@@ -134,7 +157,7 @@ def singular_values_gram(m: torch.Tensor, impl: str = "xla") -> torch.Tensor:
 
 def singular_values(m: torch.Tensor, backend: str = "gram") -> torch.Tensor:
     """Descending singular values by backend: the Gram eigenvalues ('gram'
-    by ``torch.linalg.eigh``, 'jacobi' by K8) or ``torch.linalg.svdvals``
+    by the 'xla' route, 'jacobi' by K8) or ``torch.linalg.svdvals``
     ('svd', the parity backend)."""
     if backend == "gram":
         return singular_values_gram(m)

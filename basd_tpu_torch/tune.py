@@ -41,7 +41,14 @@ measurement, and with ``--out`` writes them as JSON:
 6. K8 (``eigh``) at the principal-angle batches (48, 96, 96) and (48, 192,
    192), 6 sweeps: the whole call, its rounds and its vectors pass alone,
    and ``torch.linalg.eigh`` (eager only: cuSOLVER's batched Jacobi fails
-   inside a CUDA-graph capture).
+   inside a CUDA-graph capture); K8 converged (the 'xla' route on the
+   card) at the DINOv2 cells' stacked (16, 320, 320) and angle (48, 320,
+   320) batches and at (16, 192, 192): the kernel, its plain version
+   (eager, one call), ``torch.linalg.eigh`` (eager), the bound (9 n^3
+   operations a matrix at 67 TFLOP/s), its launches, the sweeps it took and
+   its cluster size, and at the DINOv2 batches the kernel at each cluster
+   size up to 8 that fits its shared memory (the plain version at the
+   stacked batches only: the angle batch's takes a minute).
 
 Each configuration is timed two ways: ``device_ms``, a CUDA graph of 20
 calls replayed 5 times (the median replay over 20: device time without the
@@ -52,6 +59,7 @@ calls (what a caller sees, dispatch included).
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import statistics
 import subprocess
@@ -354,8 +362,6 @@ def polar_sweep(torch, device) -> list:
 
 
 def eigh_sweep(torch, device, sweeps: int = 6) -> list:
-    import importlib
-
     je = importlib.import_module("basd_tpu_torch.kernels.jacobi_eigh")
     out = []
     g = torch.Generator(device=device).manual_seed(5)
@@ -373,7 +379,53 @@ def eigh_sweep(torch, device, sweeps: int = 6) -> list:
             rec = {"kernel": name, "shape": [bsz, n, n], "sweeps": sweeps, **times}
             out.append(rec)
             print(json.dumps(rec), flush=True)
+    ce = importlib.import_module("basd_tpu_torch.kernels.converged_eigh")
+    for what, bsz, n in (("stacked", 16, 320), ("angles", 48, 320), ("stacked", 16, 192)):
+        a = (selector_grams(torch, device, g, bsz, n) if what == "stacked"
+             else principal_angle_grams(torch, device, g, bsz, n, n))
+        _, _, swept = ce.converged_eigh(a)
+        plan = ce.plan(bsz, n)
+        clusters = [plan["cluster"]] if n < 320 else [
+            c for c in range(1, 9) if ce.plan(bsz, n, c)["active_clusters"]]
+        for cluster in clusters:
+            rec = {"kernel": "K8 converged", "what": what, "shape": [bsz, n, n],
+                   "cluster": cluster, "planned": cluster == plan["cluster"],
+                   "sweeps": [int(swept.min()), int(swept.max())], "launches": 1,
+                   "bound_ms": 9.0 * bsz * n ** 3 / 67e12 * 1e3,
+                   **_times(torch, lambda: ce._converged_eigh(a, cluster))}
+            if cluster == plan["cluster"]:
+                # the plain version (seconds a call) at the stacked batches
+                if what == "stacked":
+                    rec["plain_eager_ms"] = _eager_ms(
+                        torch, lambda: ce.converged_eigh_plain(a), 1)
+                rec["library_eager_ms"] = _eager_ms(torch, lambda: torch.linalg.eigh(a))
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
     return out
+
+
+def selector_grams(torch, device, g, bsz: int, n: int, rows: int = 4096):
+    """(bsz, n, n) centred Grams of ``rows`` tokens whose channels decay
+    100-fold: the stacked selector batch's kind."""
+    x = torch.randn(bsz, rows, n, generator=g, device=device)
+    x = x * torch.logspace(0, -2, n, device=device)
+    x = x - x.mean(1, keepdim=True)
+    return (x.transpose(1, 2) @ x).contiguous()
+
+
+def principal_angle_grams(torch, device, g, bsz: int, d: int, r: int):
+    """(bsz, r, r) Grams ``G_m^T G_m`` of masked cross-basis matrices of
+    random orthonormal (d, r) bases, masked ranks 85-92 of 96 scaled to r:
+    the selector's principal-angle structure (``tests/test_jacobi.py``)."""
+    us = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
+                                     dtype=torch.float64))[0]
+    ut = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
+                                     dtype=torch.float64))[0]
+    k = torch.randint(85 * r // 96, 93 * r // 96, (bsz,), generator=g,
+                      device=device)
+    mask = (torch.arange(r, device=device)[None] < k[:, None]).double()
+    gm = mask[:, :, None] * (us.transpose(1, 2) @ ut) * mask[:, None, :]
+    return (gm.transpose(1, 2) @ gm).float().contiguous()
 
 
 SWEEPS = {"ln_bwd": ln_bwd_sweep, "gemm": gemm_sweep, "bwd_gemm": bwd_gemm_sweep,

@@ -197,6 +197,9 @@ import tempfile
 import time
 from pathlib import Path
 
+# the selector's kinds of eigh batch, shared with the tuning sweeps
+from basd_tpu_torch.tune import principal_angle_grams, selector_grams
+
 REPO = Path(__file__).resolve().parent
 BATCH = 128
 TRAIN_ARGS = [
@@ -577,6 +580,10 @@ def kernel_phase(torch, device):
           + " ".join(f"{k}={v}" for k, v in parts_192["rounds smem"].items()))
     parts["rounds global"] = k8_large(torch, device, g)
     results.update({f"K8 jacobi_eigh: {k}": v for k, v in parts.items()})
+    # K8 converged, the 'xla' eigh on the card, at the selector's batches
+    converged = k8_converged_checks(torch, device)
+    results["K8 converged"] = converged["stacked (16, 320, 320)"]
+    results.update({f"K8 converged: {k}": v for k, v in converged.items()})
 
     # K9 on 224 px RandomResizedCrop views of a synthetic canvas, B=128,
     # with geometric TAW draws: the train step's geometric slice
@@ -1492,21 +1499,6 @@ def k7_path_record(torch, trainer, results: dict, name: str) -> None:
     results[name] = k7_check(torch, ns_polar, mats, "batched")
 
 
-def principal_angle_grams(torch, device, g, bsz: int, d: int, r: int):
-    """(bsz, r, r) Grams ``G_m^T G_m`` of masked cross-basis matrices of
-    random orthonormal (d, r) bases, masked ranks 85-92 of 96 scaled to r:
-    the selector's principal-angle structure (``tests/test_jacobi.py``)."""
-    us = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
-                                     dtype=torch.float64))[0]
-    ut = torch.linalg.qr(torch.randn(bsz, d, r, generator=g, device=device,
-                                     dtype=torch.float64))[0]
-    k = torch.randint(85 * r // 96, 93 * r // 96, (bsz,), generator=g,
-                      device=device)
-    mask = (torch.arange(r, device=device)[None] < k[:, None]).double()
-    gm = mask[:, :, None] * (us.transpose(1, 2) @ ut) * mask[:, None, :]
-    return (gm.transpose(1, 2) @ gm).float().contiguous()
-
-
 # what the eigenvector rule allows beyond the angle bound: float64 rounding
 # of the residuals, of eigvalsh and of the normalised dot products
 EIGVEC_SLACK = 1e-6
@@ -1663,6 +1655,119 @@ def k8_check(torch, device, g, bsz: int, d: int, r: int, tol: float,
                 plain_ms=time_ms(torch, lambda: jacobi_eigh_plain(a, sweeps), 3),
                 library_ms=time_ms(torch, lambda: torch.linalg.eigh(a)),
                 bound_ms=bound_ms, bound_by=bound_by), parts
+
+
+# the batches K8 converged is held to torch.linalg.eigh at: (what, batch, n,
+# kind); the DINOv2 cells' stacked and principal-angle batches, DeiT-Ti's
+# stacked batch, a 512-wide student's (the widest the kernel takes), an odd
+# width and a batch with 6 live rows of 96 (most blocks of each cluster
+# hold none)
+K8C_SHAPES = (("stacked", 16, 320, "gram"), ("angles", 48, 320, "angles"),
+              ("stacked", 16, 192, "gram"), ("stacked", 4, 512, "gram"),
+              ("odd", 4, 511, "gram"), ("six live rows", 3, 96, "sparse"))
+
+
+def eigh_errors(torch, a, w, v) -> tuple:
+    """Against float64 eigh on the CPU: the largest eigenvalue error over
+    ||A||_2, max |V^T V - I| and ||A V - V diag(w)||_F / ||A||_F."""
+    a64, w64, v64 = a.double().cpu(), w.double().cpu(), v.double().cpu()
+    lam = torch.linalg.eigvalsh(a64)
+    err = ((w64 - lam).abs().amax(-1) / torch.linalg.matrix_norm(a64, ord=2)).max()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64)
+    orth = (v64.transpose(1, 2) @ v64 - eye).abs().max()
+    res = (torch.linalg.matrix_norm(a64 @ v64 - v64 * w64[:, None])
+           / torch.linalg.matrix_norm(a64)).max()
+    return err.item(), orth.item(), res.item()
+
+
+def k8_converged_checks(torch, device) -> dict:
+    """K8 converged (the 'xla' eigh route on the card) at ``K8C_SHAPES``:
+    its eigenvalue error over ||A||, ``max |V^T V - I|`` and ``||A V - V
+    diag(w)|| / ||A||``, each against float64 eigh on the CPU, at most 4x
+    ``torch.linalg.eigh``'s own on the same matrices; one launch a call;
+    every matrix converged before the sweep cap (sweeps min and max
+    printed). A 768-wide 'xla'-route call (the calibration's covariance of a
+    ViT-B teacher) launches nothing: ``torch.linalg.eigh`` takes it. Then
+    one 'xla'-route call captured in a CUDA graph and replayed gives the
+    eager call's bits (cuSOLVER's batched Jacobi cannot be captured). Returns the records by shape, with kernel, plain (on the
+    first ``plain_matrices``) and library times and the bound (9 n^3
+    operations a matrix)."""
+    from basd_tpu_torch.kernels.converged_eigh import (
+        MAX_SWEEPS,
+        converged_eigh,
+        converged_eigh_plain,
+        plan,
+    )
+    from basd_tpu_torch.ops import linalg
+
+    g = torch.Generator(device=device).manual_seed(19)
+    out = {}
+    for what, bsz, n, kind in K8C_SHAPES:
+        if kind == "angles":
+            a = principal_angle_grams(torch, device, g, bsz, n, n)
+        else:
+            a = selector_grams(torch, device, g, bsz, n)
+        if kind == "sparse":
+            live = (torch.arange(n, device=device) % 16 == 3).float()
+            a = a * live[:, None] * live[None, :]
+        where = f"K8 converged {what} ({bsz}, {n}, {n})"
+        launches = converged_eigh.launches
+        w, v, sweeps = converged_eigh(a)
+        torch.cuda.synchronize()
+        check(converged_eigh.launches == launches + 1, f"{where}: one launch a call")
+        wl, vl = torch.linalg.eigh(a)
+        # the plain version once (a round is ~25 small launches: seconds a
+        # call; a minute and a half on the whole angle batch, so there on
+        # its first 8 matrices)
+        part = 8 if kind == "angles" else bsz
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        wp, _, sweeps_p = converged_eigh_plain(a[:part])
+        end.record()
+        torch.cuda.synchronize()
+        ours, lib = eigh_errors(torch, a, w, v), eigh_errors(torch, a, wl, vl)
+        # a 6 x 6 live block leaves both at rounding: an absolute bar there
+        floor = 2e-6 if what == "six live rows" else 0.0
+        for name, x, y in zip(("eigenvalues", "V^T V - I", "residual"), ours, lib):
+            check(x <= max(4 * y, floor),
+                  f"{where} {name}: {x} beyond 4x torch.linalg.eigh's {y}")
+        lo, hi = int(sweeps.min()), int(sweeps.max())
+        check(hi < MAX_SWEEPS, f"{where}: a matrix reached the cap of {MAX_SWEEPS} sweeps")
+        p = plan(bsz, n)
+        b_ms, b_by = bound(nbytes(a, w, v), 9.0 * bsz * n ** 3, PEAK_F32)
+        rec = dict(max_abs_err=max_err(w[:part], wp), ms=time_ms(torch, lambda: converged_eigh(a)),
+                   plain_ms=start.elapsed_time(end), plain_matrices=part,
+                   library_ms=time_ms(torch, lambda: torch.linalg.eigh(a)),
+                   bound_ms=b_ms, bound_by=b_by, launches=1, sweeps=[lo, hi],
+                   plain_sweeps=[int(sweeps_p.min()), int(sweeps_p.max())],
+                   errors=dict(zip(("eigenvalues", "orthogonality", "residual"), ours)),
+                   library_errors=dict(zip(("eigenvalues", "orthogonality", "residual"), lib)),
+                   cluster=p["cluster"], sms=min(bsz, p["active_clusters"]) * p["cluster"])
+        out[f"{what} ({bsz}, {n}, {n})"] = rec
+        print(f"{where}: " + " ".join(f"{k}={v_}" for k, v_ in rec.items()), flush=True)
+
+    a = selector_grams(torch, device, g, 1, 768)
+    launches = converged_eigh.launches
+    linalg._eigh_impl(a, "xla")
+    check(converged_eigh.launches == launches,
+          "K8 converged: a 768-wide 'xla' call launched the kernel")
+
+    a = selector_grams(torch, device, g, 16, 320)
+    eager = linalg._eigh_impl(a, "xla")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        linalg._eigh_impl(a, "xla")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = linalg._eigh_impl(a, "xla")
+    graph.replay()
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(captured, eager)),
+          "K8 converged: a CUDA-graph replay of the 'xla' route differs from the eager call")
+    print("K8 converged: the 'xla' route captured in a CUDA graph and replayed: equal bits")
+    return out
 
 
 def k8_large(torch, device, g, bsz: int = 2, n: int = 256) -> dict:
@@ -2706,7 +2811,7 @@ def main(argv=None) -> int:
                 else (tp_counts, tp_counts) if name in kernels.TP_KERNELS
                 else (fcounts, fpre) if name in FLASH_KERNELS + LN_KERNELS
                 else (ccounts, cpre) if name == "K7 ns_polar_hybrid: stream"
-                else (dcounts, dpre) if name == K7_BATCHED
+                else (dcounts, dpre) if name in (K7_BATCHED, "K8 converged")
                 else (counts, pre))
 
     entries, ranking = [], []

@@ -58,6 +58,7 @@ def _wrapper_cases():
         mix_stack,
         ns_polar,
     )
+    from basd_tpu_torch.kernels.converged_eigh import converged_eigh_plain
     from basd_tpu_torch.kernels.jacobi_eigh import jacobi_eigh_plain as jacobi_plain
     from basd_tpu_torch.models.port import shard_state_dict
     from basd_tpu_torch.parallel.mesh import ModelParallel
@@ -170,6 +171,8 @@ def _wrapper_cases():
             (polar_in,), lambda: ns_polar.ns_polar_plain(polar_in)),
         "K8 jacobi_eigh": (
             (sym, 6), lambda: jacobi_plain(sym, 6)),
+        "K8 converged": (
+            (sym,), lambda: converged_eigh_plain(sym)),
         "K9 geom_shift3": (
             (imgs, r_h, r_w, r_h.flip(0)),
             lambda: geom_shift.geom_shift3_plain(imgs, r_h, r_w, r_h.flip(0))),

@@ -283,3 +283,184 @@ def test_eigvec_rule_rejects_inaccurate_vectors():
     noisy = vl + 1e-2 * torch.randn(vl.shape, generator=g, dtype=vl.dtype)
     rule = chip_smoke.eigvec_rule(torch, a, wl.float(), noisy.float(), wl, vl)
     assert not rule["ok"], rule
+
+
+# K8 converged (kernels/converged_eigh.py): its plain version on the
+# selector's kinds of matrix, its stopping rule, and the 'xla' route
+
+ce = importlib.import_module("basd_tpu_torch.kernels.converged_eigh")
+
+
+def _psd_gram(g, bsz, n):
+    """Centred Grams of 4n rows with a decaying spectrum (the stacked
+    selector batch's kind)."""
+    x = torch.randn(bsz, 4 * n, n, generator=g, dtype=torch.float64)
+    x = x * torch.logspace(0, -3, n, dtype=torch.float64)
+    x = x - x.mean(1, keepdim=True)
+    return (x.transpose(1, 2) @ x).float()
+
+
+def _masked_angle_gram(g, bsz, n):
+    """``gm gm^T`` of masked cross-basis matrices of square orthogonal
+    bases (the principal-angle batch's kind): a zero block beyond the
+    masked rank and an exact cluster at 1, whose pairs include exact ties
+    a_pp == a_qq."""
+    us = torch.linalg.qr(torch.randn(bsz, n, n, generator=g, dtype=torch.float64))[0]
+    ut = torch.linalg.qr(us + 0.3 * torch.linalg.qr(
+        torch.randn(bsz, n, n, generator=g, dtype=torch.float64))[0])[0]
+    k = (n * 7) // 8
+    mask = (torch.arange(n) < k).double()
+    gm = mask[:, None] * (us.transpose(1, 2) @ ut) * mask[None, :]
+    return (gm @ gm.transpose(1, 2)).float()
+
+
+def _degenerate(g, bsz, n):
+    """An exact degenerate cluster: half the spectrum at 1."""
+    q = torch.linalg.qr(torch.randn(bsz, n, n, generator=g, dtype=torch.float64))[0]
+    w = torch.cat([torch.ones(n // 2, dtype=torch.float64),
+                   torch.linspace(0.1, 0.9, n - n // 2, dtype=torch.float64)])
+    return ((q * w) @ q.transpose(1, 2)).float()
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("kind,n", [
+    ("gram", 4), ("gram", 17), ("gram", 48), ("angle", 16), ("angle", 33),
+    ("angle", 64), ("degenerate", 9), ("degenerate", 40)])
+def test_converged_plain_against_eigh(kind, n):
+    """The plain version's eigenvalues within 4e-6 ||A|| of float64 eigh's
+    (and of ``torch.linalg.eigh``'s f32 ones), V orthogonal to 4e-6 and
+    ||A V - V diag(w)|| within 4e-6 ||A||, even and odd n, each matrix
+    converged before the cap."""
+    make = {"gram": _psd_gram, "angle": _masked_angle_gram,
+            "degenerate": _degenerate}[kind]
+    a = make(torch.Generator().manual_seed(n), 3, n)
+    w, v, sweeps = ce.converged_eigh_plain(a)
+    assert w.shape == (3, n) and v.shape == (3, n, n)
+    a64 = a.double()
+    norm = torch.linalg.matrix_norm(a64, ord=2)[:, None]
+    lam = torch.linalg.eigvalsh(a64)
+    assert ((w.double() - lam).abs() / norm).max() <= 4e-6
+    assert ((w - torch.linalg.eigvalsh(a)).double().abs() / norm).max() <= 8e-6
+    eye = torch.eye(n, dtype=torch.float64)
+    assert (v.double().transpose(1, 2) @ v.double() - eye).abs().max() <= 4e-6
+    res = torch.linalg.matrix_norm(a64 @ v.double() - v.double() * w.double()[:, None])
+    assert (res / torch.linalg.matrix_norm(a64)).max() <= 4e-6
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    assert bool((sweeps > 1).all()) and bool((sweeps < ce.MAX_SWEEPS).all())
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8])
+def test_converged_diagonal_input_stops_after_one_sweep(n):
+    """A diagonal matrix has no pair over the bar: one sweep, no rotation,
+    its diagonal sorted and the permutation as V; asymmetric input is
+    symmetrised first."""
+    d = torch.tensor([3.0, -1.0, 2.0, 0.5, 7.0, -4.0, 1.5, 0.0])[:n]
+    a = torch.diag_embed(d)[None].clone()
+    if n > 1:
+        a[0, 0, 1], a[0, 1, 0] = 1e-3, -1e-3  # (a + a^T) / 2 is diagonal
+    w, v, sweeps = ce.converged_eigh_plain(a)
+    assert sweeps.tolist() == [1]
+    order = torch.argsort(d, stable=True)
+    assert torch.equal(w[0], d[order])
+    assert torch.equal(v[0], torch.eye(n)[:, order])
+
+
+def test_converged_exact_tie_takes_the_45_degree_rotation():
+    """a_pp == a_qq exactly: sign(0) = 1 rotates by 45 degrees (K8's
+    sign(0) = 0 would leave the pair, and the diagonal block's update would
+    then zero a_pq without rotating it)."""
+    a = torch.tensor([[[1.0, 0.5], [0.5, 1.0]]])
+    w, v, sweeps = ce.converged_eigh_plain(a)
+    assert torch.allclose(w[0], torch.tensor([0.5, 1.5]), atol=1e-7)
+    assert torch.allclose(v[0].abs(), torch.full((2, 2), 0.5 ** 0.5), atol=1e-7)
+    assert sweeps.tolist() == [2]
+
+
+def test_converged_zero_rows_are_their_own_eigenpairs():
+    """Zero rows (anywhere, a different count a matrix) take (0, e_i); the
+    rest is the solve of the other rows alone, in their order."""
+    g = torch.Generator().manual_seed(4)
+    a = _psd_gram(g, 3, 12)
+    dead = [[1, 5, 6], [0, 11], []]
+    for b, rows in enumerate(dead):
+        a[b, rows, :] = 0.0
+        a[b, :, rows] = 0.0
+    w, v, sweeps = ce.converged_eigh_plain(a)
+    for b, rows in enumerate(dead):
+        keep = [i for i in range(12) if i not in rows]
+        wk, vk, sk = ce.converged_eigh_plain(a[b][keep][:, keep][None])
+        assert sweeps[b] == sk[0]
+        assert torch.equal(w[b][w[b] != 0], wk[0][wk[0] != 0])
+        for i in rows:
+            col = torch.nonzero((v[b] == torch.eye(12)[:, i:i + 1]).all(0))
+            assert len(col) == 1 and w[b, col[0, 0]] == 0.0
+    res = torch.linalg.matrix_norm(a.double() @ v.double() - v.double() * w.double()[:, None])
+    assert (res / torch.linalg.matrix_norm(a.double())).max() <= 4e-6
+
+
+def test_converged_sweep_cap_holds():
+    """The cap stops a matrix that has not converged, and a matrix that
+    converges takes the sweeps it needs, fewer than the cap."""
+    a = _psd_gram(torch.Generator().manual_seed(1), 2, 24)
+    _, _, capped = ce.converged_eigh_plain(a, max_sweeps=2)
+    assert capped.tolist() == [2, 2]
+    _, _, free = ce.converged_eigh_plain(a)
+    assert bool((free > 2).all()) and bool((free < ce.MAX_SWEEPS).all())
+
+
+def test_eigh_route():
+    """'xla' takes K8 converged on an f32 CUDA tensor up to n = 512 and
+    ``torch.linalg.eigh`` on the CPU, in f64 and beyond n = 512 (the
+    calibration's 768- and 1024-wide teacher covariances); 'jacobi' stays
+    K8."""
+    from basd_tpu_torch.ops import linalg
+
+    class _Cuda:
+        """What the route reads of a CUDA tensor."""
+
+        def __init__(self, n, dtype=torch.float32):
+            self.device, self.dtype, self.shape = torch.device("cuda"), dtype, (2, n, n)
+
+    assert linalg._eigh_route(_Cuda(320), "xla") == "converged"
+    assert linalg._eigh_route(_Cuda(ce.MAX_N), "xla") == "converged"
+    assert ce.MAX_N == 512
+    for n in (513, 768, 1024):
+        assert linalg._eigh_route(_Cuda(n), "xla") == "xla"
+    assert linalg._eigh_route(_Cuda(320, torch.float64), "xla") == "xla"
+    assert linalg._eigh_route(_Cuda(320), "jacobi") == "jacobi"
+    assert linalg._eigh_route(torch.zeros((2, 4, 4)), "xla") == "xla"
+
+
+def test_xla_route_on_cpu_calls_torch_eigh_and_counters_count(monkeypatch):
+    """On a CPU tensor the 'xla' route is ``torch.linalg.eigh`` and launches
+    nothing; the tracer counts the calls and matrices under the route taken
+    (``eigh.*.converged`` where K8 converged takes them, ``eigh.*.xla``
+    then 0)."""
+    from basd_tpu_torch.ops import linalg
+    from basd_tpu_torch.utils import trace
+
+    a = _psd_gram(torch.Generator().manual_seed(2), 3, 8)
+    calls = []
+    real = torch.linalg.eigh
+    monkeypatch.setattr(torch.linalg, "eigh",
+                        lambda x, *args, **kw: calls.append(x.shape) or real(x, *args, **kw))
+    launches = ce.converged_eigh.launches
+    trace.reset()
+    trace.enable()
+    try:
+        w, v = linalg._eigh_impl(a, "xla")
+        assert calls == [a.shape] and ce.converged_eigh.launches == launches
+        assert torch.equal(w, real(a)[0])
+        # the route the card takes, on the plain version
+        monkeypatch.setattr(linalg, "_eigh_route", lambda x, impl: "converged")
+        w2, v2 = linalg._eigh_impl(a.reshape(1, 3, 8, 8), "xla")
+        counters = trace.summary()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert len(calls) == 1
+    wp, vp, _ = ce.converged_eigh_plain(a)
+    assert torch.equal(w2[0], wp) and torch.equal(v2[0], vp)
+    assert counters["eigh.calls.converged"] == 1
+    assert counters["eigh.matrices.converged"] == 3
+    assert counters["eigh.calls.xla"] == 1 and counters["eigh.matrices.xla"] == 3
