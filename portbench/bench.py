@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import gc
 import importlib
+import json
 import sys
 import time
 
@@ -22,7 +23,6 @@ from portbench.trace import Trace
 
 SETUP_STEPS = 3
 PROFILED_STEPS = 2
-STAGES = ("views", "teacher", "student_loss", "update")
 FORBIDDEN = ("jax", "jaxlib", "flax", "basd_tpu")
 
 
@@ -50,8 +50,10 @@ def program_config(cell: Cell, run_seed: int, out_dir: str):
 
 def arch(m: dict) -> dict:
     """A ViT's widths as the port's ``create_model`` takes them: over a
-    preset's, or whole for a model of no preset (the CPU tests')."""
+    preset's, or whole for a model of no preset (the CPU tests'). The MLP's
+    kind and hidden width go in where the configuration states them."""
     out = {k: m[k] for k in ("embed_dim", "depth", "num_heads", "mlp_ratio")}
+    out.update({k: m[k] for k in ("mlp", "mlp_hidden") if k in m})
     if m.get("custom"):
         out.update(patch_size=m["patch_size"],
                    layerscale_init=1.0 if m.get("layerscale") else None)
@@ -117,49 +119,6 @@ def first_steps(trainer, inp: dict, pool: int) -> dict:
     return {"losses": [float(v) for v in losses],
             "grad_norms": {k: float(v) for k, v in grad_norms.items()},
             "changes": {k: (y[k] - x0[k]).float().cpu() for k in y}}
-
-
-class Spans:
-    """CUDA events around the trainer's calls into each layer (on the
-    instance, and schedule-free's ``update`` in its module), summed over
-    the steps; each call also opens a profiler annotation of its stage."""
-
-    def __init__(self, trainer):
-        from basd_tpu_torch.training import schedulefree as sf
-
-        self.events = {k: [] for k in STAGES}
-        self.sf = sf
-        self.saved_update = sf.update
-        self.trainer = trainer
-        for attr, name in (("make_views", "views"),
-                           ("teacher_forward", "teacher"),
-                           ("loss_and_grads", "student_loss")):
-            setattr(trainer, attr, self._wrap(getattr(trainer, attr), name))
-        sf.update = self._wrap(sf.update, "update")
-
-    def _wrap(self, fn, name):
-        events = self.events[name]
-
-        def wrapped(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with torch.profiler.record_function(name):
-                start.record()
-                out = fn(*args, **kwargs)
-                end.record()
-            events.append((start, end))
-            return out
-
-        return wrapped
-
-    def totals_ms(self) -> dict:
-        return {k: sum(s.elapsed_time(e) for s, e in v)
-                for k, v in self.events.items()}
-
-    def remove(self) -> None:
-        self.sf.update = self.saved_update
-        for attr in ("make_views", "teacher_forward", "loss_and_grads"):
-            delattr(self.trainer, attr)
 
 
 def timed_window(trainer, inp: dict, pool: int, seconds: float,
@@ -283,19 +242,27 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, start: float,
         setup_s = time.perf_counter() - start
         metrics, extra = {}, {}
         if trace:
-            spans = Spans(trainer)
-            win = timed_window(trainer, inp, pool, seconds, SETUP_STEPS)
-            span_ms = spans.totals_ms()
-            prof = profiled_window(trainer, inp, pool,
-                                   SETUP_STEPS + win["steps"])
-            spans.remove()
+            from basd_tpu_torch.utils import trace as tracer
+
+            tracer.reset()
+            tracer.enable()
+            try:
+                win = timed_window(trainer, inp, pool, seconds, SETUP_STEPS)
+                program = tracer.summary()
+                log("program per step "
+                    + json.dumps(tracer.per_step(program)))
+                # on through the profile, so its spans annotate the trace
+                prof = profiled_window(trainer, inp, pool,
+                                       SETUP_STEPS + win["steps"])
+            finally:
+                tracer.disable()
         else:
             win = timed_window(trainer, inp, pool, seconds, SETUP_STEPS)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         if trace:
             shape = counts.step_shape(cell.config, cell.traffic)
             busy_ns, _ = prof["trace"].busy()
-            ctx = {"spans_ms": span_ms, "steps": win["steps"],
+            ctx = {"program": program, "steps": win["steps"],
                    "event_s": win["event_s"], "profile": prof,
                    "busy_ms": busy_ns / 1e6 / prof["steps"], "shape": shape,
                    "counts": counts, "bench_dir": BENCH_DIR, "log": log}

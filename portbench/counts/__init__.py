@@ -7,12 +7,17 @@ cannot move it. The per-launch counts are those of the kernel checks that
 the port's bring-up used (operations and bytes each kernel's function
 needs, each input byte read once and each output byte written once); the
 polar iteration's count is ``polar_flops``, its symmetric products counted
-once a pair.
+once a pair. ``kernel_launches`` merges in the rows of the modules
+``counts/launches_*.py``: each defines ``rows(shape) -> {counter name:
+[(least seconds of one launch, launches a step), ...]}``, so a kernel's
+arithmetic arrives as a file of its own.
 """
 
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass
+from pathlib import Path
 
 # NVIDIA H100 SXM, published dense peaks at 700 W: bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -32,12 +37,32 @@ JACOBI_SWEEPS = 6
 # implicit QR accumulating the rotations ~6, back-transformation 2,
 # rounded up); every eigh of the step keeps its vectors
 EIGH_N3 = 9.0
+# the MLP's products a row, in units of D F: GELU's fc1 (F, D) and fc2
+# (D, F); SwiGLU's fc1 (2 F, D), packed [a | g], and fc2 (D, F)
+MLP_PRODUCTS = {"gelu": 2, "swiglu": 3}
 
 
 def least_seconds(nbytes: float, flops: float, peak: float) -> float:
     """The least time the card could take: bytes over HBM bandwidth or
     operations over ``peak``, the larger."""
     return max(nbytes / HBM_BYTES_S, flops / peak)
+
+
+def mlp_of(m: dict) -> tuple:
+    """A ViT entry's MLP: (kind, hidden width F). The kind is ``mlp``,
+    'gelu' where the entry states none, or 'swiglu' (y = fc2(silu(a) * g)
+    with [a | g] = fc1(x)); F is ``mlp_hidden`` where stated, else
+    round(D ``mlp_ratio``). A SwiGLU entry states its F."""
+    kind = m.get("mlp", "gelu")
+    if kind not in MLP_PRODUCTS:
+        raise ValueError(f"unknown MLP kind {kind!r}; known: "
+                         f"{sorted(MLP_PRODUCTS)}")
+    if "mlp_hidden" in m:
+        return kind, int(m["mlp_hidden"])
+    if kind != "gelu":
+        raise ValueError(f"a {kind} MLP states its hidden width "
+                         f"('mlp_hidden')")
+    return kind, int(round(m["embed_dim"] * m["mlp_ratio"]))
 
 
 @dataclass(frozen=True)
@@ -48,6 +73,7 @@ class ViTShape:
     hidden: int
     patch: int
     img: int
+    mlp: str = "gelu"
 
     @property
     def patches(self) -> int:
@@ -76,10 +102,10 @@ def step_shape(config: dict, traffic: dict) -> StepShape:
     img = int(config["img_size"])
 
     def vit(m: dict) -> ViTShape:
+        kind, hidden = mlp_of(m)
         return ViTShape(int(m["embed_dim"]), int(m["depth"]),
-                        int(m["num_heads"]),
-                        int(round(m["embed_dim"] * m["mlp_ratio"])),
-                        int(m["patch_size"]), img)
+                        int(m["num_heads"]), hidden, int(m["patch_size"]),
+                        img, kind)
 
     student = vit(config["student"])
     cap = config["basd"].get("max_rank")
@@ -103,18 +129,20 @@ def polar_flops(b: int, r: int, c: int) -> int:
                 + POLAR_CUBIC_STEPS * (gram_x + prod_x))
 
 
-def vit_block_flops(m: int, b: int, n: int, d: int, f: int) -> float:
+def vit_block_flops(m: int, b: int, n: int, d: int, f: int,
+                    mlp: str = "gelu") -> float:
     """One transformer block's forward products: qkv and proj (4 D^2 a
-    row), the MLP (2 D F a row), the scores and P.V (2 N^2 D an image);
-    two operations a multiply-add."""
-    return 2.0 * m * (4 * d * d + 2 * d * f) + 4.0 * b * n * n * d
+    row), the MLP (2 D F a row for GELU, 3 D F for SwiGLU), the scores and
+    P.V (2 N^2 D an image); two operations a multiply-add."""
+    return (2.0 * m * (4 * d * d + MLP_PRODUCTS[mlp] * d * f)
+            + 4.0 * b * n * n * d)
 
 
 def vit_forward_flops(v: ViTShape, b: int, classes: int = 0) -> float:
     """A ViT's forward: patch embedding, the blocks, the head."""
     embed = 2.0 * b * v.patches * 3 * v.patch * v.patch * v.dim
     blocks = v.depth * vit_block_flops(b * v.tokens, b, v.tokens, v.dim,
-                                       v.hidden)
+                                       v.hidden, v.mlp)
     return embed + blocks + 2.0 * b * v.dim * classes
 
 
@@ -167,8 +195,10 @@ def total_model_flops(s: StepShape) -> float:
 def kernel_launches(s: StepShape) -> dict:
     """Each hand-written kernel of a step: ``{counter name: [(least
     seconds of one launch, launches a step), ...]}``, under the names the
-    port's launch counters use. The student's blocks run under full remat,
-    so K3a and K4a launch twice a block."""
+    port's launch counters use, with the rows of ``counts/launches_*.py``
+    merged in. The student's blocks run under full remat, so K3a and K4a
+    launch twice a block. K2, K4a and K4b compute a GELU MLP: a ViT with
+    another MLP kind brings its kernels' rows in a module of its own."""
     t, st, b, p = s.teacher, s.student, s.batch, s.points
 
     def attn_fwd(v: ViTShape, lse: bool, imp: bool):
@@ -221,12 +251,9 @@ def kernel_launches(s: StepShape) -> dict:
     img = t.img
     out = {
         "K1 fused_block_attn": [(attn_fwd(t, lse=False, imp=True), layers)],
-        "K2 fused_ln_mlp_collect": [(mlp_fwd(t, collect=True), layers)],
         "K3a fused_block_attn_train fwd": [
             (attn_fwd(st, lse=True, imp=False), 2 * st.depth)],
         "K3b fused_block_attn_train bwd": [(attn_bwd(st), st.depth)],
-        "K4a fused_ln_mlp fwd": [(mlp_fwd(st, collect=False), 2 * st.depth)],
-        "K4b fused_ln_mlp bwd": [(mlp_bwd(st), st.depth)],
         "K5a fused_layernorm fwd": [(ln_fwd(t), 1), (ln_fwd(st), 1)],
         "K5b fused_layernorm bwd": [(ln_bwd(st), 1)],
         "K6a mix_stack fwd": [(least_seconds(
@@ -239,12 +266,27 @@ def kernel_launches(s: StepShape) -> dict:
             2 * geo * img * img * 3 + F32 * 3 * geo * img + geo, 0.0,
             PEAK_F32), 1)],
     }
+    if t.mlp == "gelu":
+        out["K2 fused_ln_mlp_collect"] = [(mlp_fwd(t, collect=True), layers)]
+    if st.mlp == "gelu":
+        out["K4a fused_ln_mlp fwd"] = [
+            (mlp_fwd(st, collect=False), 2 * st.depth)]
+        out["K4b fused_ln_mlp bwd"] = [(mlp_bwd(st), st.depth)]
     if s.backend == "jacobi":
         r, nm = s.rank_cap, p * layers
         flops = nm * JACOBI_SWEEPS * (r - 1) * r * r
         out["K8 jacobi_eigh"] = [(least_seconds(
             F32 * nm * (2 * r * r + r), 9.0 * flops, PEAK_F32), 1)]
+    for module in launch_modules():
+        for name, rows in module.rows(s).items():
+            out.setdefault(name, []).extend(rows)
     return out
+
+
+def launch_modules() -> list:
+    """The modules ``counts/launches_*.py``, in the order of their names."""
+    return [importlib.import_module(f"{__name__}.{path.stem}")
+            for path in sorted(Path(__file__).parent.glob("launches_*.py"))]
 
 
 def kernel_bound_seconds(s: StepShape, launches: dict) -> tuple:

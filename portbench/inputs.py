@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from portbench.counts import mlp_of
+
 _SALTS = {"teacher": 1, "student": 2, "selector": 3, "canvas": 4, "run": 5}
 # canvases drawn per call; the draws follow it, so it is fixed for every cell
 CHUNK = 256
@@ -28,9 +30,11 @@ def _gen(device, seed: int) -> torch.Generator:
 
 def vit_leaves(m: dict, img: int, num_classes: int) -> list:
     """(name, shape) of a ViT's parameters, in timm's names and (out, in)
-    layouts, as the port's modules hold them."""
+    layouts, as the port's modules hold them. A SwiGLU MLP's ``fc1`` is
+    timm's packed ``SwiGLUPacked`` layer, (2 F, D) with [a | g]."""
     d, p = m["embed_dim"], m["patch_size"]
-    f = int(round(d * m["mlp_ratio"]))
+    kind, f = mlp_of(m)
+    f1 = 2 * f if kind == "swiglu" else f
     n = (img // p) ** 2 + 1
     out = [("cls_token", (1, 1, d)), ("pos_embed", (1, n, d)),
            ("patch_embed.proj.weight", (d, 3, p, p)),
@@ -44,7 +48,7 @@ def vit_leaves(m: dict, img: int, num_classes: int) -> list:
         if m.get("layerscale"):
             out.append((b + "ls1.gamma", (d,)))
         out += [(b + "norm2.weight", (d,)), (b + "norm2.bias", (d,)),
-                (b + "mlp.fc1.weight", (f, d)), (b + "mlp.fc1.bias", (f,)),
+                (b + "mlp.fc1.weight", (f1, d)), (b + "mlp.fc1.bias", (f1,)),
                 (b + "mlp.fc2.weight", (d, f)), (b + "mlp.fc2.bias", (d,))]
         if m.get("layerscale"):
             out.append((b + "ls2.gamma", (d,)))

@@ -1,10 +1,11 @@
 """The port's hand-written kernels' share of their roofline in the profiled
 steps: the least time of the launches their counters saw (each launch's
 operations over peak or bytes over bandwidth, the larger, from the cell's
-shapes by ``counts.kernel_launches``) over the device time of the kernels
-whose names the port's sources give (``counts/kernel_names*.txt``), in
-percent. Device kernels of neither the port nor a library are named on
-standard error, as are counters the arithmetic does not know."""
+shapes by ``counts.kernel_launches`` and ``counts/launches_*.py``) over
+the device time of the kernels whose names the port's sources give
+(``counts/kernel_names*.txt``), in percent. Device kernels of neither the
+port nor a library are named on standard error, as are counters the
+arithmetic does not know."""
 
 import re
 
@@ -19,10 +20,12 @@ LIBRARY = ("at::", "at_cuda", "cutlass", "cublas", "cusolver", "syevj",
 
 
 def port_kernel_names(bench_dir):
+    """The kernel names of ``counts/kernel_names*.txt``; ``#`` starts a
+    comment."""
     names = set()
     for path in sorted((bench_dir / "counts").glob("kernel_names*.txt")):
-        names.update(w.strip() for w in path.read_text().split()
-                     if w.strip() and not w.startswith("#"))
+        for line in path.read_text().splitlines():
+            names.update(line.split("#", 1)[0].split())
     return names
 
 

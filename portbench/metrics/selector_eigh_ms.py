@@ -1,9 +1,10 @@
-"""Device time a profiled step of ``torch.linalg.eigh`` in the selector
-(the stacked teacher and student eigh and, under the gram backend, the
-principal angles'): the activity launched inside ``aten::_linalg_eigh``."""
+"""Device time a step of the selector's eighs, whatever route takes them
+(K8 converged, ``torch.linalg.eigh``, K8 at six sweeps): the program
+tracer's ``eigh`` span (``ops/linalg.py:_eigh_impl``), over the timed
+window's steps. None where the run has no program tracer."""
+
+from portbench.metrics._program import span_ms
 
 
 def read(ctx):
-    prof = ctx["profile"]
-    ns = prof["trace"].under_op("aten::_linalg_eigh")
-    return ns / 1e6 / prof["steps"] if ns else None
+    return span_ms(ctx, "eigh")

@@ -1,6 +1,9 @@
-"""Device time a step of the trainer's schedulefree.update (training/schedulefree.py): CUDA events around each
-call, summed over the timed window, over its steps."""
+"""Device time a step of the optimizer (``training/schedulefree.py:update``):
+the program tracer's ``update`` span, over the timed window's steps. None
+where the run has no program tracer."""
+
+from portbench.metrics._program import span_ms
 
 
 def read(ctx):
-    return ctx["spans_ms"]["update"] / ctx["steps"]
+    return span_ms(ctx, "update")

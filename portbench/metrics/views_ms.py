@@ -1,6 +1,9 @@
-"""Device time a step of the trainer's make_views (data/augment.py: RRC, TAW with K9, MixUp/CutMix): CUDA events around each
-call, summed over the timed window, over its steps."""
+"""Device time a step of the views (``Trainer.make_views``: RRC, TAW with
+K9, MixUp/CutMix): the program tracer's ``views`` span, over the timed
+window's steps. None where the run has no program tracer."""
+
+from portbench.metrics._program import span_ms
 
 
 def read(ctx):
-    return ctx["spans_ms"]["views"] / ctx["steps"]
+    return span_ms(ctx, "views")

@@ -1,12 +1,15 @@
 """A pre-LayerNorm ViT in plain PyTorch on a dict of weights (timm's names
 and (out, in) layouts): patch embedding as a stride-p product, CLS token,
-learned positions, blocks of multi-head attention and a GELU MLP, each
-branch with optional LayerScale and per-image stochastic depth, final
-LayerNorm and a linear head on the CLS token. The frozen teacher also
-returns every block's output and the CLS-query attention importance over
-the patch keys, averaged over heads. GELU is the tanh form where the
-configuration computes in bfloat16 and erf where it computes in float32,
-as the BASD package defines them; LayerNorm statistics are float32."""
+learned positions, blocks of multi-head attention and an MLP, each branch
+with optional LayerScale and per-image stochastic depth, final LayerNorm
+and a linear head on the CLS token. The frozen teacher also returns every
+block's output and the CLS-query attention importance over the patch keys,
+averaged over heads. The MLP is the configuration entry's kind
+(``counts.mlp_of``): GELU, fc2(gelu(fc1(h))), or SwiGLU, fc2(silu(a) * g)
+with [a | g] = fc1(h) (DINOv2's ``SwiGLUFFN``, timm's ``GluMlp`` with
+``gate_last=False``). GELU is the tanh form where the configuration
+computes in bfloat16 and erf where it computes in float32, as the BASD
+package defines them; LayerNorm statistics are float32."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from portbench.counts import mlp_of
 from portbench.reference.arith import Arith
 
 
@@ -48,10 +52,23 @@ def attention(ar: Arith, x, wts: dict, pre: str, heads: int,
     return ar.linear(out, wts[pre + "proj.weight"], wts[pre + "proj.bias"]), imp
 
 
+def mlp(ar: Arith, h, wts: dict, pre: str, kind: str, gelu: str):
+    """The MLP of kind 'gelu' or 'swiglu' (its F from fc2's width)."""
+    u = ar.linear(h, wts[pre + "fc1.weight"], wts[pre + "fc1.bias"])
+    if kind == "swiglu":
+        f = wts[pre + "fc2.weight"].shape[1]
+        u = F.silu(u[..., :f]) * u[..., f:]
+    else:
+        u = F.gelu(u, approximate=gelu)
+    return ar.linear(u, wts[pre + "fc2.weight"], wts[pre + "fc2.bias"])
+
+
 def block(ar: Arith, x, wts: dict, i: int, heads: int, eps: float,
-          gelu: str, keep=None, masks=None, importance: bool = False):
+          gelu: str, keep=None, masks=None, importance: bool = False,
+          kind: str = "gelu"):
     """One block; ``keep``: the block's keep probability and ``masks`` its
-    (2, B) draws for the two branches' stochastic depth."""
+    (2, B) draws for the two branches' stochastic depth; ``kind``: the
+    MLP's."""
     pre = f"blocks.{i}."
 
     def branch(y, j):
@@ -66,9 +83,7 @@ def block(ar: Arith, x, wts: dict, i: int, heads: int, eps: float,
     y, imp = attention(ar, h, wts, pre + "attn.", heads, importance)
     x = x + branch(y, 0)
     h = layer_norm(x, wts[pre + "norm2.weight"], wts[pre + "norm2.bias"], eps)
-    h = F.gelu(ar.linear(h, wts[pre + "mlp.fc1.weight"],
-                         wts[pre + "mlp.fc1.bias"]), approximate=gelu)
-    y = ar.linear(h, wts[pre + "mlp.fc2.weight"], wts[pre + "mlp.fc2.bias"])
+    y = mlp(ar, h, wts, pre + "mlp.", kind, gelu)
     return x + branch(y, 1), imp
 
 
@@ -85,10 +100,11 @@ def teacher_forward(ar: Arith, wts: dict, images, m: dict, eps: float,
     """Every block's output (L, B, N, D) with the CLS row, and the CLS
     importance (L, B, N - 1)."""
     x = embed(ar, wts, images)
+    kind = mlp_of(m)[0]
     outs, imps = [], []
     for i in range(m["depth"]):
         x, imp = block(ar, x, wts, i, m["num_heads"], eps, gelu,
-                       importance=True)
+                       importance=True, kind=kind)
         outs.append(x)
         imps.append(imp)
     return torch.stack(outs), torch.stack(imps)
@@ -99,6 +115,7 @@ def student_forward(ar: Arith, wts: dict, images, m: dict, eps: float,
     """(logits, the (P, B, N - 1, D) tokens at ``token_layers``), each block
     recomputed in the backward to hold the memory down."""
     x = embed(ar, wts, images)
+    kind = mlp_of(m)[0]
     tokens = {}
     for i in range(m["depth"]):
         keep, masks = None, None
@@ -107,7 +124,7 @@ def student_forward(ar: Arith, wts: dict, images, m: dict, eps: float,
 
         def run(x_in, i=i, keep=keep, masks=masks):
             return block(ar, x_in, wts, i, m["num_heads"], eps, gelu,
-                         keep, masks)[0]
+                         keep, masks, kind=kind)[0]
 
         x = checkpoint(run, x, use_reentrant=False)
         if i in token_layers:

@@ -1,5 +1,6 @@
 """The frozen arithmetic against hand counts at small shapes."""
 
+import dataclasses
 import json
 
 import pytest
@@ -87,3 +88,73 @@ def test_cells_model_flops(cfg, traffic, tflop):
     s = counts.step_shape(c, t)
     assert counts.total_model_flops(s) / 1e12 == pytest.approx(tflop, abs=0.01)
     assert s.rank_cap == (96 if cfg.startswith("deit") else 320)
+
+
+def test_converged_eigh_rows_by_hand():
+    from portbench.counts import launches_converged_eigh as k8c
+
+    # SMALL, 'gram': the stacked (L + P, D_s) = (4, 4) batch and the
+    # angles' (P L, r) = (4, 4); A read, V and w written: 4 (2 16 + 4) f32,
+    # 4 9 4^3 operations at the f32 peak; bytes bind at this size
+    one = 4 * 4 * (2 * 16 + 4) / counts.HBM_BYTES_S
+    assert one > 4 * 9 * 64 / counts.PEAK_F32
+    assert k8c.rows(SMALL) == {"K8 converged": [(one, 1), (one, 1)]}
+    assert counts.kernel_launches(SMALL)["K8 converged"] == [(one, 1),
+                                                             (one, 1)]
+    # 'jacobi' takes its angles through K8: the stacked batch alone
+    jacobi = dataclasses.replace(SMALL, backend="jacobi")
+    assert k8c.rows(jacobi) == {"K8 converged": [(one, 1)]}
+    # the route stops at n = 512: a wider student's stacked batch and
+    # angles go to torch.linalg.eigh
+    wide = dataclasses.replace(
+        SMALL, student=dataclasses.replace(SMALL.student, dim=576),
+        rank_cap=576)
+    assert k8c.rows(wide) == {}
+    assert k8c.rows(dataclasses.replace(SMALL, backend="svd")) == {}
+
+
+@pytest.mark.parametrize("traffic", ["b256", "b512"])
+def test_converged_eigh_at_the_dinov2_cells(traffic):
+    # (16, 320, 320) and (48, 320, 320), bound by operations: 9 n^3 a
+    # matrix over 67 TFLOP/s, 0.0704 and 0.211 ms
+    with open(BENCH_DIR / "configs" / "dinov2_b14-s320_gram.json") as f:
+        c = json.load(f)
+    with open(BENCH_DIR / "traffic" / f"{traffic}.json") as f:
+        t = json.load(f)
+    rows = counts.kernel_launches(counts.step_shape(c, t))["K8 converged"]
+    assert rows == [(16 * 9 * 320 ** 3 / counts.PEAK_F32, 1),
+                    (48 * 9 * 320 ** 3 / counts.PEAK_F32, 1)]
+    assert rows[0][0] * 1e3 == pytest.approx(0.0704, abs=1e-4)
+    assert rows[1][0] * 1e3 == pytest.approx(0.2113, abs=1e-4)
+
+
+def test_launch_modules_merge_their_rows(monkeypatch):
+    class Module:
+        @staticmethod
+        def rows(shape):
+            return {"K1 fused_block_attn": [(1.0, 2)], "K2g gated": [(2.0, 3)]}
+
+    base = counts.kernel_launches(SMALL)
+    monkeypatch.setattr(counts, "launch_modules", lambda: [Module])
+    table = counts.kernel_launches(SMALL)
+    assert table["K1 fused_block_attn"] == base["K1 fused_block_attn"] + [
+        (1.0, 2)]
+    assert table["K2g gated"] == [(2.0, 3)]
+    assert "K8 converged" not in table
+    # a SwiGLU teacher has no K2 row and a SwiGLU student no K4 rows
+    gated = dataclasses.replace(
+        SMALL, teacher=dataclasses.replace(SMALL.teacher, mlp="swiglu"),
+        student=dataclasses.replace(SMALL.student, mlp="swiglu"))
+    names = set(counts.kernel_launches(gated))
+    assert not names & {"K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd",
+                        "K4b fused_ln_mlp bwd"}
+    assert {"K2 fused_ln_mlp_collect", "K4a fused_ln_mlp fwd",
+            "K4b fused_ln_mlp bwd"} <= set(base)
+
+
+def test_kernel_names_files_skip_comments():
+    from portbench.metrics.kernels_roofline import port_kernel_names
+
+    names = port_kernel_names(BENCH_DIR)
+    assert {"cluster_jacobi_kernel", "gemm_sm90_kernel"} <= names
+    assert not {"The", "the", "K8", "converged", "#"} & names

@@ -12,8 +12,11 @@ import pytest
 from portbench.cells import load_cell
 from portbench.trace import Trace
 
-SPAN_READERS = {"student_fwd_ms": "student_forward", "selector_ms": "selector",
-                "procrustes_ms": "procrustes", "backward_ms": "backward"}
+SPAN_READERS = {"views_ms": "views", "teacher_ms": "teacher",
+                "student_loss_ms": "loss_and_grads", "update_ms": "update",
+                "student_fwd_ms": "student_forward", "selector_ms": "selector",
+                "selector_eigh_ms": "eigh", "procrustes_ms": "procrustes",
+                "backward_ms": "backward"}
 
 
 def reader(name):
@@ -40,9 +43,12 @@ def test_span_readers(metric):
 
 
 def test_eigh_matrices():
+    # every route's matrices, and no other counter
     read = reader("eigh_matrices")
-    ctx = {"steps": 4, "program": program({}, {"eigh.matrices.xla": 256,
-                                               "eigh.matrices.jacobi": 192})}
+    ctx = {"steps": 4, "program": program({}, {
+        "eigh.matrices.converged": 64, "eigh.matrices.jacobi": 192,
+        "eigh.matrices.xla": 0, "eigh.calls.converged": 4,
+        "eigh.calls.jacobi": 4, "grad_reduce.calls": 8})}
     assert read(ctx) == 64
     assert read({"steps": 4, "program": program({}, {})}) == 0
     assert read({"steps": 4}) is None

@@ -12,7 +12,8 @@ from portbench.cells import BENCH_DIR, Cell
 
 
 def tiny_cell(config: str = "dinov2_b14-s320_gram", batch: int = 8,
-              compute: str = "float32", limits=None) -> Cell:
+              compute: str = "float32", limits=None, teacher=None) -> Cell:
+    """``teacher``: entries laid over the tiny teacher's (its MLP kind)."""
     with open(BENCH_DIR / "configs" / f"{config}.json") as f:
         c = json.load(f)
     c = copy.deepcopy(c)
@@ -23,6 +24,7 @@ def tiny_cell(config: str = "dinov2_b14-s320_gram", batch: int = 8,
     p_t = 8 if c["teacher"]["patch_size"] == 14 else 16
     c["teacher"].update(preset="tiny_teacher", custom=True, embed_dim=64,
                         depth=3, num_heads=2, patch_size=p_t)
+    c["teacher"].update(teacher or {})
     c["student"].update(preset="tiny_student", custom=True, embed_dim=32,
                         depth=3, num_heads=2, patch_size=16)
     if c["basd"].get("max_rank"):

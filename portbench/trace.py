@@ -1,11 +1,9 @@
 """Reading a ``torch.profiler`` trace of the card from its raw kineto
 events: the union of device intervals (busy time), device time by kernel
-name, device time of the kernels launched inside a given operator, and
-the longest idle gaps named by what the host was doing."""
+name, and the longest idle gaps named by what the host was doing."""
 
 from __future__ import annotations
 
-import bisect
 from dataclasses import dataclass, field
 
 # the tracer's own buffer activity, which the profiler lists as device time
@@ -77,20 +75,6 @@ class Trace:
         for s, e, name, _ in self.device:
             out[name] = out.get(name, 0) + (e - s)
         return out
-
-    def under_op(self, op_name: str) -> int:
-        """Device ns of the activity launched by ``op_name`` or by an
-        operator inside it (by the host interval of the launching op)."""
-        spans = [(s, e) for s, e, n, _ in self.ops if n == op_name]
-        if not spans:
-            return 0
-        starts = [s for s, _ in spans]
-        inside = set()
-        for s, _, _, corr in self.ops:
-            i = bisect.bisect_right(starts, s) - 1
-            if i >= 0 and s < spans[i][1]:
-                inside.add(corr)
-        return sum(e - s for s, e, _, corr in self.device if corr in inside)
 
     def host_at(self, t: int) -> str:
         """What the host was doing at ``t``: the innermost stage annotation
