@@ -10,6 +10,11 @@
 // (L*B*N, D) collection stack, in place. Its _f32 entry runs the same chain
 // on f32 tensors (the reference's f32 Pallas kernel: tanh-GELU, no
 // rounding) through the CUDA-core f32 GEMM.
+// K2g is K2 for a SwiGLU MLP (DINOv2's SwiGLUFFN, timm's SwiGLUPacked),
+// which no TPU kernel has:  out = x + mask * fc2(silu(a) * g), [a | g] =
+// fc1(LN2(x)), written into the stack as K2's is. Its three launches run
+// K2's kernels under names of their own (swiglu_mlp_ln_kernel,
+// swiglu_mlp_gemm_kernel).
 // K3a replaces fused_block_attn.py:_fwd_train (_fwd_train_kernel): K1's
 // launches with a per-image DropPath multiplier in the proj epilogue and
 // the per-(image, head, query) logsumexp in f32 in place of the CLS
@@ -84,6 +89,17 @@ static int proj_product(const bf16* attn, const bf16* w_proj,
   return launch_gemm_nk<EPI_BIAS_RESIDUAL>(attn, w_proj, b_proj,
                                            static_cast<bf16*>(out), B * N, D,
                                            Dh, x, mask, N, nullptr, st);
+}
+
+// K2g's LayerNorm: launch_layernorm's rows under swiglu_mlp_ln_kernel.
+static int launch_swiglu_layernorm(const bf16* x, const float* s,
+                                   const float* b, bf16* out, int rows, int d,
+                                   float eps, cudaStream_t st) {
+  const int group = ln_group<bf16>(d, x, out, s, b, LN_CHUNKS);
+  swiglu_mlp_ln_kernel<bf16><<<ln_blocks(rows, group), LN_THREADS, 0, st>>>(
+      x, s, b, out, rows, d, eps, group);
+  BASD_CHECK_LAUNCH();
+  return 0;
 }
 
 // K2 and K4a: LayerNorm, fc1 + bias + GELU, fc2 + bias + mask + residual
@@ -202,6 +218,67 @@ extern "C" int basd_block_mlp_collect_fwd_f32(
   return basd::mlp_collect_fwd<float>(x, mask, ln_s, ln_b, w1, b1, w2, b2,
                                       out, buf_rows, ws_xn, ws_h, B, N, D, F,
                                       partial, eps, stream);
+}
+
+// K2g. x, out: (B, N, D) bf16; mask (B,) f32; w1 (2F, D) bf16, fc1's rows
+// [a | g] interleaved in groups of 64 (kernels/block_mlp.py:
+// swiglu_interleave), b1 (2F) f32 likewise; w2 (D, F) bf16, b2 (D) f32
+// (LayerScale folded in); buf_rows: the (B*N, D) slab of the collection
+// stack that receives `out` as well, or null. Workspaces: ws_xn (B*N, D),
+// ws_h (B*N, F) bf16. LN as K2's, then fc1 with EPI_BIAS_SWIGLU into ws_h
+// (one 128-wide tile pairs 64 units' a and g), then fc2 with
+// EPI_BIAS_RESIDUAL as K2's. Every product on the sm90 GEMM: F a multiple
+// of 64 and D of 8, every pointer 16-byte aligned, or cudaErrorInvalidValue
+// before any launch.
+extern "C" int basd_block_swiglu_fwd(const void* x, const float* mask,
+                                     const float* ln_s, const float* ln_b,
+                                     const void* w1, const float* b1,
+                                     const void* w2, const float* b2,
+                                     void* out, void* buf_rows, void* ws_xn,
+                                     void* ws_h, int B, int N, int D, int F,
+                                     float eps, void* stream) {
+  using namespace basd;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F <= 0 || F % 64 != 0 ||
+      !sm90_ok({D, F}, {x, mask, ln_s, ln_b, w1, b1, w2, b2, out, buf_rows,
+                        ws_xn, ws_h}))
+    return (int)cudaErrorInvalidValue;
+  const int M = B * N;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* xn = static_cast<bf16*>(ws_xn);
+  bf16* hid = static_cast<bf16*>(ws_h);
+  int rc = launch_swiglu_layernorm(xb, ln_s, ln_b, xn, M, D, eps, st);
+  if (rc) return rc;
+  Gemm g1{};
+  g1.A = xn;
+  g1.lda = D;
+  g1.B = static_cast<const bf16*>(w1);
+  g1.ldb = D;
+  g1.M = M;
+  g1.N = 2 * F;
+  g1.K = D;
+  g1.bias = b1;
+  g1.out = hid;
+  g1.rows_per_mask = 1;
+  rc = sm90::launch<EPI_BIAS_SWIGLU, 128, false, false, true>(g1, D, st);
+  if (rc) return rc;
+  Gemm g2{};
+  g2.A = hid;
+  g2.lda = F;
+  g2.B = static_cast<const bf16*>(w2);
+  g2.ldb = F;
+  g2.M = M;
+  g2.N = D;
+  g2.K = F;
+  g2.bias = b2;
+  g2.out = static_cast<bf16*>(out);
+  g2.out2 = static_cast<bf16*>(buf_rows);
+  g2.aux = xb;
+  g2.mask = mask;
+  g2.rows_per_mask = N;
+  if (sm90_tile_n(D) == 128)
+    return sm90::launch<EPI_BIAS_RESIDUAL, 128, false, false, true>(g2, F, st);
+  return sm90::launch<EPI_BIAS_RESIDUAL, 64, false, false, true>(g2, F, st);
 }
 
 // One forward product out (M, N) bf16 = bf16(A (M, K) . W (N, K)^T + bias)

@@ -47,6 +47,7 @@ enum Epilogue {  // T: the GEMM's element type (bf16, or f32 for K11's f32 path)
   EPI_F32 = 5,            // outf = acc
   EPI_PARTIAL = 6,        // outf[split] = acc over this split's K range
   EPI_ROUND = 7,          // out = T(acc)
+  EPI_BIAS_SWIGLU = 8,    // out = T(silu(T(acc_a + b_a)) * T(acc_g + b_g))
 };
 
 // out[M, N] = epilogue(A . B) over the K range of blockIdx.z; operands,
@@ -102,11 +103,60 @@ __device__ __forceinline__ void bias_epilogue(float acc, float bias, float aux,
   }
 }
 
+__device__ __forceinline__ float silu(float a) { return a / (1.f + expf(-a)); }
+
+// K2g's fc1 epilogue (EPI_BIAS_SWIGLU, the sm90 GEMM at TN = 128 alone).
+// The product's N = 2 F columns come interleaved in groups of 64
+// (kernels/block_mlp.py:swiglu_interleave), so the tile at n0 holds the
+// gate input a of hidden units f0..f0+63 in its first 64 columns and their
+// g in its last 64, f0 = n0 / 2, and out is (M, F). Rounding as
+// EPI_BIAS_GELU's: a = T(acc_a + bias_a) and g = T(acc_g + bias_g), then
+// silu(a) * g in f32, rounded once. 16-byte accesses only: K2g's entry
+// (block.cu) admits no operands that forbid them.
+template <typename T, int TM, int TN, int LD>
+__device__ void swiglu_epilogue(const GemmT<T>& g, const float* c, int m0,
+                                int n0) {
+  static_assert(TN == 128, "a SwiGLU tile pairs 64 a with 64 g columns");
+  constexpr int W = epi_width<T>();
+  constexpr int H = TN / 2;
+  const int f = g.N / 2;
+  for (int i = threadIdx.x; i < TM * (H / W); i += blockDim.x) {
+    const int r = i / (H / W);
+    const int cc = (i % (H / W)) * W;
+    const int gr = m0 + r;
+    if (gr >= g.M || n0 + cc >= g.N) continue;
+    float acc_a[W], acc_g[W], bias_a[W], bias_g[W];
+#pragma unroll
+    for (int j = 0; j < W; j += 4) {
+      *reinterpret_cast<float4*>(acc_a + j) =
+          *reinterpret_cast<const float4*>(c + r * LD + cc + j);
+      *reinterpret_cast<float4*>(acc_g + j) =
+          *reinterpret_cast<const float4*>(c + r * LD + H + cc + j);
+      *reinterpret_cast<float4*>(bias_a + j) =
+          *reinterpret_cast<const float4*>(g.bias + n0 + cc + j);
+      *reinterpret_cast<float4*>(bias_g + j) =
+          *reinterpret_cast<const float4*>(g.bias + n0 + H + cc + j);
+    }
+    Vec16<T> out;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float a = round_t<T>(acc_a[j] + bias_a[j]);
+      const float gate = round_t<T>(acc_g[j] + bias_g[j]);
+      out.v[j] = from_f<T>(silu(a) * gate);
+    }
+    *reinterpret_cast<Vec16<T>*>(g.out + (size_t)gr * f + n0 / 2 + cc) = out;
+  }
+}
+
 // The epilogue of one TM x TN tile at (m0, n0) whose f32 sums sit in
 // shared memory at c (row stride LD): the WMMA and f32 tiles' BM x BN and
 // the sm90 GEMM's 128 x TN. Must be called by every thread of the block.
 template <int EPI, typename T, int TM = BM, int TN = BN, int LD = C_LD>
 __device__ void gemm_epilogue(const GemmT<T>& g, float* c, int m0, int n0) {
+  if constexpr (EPI == EPI_BIAS_SWIGLU) {
+    swiglu_epilogue<T, TM, TN, LD>(g, c, m0, n0);
+    return;
+  }
   if constexpr (EPI == EPI_DGELU) {
     // d = acc * gelu'(pre) in place in the tile, then each of the first TN
     // threads sums its column over the tile's TM rows in order: one

@@ -11,7 +11,9 @@
 // and the recomputed forwards inside K3b, K4b and K11b: both K-major) and
 // every launch_gemm_bwd call (the backward products of K3b, K4b and K11b:
 // input gradients, the GELU-gradient and rounded products with an
-// MN-major B, and the split-K weight gradients with both MN-major).
+// MN-major B, and the split-K weight gradients with both MN-major), and
+// K2g's two products (block.cu), which run the same body under a kernel
+// name of their own, swiglu_mlp_gemm_kernel.
 //
 // What bounds it on the H100: at the teacher's MLP (M = 25216 rows, D =
 // 384, F = 1536) each forward product is 29.7 GFLOP, 30 us at the 989
@@ -123,11 +125,12 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const CUtensorMap* ma
   }
 }
 
+// The kernels' body: the tensor maps are the kernel's __grid_constant__
+// parameters, which TMA reads in place.
 template <int EPI, int TN, bool A_MN, bool B_MN>
-__global__ void __launch_bounds__(THREADS, 2)
-    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b,
-                     const GemmT<bf16> g) {
+__device__ __forceinline__ void gemm_sm90_body(const CUtensorMap& map_a,
+                                               const CUtensorMap& map_b,
+                                               const GemmT<bf16>& g) {
   using C = Cfg<TN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -208,14 +211,42 @@ __global__ void __launch_bounds__(THREADS, 2)
   gemm_epilogue<EPI, bf16, TM, TN, C::LD>(g, c, m0, n0);
 }
 
-// One product on the sm90 GEMM; k_chunk (a multiple of TK, or K) is the
-// contraction of one blockIdx.z.
 template <int EPI, int TN, bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(THREADS, 2)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const GemmT<bf16> g) {
+  gemm_sm90_body<EPI, TN, A_MN, B_MN>(map_a, map_b, g);
+}
+
+// The same GEMM under a name of its own: K2g's two products (block.cu), so
+// that a device trace tells the SwiGLU MLP half's time apart.
+template <int EPI, int TN>
+__global__ void __launch_bounds__(THREADS, 2)
+    swiglu_mlp_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           const GemmT<bf16> g) {
+  gemm_sm90_body<EPI, TN, false, false>(map_a, map_b, g);
+}
+
+template <int EPI, int TN, bool A_MN, bool B_MN, bool SWIGLU>
+constexpr auto sm90_kernel() {
+  if constexpr (SWIGLU) {
+    static_assert(!A_MN && !B_MN, "K2g's products are forward products");
+    return &swiglu_mlp_gemm_kernel<EPI, TN>;
+  } else {
+    return &gemm_sm90_kernel<EPI, TN, A_MN, B_MN>;
+  }
+}
+
+// One product on the sm90 GEMM; k_chunk (a multiple of TK, or K) is the
+// contraction of one blockIdx.z. SWIGLU: under swiglu_mlp_gemm_kernel.
+template <int EPI, int TN, bool A_MN, bool B_MN, bool SWIGLU = false>
 static int launch(GemmT<bf16> g, int k_chunk, cudaStream_t st) {
   using C = Cfg<TN>;
+  constexpr auto kernel = sm90_kernel<EPI, TN, A_MN, B_MN, SWIGLU>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_sm90_kernel<EPI, TN, A_MN, B_MN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   if (k_chunk <= 0 || (k_chunk < g.K && k_chunk % TK != 0))
     return (int)cudaErrorInvalidValue;
@@ -230,8 +261,7 @@ static int launch(GemmT<bf16> g, int k_chunk, cudaStream_t st) {
   g.epi_vec = epi_vec_ok(g);
   const dim3 grid((g.N + TN - 1) / TN, (g.M + TM - 1) / TM,
                   (g.K + k_chunk - 1) / k_chunk);
-  gemm_sm90_kernel<EPI, TN, A_MN, B_MN>
-      <<<grid, THREADS, C::SMEM, st>>>(map_a, map_b, g);
+  kernel<<<grid, THREADS, C::SMEM, st>>>(map_a, map_b, g);
   BASD_CHECK_LAUNCH();
   return 0;
 }

@@ -1,6 +1,7 @@
 // The row LayerNorm forward on Hopper: K5a (csrc/layernorm.cu) and the
 // LayerNorm inside K1, K2, K3a, K4a and the recomputes of K3b and K4b
-// (block_kernels.cuh's callers), one kernel for all of them.
+// (block_kernels.cuh's callers), one kernel for all of them; K2g runs the
+// same body under a kernel name of its own.
 //
 // K5a replaces basd_tpu/ops/pallas/layernorm.py:_fwd (_fwd_kernel): f32
 // two-pass statistics of each row (sum, mean, sum of centred squares,
@@ -49,14 +50,14 @@ __device__ __forceinline__ float group_sum(float v, int g, unsigned mask) {
   return v;
 }
 
-// group: lanes a row (a power of two up to 32), or 0 for the scalar loop
-// with a warp a row.
+// The kernels' body. group: lanes a row (a power of two up to 32), or 0
+// for the scalar loop with a warp a row.
 template <typename T>
-static __global__ void __launch_bounds__(LN_THREADS)
-    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     const float* __restrict__ bias, T* __restrict__ out,
-                     float* __restrict__ mu_out, float* __restrict__ rstd_out,
-                     int rows, int d, float eps, int group) {
+__device__ __forceinline__ void layernorm_rows(
+    const T* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, T* __restrict__ out,
+    float* __restrict__ mu_out, float* __restrict__ rstd_out, int rows, int d,
+    float eps, int group) {
   const int g = group ? group : 32;
   const int lane = threadIdx.x % 32;
   const int lg = lane % g;
@@ -139,6 +140,26 @@ static __global__ void __launch_bounds__(LN_THREADS)
   }
 }
 
+template <typename T>
+static __global__ void __launch_bounds__(LN_THREADS)
+    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, T* __restrict__ out,
+                     float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                     int rows, int d, float eps, int group) {
+  layernorm_rows(x, scale, bias, out, mu_out, rstd_out, rows, d, eps, group);
+}
+
+// The same LayerNorm under a name of its own: K2g's (block.cu), so that a
+// device trace tells the SwiGLU MLP half's time apart.
+template <typename T>
+static __global__ void __launch_bounds__(LN_THREADS)
+    swiglu_mlp_ln_kernel(const T* __restrict__ x,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, T* __restrict__ out,
+                         int rows, int d, float eps, int group) {
+  layernorm_rows(x, scale, bias, out, nullptr, nullptr, rows, d, eps, group);
+}
+
 // The kernel's lanes a row: the least power of two leaving each lane at
 // most `chunks` 16-byte chunks of the row (32 lanes, up to LN_NV chunks
 // each, for wider rows), or 0 (the scalar loop) when the row is not a
@@ -157,6 +178,12 @@ inline int ln_group(int d, const void* x, const void* out, const float* scale,
   return (cw + 31) / 32 <= LN_NV ? 32 : 0;
 }
 
+// Blocks of LN_THREADS for `rows` rows of `group` lanes (0: a warp).
+inline int ln_blocks(int rows, int group) {
+  const int lanes = group ? group : 32;
+  return (int)(((size_t)rows * lanes + LN_THREADS - 1) / LN_THREADS);
+}
+
 // chunks: the chunks a lane aims for (ln_group), LN_CHUNKS unless a sweep
 // sets it (1..LN_NV).
 template <typename T>
@@ -166,11 +193,8 @@ static int launch_layernorm(const T* x, const float* s, const float* b,
                             int chunks = LN_CHUNKS) {
   if (chunks < 1 || chunks > LN_NV) return (int)cudaErrorInvalidValue;
   const int group = ln_group<T>(d, x, out, s, b, chunks);
-  const int lanes = group ? group : 32;
-  const int blocks =
-      (int)(((size_t)rows * lanes + LN_THREADS - 1) / LN_THREADS);
-  layernorm_kernel<T><<<blocks, LN_THREADS, 0, st>>>(x, s, b, out, mu, rstd,
-                                                     rows, d, eps, group);
+  layernorm_kernel<T><<<ln_blocks(rows, group), LN_THREADS, 0, st>>>(
+      x, s, b, out, mu, rstd, rows, d, eps, group);
   BASD_CHECK_LAUNCH();
   return 0;
 }

@@ -4,7 +4,8 @@ Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor; it counts its launches in a plain integer
 attribute ``launches``. ``KERNELS`` lists them with the TPU kernel each one
 replaces (K8 converged: the family it belongs to; it takes the eigh the
-reference leaves to XLA) and its source. The six wrappers of the attention cores
+reference leaves to XLA; K2g, the SwiGLU teacher's MLP half: K2's) and its
+source. The six wrappers of the attention cores
 (``ATTENTION_CORE``: the forward of K1, K3a, K10a and K10c, the backward of
 K3b and K10b) also count each of its two variants, ``tc_launches`` (tensor
 cores) and ``simt_launches`` (CUDA cores). The wrappers of K2 and K4a
@@ -36,6 +37,7 @@ from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_collect_partial,
     fused_ln_mlp_fwd,
     fused_ln_mlp_fwd_partial,
+    fused_ln_swiglu_collect,
 )
 from basd_tpu_torch.kernels.converged_eigh import converged_eigh
 from basd_tpu_torch.kernels.flash_attention import (
@@ -123,6 +125,10 @@ KERNELS = (
      _PALLAS + "fused_mlp.py:165", fused_mlp_fwd_partial),
     ("K11b fused_mlp bwd: partial", "cuda", _CSRC + "fused_mlp.cu",
      _PALLAS + "fused_mlp.py:192", fused_mlp_bwd_partial),
+    # K2 for a SwiGLU MLP (a DINOv2 ViT-g/14 teacher's), which no TPU kernel
+    # has: the family it belongs to
+    ("K2g fused_ln_swiglu_collect", "cuda", _CSRC + "block.cu",
+     _PALLAS + "fused_block_mlp.py:345", fused_ln_swiglu_collect),
 )
 TP_KERNELS = tuple(k[0] for k in KERNELS if k[0].endswith(": partial"))
 

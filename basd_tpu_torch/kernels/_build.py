@@ -38,6 +38,7 @@ _SIGNATURES = {
     "basd_block_mlp_collect_fwd": (
         [_P] * 12 + [_I] * 5 + [_F, _P]
     ),
+    "basd_block_swiglu_fwd": [_P] * 12 + [_I] * 4 + [_F, _P],
     "basd_block_attn_train_fwd": (
         [_P] * 12 + [_I] * 6 + [_F, _F, _P]
     ),

@@ -36,6 +36,20 @@ LN VJP of the rank's own dxn without do, and its LN-parameter sums.
 block once (``block_attn.residual_add``); the teacher's caller writes the
 finished output into the collection stack itself.
 
+K2g is K2 for a SwiGLU MLP (DINOv2's ``SwiGLUFFN``, timm's
+``SwiGLUPacked``), forward only, which no TPU kernel has::
+
+    out = x + mask * fc2(silu(a) * g),   [a | g] = fc1(LN2(x))
+
+with fc1 (2F, D) packed [a | g] and the same optional write into the
+stack (``fused_ln_swiglu_collect``, ``csrc/block.cu:basd_block_swiglu_fwd``,
+bf16 CUDA tensors only). The wrapper interleaves fc1's rows and bias in
+groups of 64 (``swiglu_interleave``) so that one 128-wide tile of the fc1
+product holds 64 units' a and g, paired in its epilogue. Rounding as K2's:
+LN output; a and g each rounded after their bias, silu(a) * g in f32,
+rounded once; fc2 output rounded; mask and residual in f32, rounded once
+(``swiglu_mlp_plain``).
+
 At bf16 the two forward products of K2 and K4a (and of every other
 ``launch_gemm_nk`` caller) take ``csrc/gemm_sm90.cuh``'s wgmma GEMM when
 ``gemm.gemm_nk_variant`` says so, and K4b's four backward products (dW2,
@@ -48,6 +62,7 @@ holding the GEMMs against each other and timing them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from basd_tpu_torch.kernels import _build
 from basd_tpu_torch.kernels.block_attn import (
@@ -139,6 +154,83 @@ def block_mlp_plain_bwd(x, mask, dout, ln_scale, ln_bias, w1, b1, w2,
     dx = dxln if partial else (dof + dxln).to(dt)
     return (dx, dw1, dpre.sum(sum_bn), dw2, dy.sum(sum_bn),
             (dxn * xhat).sum(sum_bn), dxn.sum(sum_bn))
+
+
+def swiglu_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                     eps: float = 1e-6):
+    """K2g's function in plain PyTorch: w1 (2F, D) packed [a | g] as timm
+    and DINOv2 store it, rounded where the kernel rounds."""
+    xnb = layernorm_plain_fwd(x, ln_scale, ln_bias, eps)[0]
+    f = w2.shape[1]
+    u = (_mm(xnb, w1) + b1).to(x.dtype).float()
+    h = (F.silu(u[..., :f]) * u[..., f:]).to(x.dtype)
+    y = (_mm(h, w2) + b2).to(x.dtype).float()
+    m = mask.float().reshape(-1, 1, 1)
+    return (x.float() + y * m).to(x.dtype)
+
+
+# hidden units a group of K2g's interleaved fc1: half of its 128-wide tile
+SWIGLU_GROUP = 64
+
+
+def swiglu_interleave(t: torch.Tensor) -> torch.Tensor:
+    """fc1's rows (or bias) packed [a | g] -> K2g's order: 64 units' a,
+    their g, the next 64 units' a, ..."""
+    f = t.shape[0] // 2
+    grouped = t.reshape(2, f // SWIGLU_GROUP, SWIGLU_GROUP, *t.shape[1:])
+    return grouped.transpose(0, 1).reshape(t.shape).contiguous()
+
+
+def fused_ln_swiglu_collect(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                            buf=None, idx: int = 0, eps: float = 1e-6):
+    """K2g: ``x + mask * fc2(silu(a) * g)``, [a | g] = fc1(LN(x)), (B, N, D)
+    in x's dtype; with ``buf`` (L*B*N, D) it also writes ``out`` into rows
+    ``[idx*B*N, (idx+1)*B*N)`` in place.
+
+    x: bf16 on CUDA (any float dtype on the CPU, the plain version); mask:
+    (B,) f32; w1 (2F, D) packed [a | g] and w2 (D, F) in x's dtype, F a
+    multiple of 64; LN affine and biases f32."""
+    b, n, d = x.shape
+    m_rows = b * n
+    if buf is not None:
+        if buf.dim() != 2 or buf.shape[1] != d or buf.dtype != x.dtype:
+            raise ValueError(
+                f"collect buffer {tuple(buf.shape)}/{buf.dtype} does not "
+                f"match block output {tuple(x.shape)}/{x.dtype}")
+        if idx < 0 or (idx + 1) * m_rows > buf.shape[0]:
+            raise ValueError(f"layer {idx} outside a {buf.shape[0]}-row stack")
+    if x.device.type == "cpu":
+        out = swiglu_mlp_plain(x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        if buf is not None:
+            buf[idx * m_rows:(idx + 1) * m_rows] = out.reshape(m_rows, d)
+        return out
+    f = w2.shape[1]
+    if x.dtype != torch.bfloat16 or f % SWIGLU_GROUP:
+        raise ValueError(f"fused_ln_swiglu_collect: bf16 with F % "
+                         f"{SWIGLU_GROUP} == 0, got {x.dtype}, F={f}")
+    extra = [("w1", w1, x.dtype, (2 * f, d)),
+             ("b1", b1, torch.float32, (2 * f,))]
+    if buf is not None:
+        extra.append(("buf", buf, x.dtype, tuple(buf.shape)))
+    _check_mlp("fused_ln_swiglu_collect", x, mask, ln_scale, ln_bias,
+               w1[:f], b1[:f], w2, b2, *extra)
+    out = torch.empty_like(x)
+    ws_xn = torch.empty((m_rows, d), dtype=x.dtype, device=x.device)
+    ws_h = torch.empty((m_rows, f), dtype=x.dtype, device=x.device)
+    buf_rows = (0 if buf is None else
+                buf.data_ptr() + idx * m_rows * d * buf.element_size())
+    _build.call(
+        "basd_block_swiglu_fwd", x.data_ptr(), mask.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(),
+        swiglu_interleave(w1).data_ptr(), swiglu_interleave(b1).data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), buf_rows,
+        ws_xn.data_ptr(), ws_h.data_ptr(), b, n, d, f, float(eps),
+        _build.stream_ptr(x.device))
+    fused_ln_swiglu_collect.launches += 1
+    return out
+
+
+fused_ln_swiglu_collect.launches = 0
 
 
 def _check_mlp(name, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, *extra):

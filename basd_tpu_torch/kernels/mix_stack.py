@@ -18,14 +18,23 @@ atomics).
 
 ``mix_stack`` is a ``torch.autograd.Function``; ``t`` is always the
 stop-gradient teacher stack, so its cotangent is ``None``. The dispatch
-keeps the JAX package's shape gate (``M % 8 == 0 and L * D <= 32768``):
-shapes outside it take the plain einsum, as the JAX package sends them to
-XLA. The plain versions are taken for CPU tensors.
+(``kernel_eligible``) sends a CUDA stack of ``M % 8 == 0`` to the kernels
+whatever L and D: the JAX package's further ``L * D <= 32768`` is the TPU
+kernel's VMEM, and these programs stream the L layers one at a time
+through registers (a (P, 1024) f32 accumulator), so a DINOv2 ViT-g/14
+stack (L * D = 61,440) takes them too. Each program steps a pointer from
+layer to layer: the flat offset l * M * D passes 2^31 in that stack (4.0e9
+elements at B=256), which a 32-bit index product would wrap. Other stacks
+take the plain einsum, which upcasts the whole stack to f32; CPU tensors
+always do. With the program tracer on, each forward counts its route in
+``mix.calls.kernel`` or ``mix.calls.plain``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from basd_tpu_torch.utils import trace
 
 _BLOCK = 1024  # stack elements per program along the flat (M*D) axis
 _REDUCE_BLOCK = 1024
@@ -50,10 +59,12 @@ def _kernels() -> dict:
         prow = tl.arange(0, P_PAD)
         pmask = prow < num_p
         acc = tl.zeros((P_PAD, BLOCK), dtype=tl.float32)
+        t_l = t_ptr + offs  # layer l's elements: a pointer stepped by n
         for l in tl.static_range(L):
-            tl_l = tl.load(t_ptr + l * n + offs, mask=valid, other=0.0)
+            tl_l = tl.load(t_l, mask=valid, other=0.0)
             w_l = tl.load(w_ptr + prow * L + l, mask=pmask, other=0.0)
             acc += w_l[:, None] * tl_l.to(tl.float32)[None, :]
+            t_l += n
         out_ptrs = o_ptr + prow[:, None] * n + offs[None, :]
         tl.store(out_ptrs, acc.to(o_ptr.dtype.element_ty),
                  mask=pmask[:, None] & valid[None, :])
@@ -70,11 +81,13 @@ def _kernels() -> dict:
         g = tl.load(g_ptr + prow[:, None] * n + offs[None, :],
                     mask=pmask[:, None] & valid[None, :], other=0.0)
         g = g.to(tl.float32)
+        t_l = t_ptr + offs
         for l in tl.static_range(L):
-            tl_l = tl.load(t_ptr + l * n + offs, mask=valid, other=0.0)
+            tl_l = tl.load(t_l, mask=valid, other=0.0)
             part = tl.sum(g * tl_l.to(tl.float32)[None, :], axis=1)
             tl.store(part_ptr + pid * num_p * L + prow * L + l, part,
                      mask=pmask)
+            t_l += n
 
     @triton.jit
     def mix_dw_reduce_kernel(part_ptr, dw_ptr, num_tiles, num_pl,
@@ -165,17 +178,20 @@ mix_stack_fwd.launches = 0
 mix_stack_dw.launches = 0
 
 
-def kernel_eligible(t: torch.Tensor) -> bool:
-    """The JAX package's shape gate for its mix kernels
-    (``mix_stack.py:101-109``)."""
-    return t.dim() == 3 and t.shape[1] % 8 == 0 and t.shape[0] * t.shape[2] <= 32768
+def kernel_eligible(shape, cuda: bool) -> bool:
+    """Whether an (L, M, D) stack of ``shape`` takes K6: on CUDA with
+    ``M % 8 == 0`` (the JAX package's gate, ``mix_stack.py:101-109``,
+    without its TPU-only ``L * D <= 32768``)."""
+    return cuda and len(shape) == 3 and shape[1] % 8 == 0
 
 
 class MixStack(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, t):
         ctx.save_for_backward(w, t)
-        if kernel_eligible(t):
+        kernel = kernel_eligible(t.shape, t.is_cuda)
+        trace.count("mix.calls.kernel" if kernel else "mix.calls.plain")
+        if kernel:
             return mix_stack_fwd(w, t)
         return mix_fwd_plain(w, t)
 
@@ -183,7 +199,8 @@ class MixStack(torch.autograd.Function):
     def backward(ctx, g):
         w, t = ctx.saved_tensors
         g = g.contiguous()
-        if kernel_eligible(t) and g.shape == (w.shape[0],) + tuple(t.shape[1:]):
+        if (kernel_eligible(t.shape, t.is_cuda)
+                and g.shape == (w.shape[0],) + tuple(t.shape[1:])):
             dw = mix_stack_dw(g, t)
         else:
             dw = mix_dw_plain(g, t)

@@ -14,8 +14,13 @@ bf16 block on CUDA takes, for its attention half, K1
 (``fused_block_attn_train``) when it is the student's
 (``importance_mode=None``); with ``mlp_impl='auto'`` it takes, for its MLP
 half, K2 (``kernels.block_mlp.fused_ln_mlp_collect``) when a collection
-buffer is given and K4 (``fused_ln_mlp``) otherwise. Off CUDA, ``auto``
-takes the module chain, as the JAX package does off the TPU. An explicit
+buffer is given and K4 (``fused_ln_mlp``) otherwise; a SwiGLU MLP
+(``Mlp(kind='swiglu')``, a DINOv2 ViT-g/14 teacher's) takes K2g
+(``fused_ln_swiglu_collect``, forward only) with or without the buffer, and
+the module chain under autograd. With the program tracer on, the MLP half
+of a block that writes the collection stack is the span ``teacher_mlp``.
+Off CUDA, ``auto`` takes the module chain, as the JAX package does off the
+TPU. An explicit
 ``fused_block`` / ``fused_block_train`` / ``fused_ln`` forces the kernel
 path (on a CPU tensor, its plain version); ``module`` forces the module
 chain, whose LayerNorms keep their own ``auto`` (K5 on CUDA). An explicit
@@ -78,6 +83,7 @@ from basd_tpu_torch.kernels.block_mlp import (
     fused_ln_mlp_collect,
     fused_ln_mlp_collect_tp,
     fused_ln_mlp_tp,
+    fused_ln_swiglu_collect,
 )
 from basd_tpu_torch.kernels.flash_attention import (
     flash_attention_qkv,
@@ -85,6 +91,7 @@ from basd_tpu_torch.kernels.flash_attention import (
 )
 from basd_tpu_torch.kernels.fused_mlp import fused_mlp, fused_mlp_partial
 from basd_tpu_torch.kernels.layernorm import fused_layernorm
+from basd_tpu_torch.utils import trace
 
 
 _UNKEPT = threading.local()
@@ -126,14 +133,19 @@ def attention_auto_impl(is_cuda: bool) -> str:
 
 
 def block_mlp_path(impl: str, is_cuda: bool, dtype: torch.dtype,
-                   ndim: int) -> str:
+                   ndim: int, kind: str = "gelu") -> str:
     """``Block``'s MLP dispatch (``layers.py:503-517``): 'fused_ln' (K2 /
-    K4) or the module chain. ``auto`` takes K2 / K4 for a bf16 3-D block
-    on CUDA; an explicit ``fused_ln`` takes them at bf16 and f32 (their
-    ``_f32`` entries, tanh-GELU as the reference's f32 ``fused_ln``) on
-    either device."""
-    if impl == "auto" and is_cuda and ndim == 3 and dtype == torch.bfloat16:
+    K4, or K2g for a SwiGLU MLP) or the module chain. ``auto`` takes the
+    kernels for a bf16 3-D block on CUDA; an explicit ``fused_ln`` takes
+    K2 / K4 at bf16 and f32 (their ``_f32`` entries, tanh-GELU as the
+    reference's f32 ``fused_ln``) on either device, and K2g, which is bf16
+    only, at bf16 (its plain version on the CPU); a SwiGLU MLP at any other
+    dtype or rank takes the module chain."""
+    bf16_3d = ndim == 3 and dtype == torch.bfloat16
+    if impl == "auto" and is_cuda and bf16_3d:
         impl = "fused_ln"
+    if kind == "swiglu" and impl == "fused_ln" and not bf16_3d:
+        impl = "auto"
     return impl
 
 
@@ -188,20 +200,38 @@ class LayerScale(nn.Module):
 
 
 class Mlp(nn.Module):
+    """``kind`` 'gelu': fc2(gelu(fc1(x))); 'swiglu' (DINOv2's
+    ``SwiGLUFFN``, timm's ``SwiGLUPacked``): fc1 (2 hidden, dim) packed
+    [a | g], fc2(silu(a) * g), always on the Linear chain (K11 is GELU's)."""
+
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32, mlp_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, mlp_impl: str = "auto",
+                 kind: str = "gelu"):
         super().__init__()
-        self.fc1 = Linear(dim, hidden_dim, dtype)
+        if kind not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown MLP kind {kind!r}")
+        self.kind = kind
+        self.fc1 = Linear(dim, hidden_dim * (2 if kind == "swiglu" else 1),
+                          dtype)
         self.fc2 = Linear(hidden_dim, dim, dtype)
         self.compute_dtype = dtype
         self.mlp_impl = mlp_impl
 
     def _impl(self, x, impl):
         impl = impl or self.mlp_impl
+        if self.kind == "swiglu":
+            return "dense"
         if impl == "auto":
             impl = ("fused" if x.is_cuda and self.compute_dtype == torch.bfloat16
                     and x.dim() == 3 else "dense")
         return impl
+
+    def _act(self, u):
+        if self.kind == "swiglu":
+            a, g = u.chunk(2, dim=-1)
+            return F.silu(a) * g
+        approx = "tanh" if self.compute_dtype == torch.bfloat16 else "none"
+        return F.gelu(u, approximate=approx)
 
     def share(self, x32, tp, impl: Optional[str] = None):
         """A tensor-parallel rank's share: the f32 sums of fc2 over its
@@ -215,8 +245,7 @@ class Mlp(nn.Module):
                 return fused_mlp_partial(x32, self.fc1.weight.to(dt),
                                          self.fc1.bias, self.fc2.weight.to(dt),
                                          dt)
-        approx = "tanh" if dt == torch.bfloat16 else "none"
-        h = F.gelu(self.fc1(x32), approximate=approx)
+        h = self._act(self.fc1(x32))
         with unkept_products():
             return torch.matmul(h.float(), self.fc2.weight.float().t())
 
@@ -229,8 +258,7 @@ class Mlp(nn.Module):
                 return fused_mlp(x.to(dt), self.fc1.weight.to(dt),
                                  self.fc1.bias, self.fc2.weight.to(dt),
                                  self.fc2.bias)
-        approx = "tanh" if dt == torch.bfloat16 else "none"
-        h = F.gelu(self.fc1(x), approximate=approx)
+        h = self._act(self.fc1(x))
         with unkept_products():
             return self.fc2(h)
 
@@ -342,7 +370,8 @@ class Block(nn.Module):
                  layerscale_init: Optional[float] = None,
                  has_cls_token: bool = True,
                  dtype: torch.dtype = torch.float32, norm_eps: float = 1e-6,
-                 attention_impl: str = "auto", mlp_impl: str = "auto"):
+                 attention_impl: str = "auto", mlp_impl: str = "auto",
+                 mlp: str = "gelu", mlp_hidden: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.importance_mode = importance_mode
@@ -356,7 +385,8 @@ class Block(nn.Module):
         self.ls1 = (LayerScale(dim, layerscale_init)
                     if layerscale_init is not None else None)
         self.norm2 = LayerNorm(dim, norm_eps, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, mlp_hidden or int(dim * mlp_ratio), dtype,
+                       kind=mlp)
         self.ls2 = (LayerScale(dim, layerscale_init)
                     if layerscale_init is not None else None)
         self.tp = None  # the model group (set_tp)
@@ -365,7 +395,13 @@ class Block(nn.Module):
         """Make this block a rank's of the model group ``tp``: its qkv,
         proj, fc1 and fc2 parameters become the tensors of ``shard`` (keys
         relative to the block, e.g. ``'attn.qkv.weight'``, cut by
-        ``port.shard_state_dict``), their ``requires_grad`` kept."""
+        ``port.shard_state_dict``), their ``requires_grad`` kept. A SwiGLU
+        block is not sharded: its packed [a | g] ``mlp.fc1`` would need
+        each rank's units of both halves."""
+        if tp is not None and self.mlp.kind == "swiglu":
+            raise ValueError(
+                "tensor parallelism does not shard a SwiGLU block: its "
+                "mlp.fc1 packs [a | g], (2 F, D)")
         for name, t in shard.items():
             mod_name, _, leaf = name.rpartition(".")
             mod = self.get_submodule(mod_name)
@@ -399,9 +435,22 @@ class Block(nn.Module):
                 and self._mlp_path(x) == "fused_ln")
 
     def _mlp_path(self, x) -> str:
-        """'fused_ln' (K2 / K4) or the module chain (``block_mlp_path``)."""
-        return block_mlp_path(self.mlp_impl, x.is_cuda, self.compute_dtype,
-                              x.dim())
+        """'fused_ln' (K2 / K4, K2g for SwiGLU) or the module chain
+        (``block_mlp_path``). K2g has no backward: a SwiGLU MLP under
+        autograd takes the module chain."""
+        path = block_mlp_path(self.mlp_impl, x.is_cuda, self.compute_dtype,
+                              x.dim(), self.mlp.kind)
+        if (path == "fused_ln" and self.mlp.kind == "swiglu"
+                and torch.is_grad_enabled()):
+            return "auto"
+        return path
+
+    @staticmethod
+    def _mlp_span(buf):
+        """The tracer's ``teacher_mlp`` span around the MLP half of a block
+        that writes the collection stack (the frozen teacher's)."""
+        return (trace.span("teacher_mlp") if buf is not None
+                else contextlib.nullcontext())
 
     def _fold(self, w, b, ls):
         """LayerScale folded into the (out, in) weight and bias, outside
@@ -461,6 +510,15 @@ class Block(nn.Module):
                 y = drop_path(y, drop[1][0], drop[0])
             x = x + y
 
+        with self._mlp_span(buf):
+            x = self._mlp_half(x, drop, buf, idx)
+
+        if importance is None:
+            n_tok = x.shape[1] - 1 if self.has_cls_token else x.shape[1]
+            importance = torch.zeros((x.shape[0], n_tok), device=x.device)
+        return x, importance
+
+    def _mlp_half(self, x, drop, buf, idx):
         mlp_path = self._mlp_path(x)
         if mlp_path == "fused_ln":
             # the weights in the block's dtype, as the reference casts them
@@ -472,34 +530,30 @@ class Block(nn.Module):
                     self.norm2.weight.float(), self.norm2.bias.float(),
                     self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.float(),
                     w2.to(dt), b2.float())
+            if self.mlp.kind == "swiglu":
+                return fused_ln_swiglu_collect(x.contiguous(), *args, buf, idx,
+                                               self.norm_eps)
             if buf is not None:
-                x = fused_ln_mlp_collect(x.contiguous(), *args, buf, idx,
-                                         self.norm_eps)
-            else:
-                with unkept_products():
-                    x = fused_ln_mlp(x, *args, self.norm_eps)
-        else:
-            y = self.mlp(self.norm2(x),
-                         {"module": "dense"}.get(mlp_path, mlp_path))
-            if self.ls2 is not None:
-                y = self.ls2(y)
-            if drop is not None:
-                y = drop_path(y, drop[1][1], drop[0])
-            x = x + y
-            if buf is not None:
-                m = x.shape[0] * x.shape[1]
-                if buf.dtype != x.dtype or buf.shape[-1] != x.shape[-1]:
-                    raise ValueError(
-                        f"flat collect stack {tuple(buf.shape)}/{buf.dtype} "
-                        f"does not match block output {tuple(x.shape)}/"
-                        f"{x.dtype}"
-                    )
-                buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
-
-        if importance is None:
-            n_tok = x.shape[1] - 1 if self.has_cls_token else x.shape[1]
-            importance = torch.zeros((x.shape[0], n_tok), device=x.device)
-        return x, importance
+                return fused_ln_mlp_collect(x.contiguous(), *args, buf, idx,
+                                            self.norm_eps)
+            with unkept_products():
+                return fused_ln_mlp(x, *args, self.norm_eps)
+        y = self.mlp(self.norm2(x),
+                     {"module": "dense"}.get(mlp_path, mlp_path))
+        if self.ls2 is not None:
+            y = self.ls2(y)
+        if drop is not None:
+            y = drop_path(y, drop[1][1], drop[0])
+        x = x + y
+        if buf is not None:
+            m = x.shape[0] * x.shape[1]
+            if buf.dtype != x.dtype or buf.shape[-1] != x.shape[-1]:
+                raise ValueError(
+                    f"flat collect stack {tuple(buf.shape)}/{buf.dtype} "
+                    f"does not match block output {tuple(x.shape)}/{x.dtype}"
+                )
+            buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
+        return x
 
     # ------------------------------------------------- tensor parallelism
 
@@ -545,29 +599,32 @@ class Block(nn.Module):
             x = self._finish(x, tp.reduce(acc), self.attn.proj.bias, self.ls1,
                              drop, 0)
 
-        mlp_path = self._mlp_path(x)
-        if mlp_path == "fused_ln":
-            w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
-                                self.ls2)
-            args = (self._mask(drop, 1, x.shape[0], x.device),
-                    self.norm2.weight.float(), self.norm2.bias.float(),
-                    self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.float(),
-                    w2.to(dt), b2.float())
-            if buf is not None:
-                x = fused_ln_mlp_collect_tp(x.contiguous(), *args, buf, idx,
-                                            self.norm_eps, tp.all_reduce_)
+        with self._mlp_span(buf):
+            mlp_path = self._mlp_path(x)
+            if mlp_path == "fused_ln":
+                w2, b2 = self._fold(self.mlp.fc2.weight, self.mlp.fc2.bias,
+                                    self.ls2)
+                args = (self._mask(drop, 1, x.shape[0], x.device),
+                        self.norm2.weight.float(), self.norm2.bias.float(),
+                        self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.float(),
+                        w2.to(dt), b2.float())
+                if buf is not None:
+                    x = fused_ln_mlp_collect_tp(x.contiguous(), *args, buf,
+                                                idx, self.norm_eps,
+                                                tp.all_reduce_)
+                else:
+                    with unkept_products():
+                        x = fused_ln_mlp_tp(x, *args, self.norm_eps,
+                                            tp.all_reduce_)
             else:
-                with unkept_products():
-                    x = fused_ln_mlp_tp(x, *args, self.norm_eps,
-                                        tp.all_reduce_)
-        else:
-            acc = self.mlp.share(tp.copy_in(self.norm2(x).float()), tp,
-                                 {"module": "dense"}.get(mlp_path, mlp_path))
-            x = self._finish(x, tp.reduce(acc), self.mlp.fc2.bias, self.ls2,
-                             drop, 1)
-            if buf is not None:
-                m = x.shape[0] * x.shape[1]
-                buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
+                acc = self.mlp.share(
+                    tp.copy_in(self.norm2(x).float()), tp,
+                    {"module": "dense"}.get(mlp_path, mlp_path))
+                x = self._finish(x, tp.reduce(acc), self.mlp.fc2.bias,
+                                 self.ls2, drop, 1)
+                if buf is not None:
+                    m = x.shape[0] * x.shape[1]
+                    buf[idx * m:(idx + 1) * m] = x.reshape(m, x.shape[-1])
 
         if importance is None:
             n_tok = x.shape[1] - 1 if self.has_cls_token else x.shape[1]

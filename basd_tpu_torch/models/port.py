@@ -209,19 +209,26 @@ def derive_arch_from_state_dict(sd: dict, declared: dict | None = None) -> dict:
     patch size from the patch conv, depth, mlp_ratio, LayerScale and CLS
     from key presence, num_heads by the head_dim 64/48/32/96/128 rule), a
     ConvNeXtV2 (depths, dims) or a bottleneck ResNet (stage_sizes, width).
-    ``declared`` entries (``basd.teacher_arch``) win over derived ones."""
+    A ViT whose fc1 has twice fc2's inputs (or DINOv2's ``w12``) is SwiGLU,
+    with ``mlp_hidden`` fc2's inputs. ``declared`` entries
+    (``basd.teacher_arch``) win over derived ones."""
     declared = dict(declared or {})
     if "patch_embed.proj.weight" in sd and "blocks.0.norm1.weight" in sd:
         d, _c, p, _ = sd["patch_embed.proj.weight"].shape
         d = int(d)
+        sd = {_mlp_key(k): v for k, v in sd.items()}
+        fc1 = int(sd["blocks.0.mlp.fc1.weight"].shape[0])
+        hidden = int(sd["blocks.0.mlp.fc2.weight"].shape[1])
         arch: dict = {
             "kind": "vit",
             "embed_dim": d,
             "depth": _block_count(sd, "blocks"),
             "patch_size": int(p),
-            "mlp_ratio": float(sd["blocks.0.mlp.fc1.weight"].shape[0]) / d,
+            "mlp_ratio": float(hidden) / d,
             "use_cls_token": "cls_token" in sd,
         }
+        if fc1 == 2 * hidden:
+            arch.update(mlp="swiglu", mlp_hidden=hidden)
         if "blocks.0.ls1.gamma" in sd or "blocks.0.gamma_1" in sd:
             # the value is overwritten by the checkpoint's gammas
             arch["layerscale_init"] = 1e-5
@@ -297,6 +304,16 @@ def interpolate_pos_embed(pos, target_tokens: int,
     return torch.cat([head, resized.reshape(1, side_dst * side_dst, -1)], dim=1)
 
 
+# DINOv2's hub names of a SwiGLU MLP -> timm's: w12 (fc1, packed [a | g],
+# as timm's SwiGLUPacked keeps it) and w3 (fc2)
+_DINOV2_MLP = {"w12": "fc1", "w3": "fc2"}
+
+
+def _mlp_key(k: str) -> str:
+    return re.sub(r"^(blocks\.\d+\.mlp)\.(w12|w3)\.",
+                  lambda m: f"{m.group(1)}.{_DINOV2_MLP[m.group(2)]}.", k)
+
+
 # keys of real checkpoints the reference ignores (a classifier head, DINOv2's
 # mask token, timm ConvNeXt's pre-head norm)
 _IGNORED = re.compile(r"^(head|fc)\.|^mask_token$|^norm_pre\.")
@@ -306,7 +323,8 @@ _CONVNEXT_OLD = {"grn": "mlp.grn", "pwconv1": "mlp.fc1", "pwconv2": "mlp.fc2"}
 
 def port_torch_checkpoint(sd: dict, bundle) -> None:
     """Load a timm / dinov2 / torchvision state dict into ``bundle.module``
-    in place: DINOv2's ``blocks.{i}.gamma_{1,2}`` become ``ls{1,2}.gamma``,
+    in place: DINOv2's ``blocks.{i}.gamma_{1,2}`` become ``ls{1,2}.gamma``
+    and its SwiGLU ``mlp.w12`` / ``mlp.w3`` timm's ``mlp.fc1`` / ``mlp.fc2``,
     the older ConvNeXtV2 ``grn`` / ``pwconv{1,2}`` names ``mlp.grn`` /
     ``mlp.fc{1,2}`` (GRN reshaped to the model's), ``pos_embed`` is resized
     to the model's grid, a ResNet checkpoint without ``num_batches_tracked``
@@ -320,6 +338,7 @@ def port_torch_checkpoint(sd: dict, bundle) -> None:
         if _IGNORED.match(k) and k not in own:
             continue
         k = re.sub(r"^(blocks\.\d+)\.gamma_([12])$", r"\1.ls\2.gamma", k)
+        k = _mlp_key(k)
         k = re.sub(r"^(stages\.\d+\.blocks\.\d+)\.(grn|pwconv1|pwconv2)\.",
                    lambda m: f"{m.group(1)}.{_CONVNEXT_OLD[m.group(2)]}.", k)
         v = torch.as_tensor(v)
@@ -371,13 +390,20 @@ def shard_state_dict(sd: dict, tp, num_heads: int) -> dict:
     weight rows (3 h E, D) and bias of its heads of q, then k, then v;
     proj weight columns (D, h E); fc1 weight rows (F_r, D) and bias; fc2
     weight columns (D, F_r); every other entry as it is (the same
-    tensor)."""
+    tensor). A SwiGLU block's packed [a | g] fc1 (2 F rows to fc2's F
+    columns) raises: it is not sharded."""
     out = {}
     for key, t in sd.items():
         kind = tp_key(key)
         if kind is None:
             out[key] = t
             continue
+        if kind == "mlp.fc1.weight":
+            fc2 = sd.get(key[:-len("fc1.weight")] + "fc2.weight")
+            if fc2 is not None and t.shape[0] == 2 * fc2.shape[1]:
+                raise ValueError(
+                    f"tensor parallelism does not shard a SwiGLU block: "
+                    f"{key} packs [a | g], {tuple(t.shape)}")
         dim = t.shape[-1] if kind == "attn.qkv.weight" else None
         dim = dim or (t.shape[0] // 3 if kind == "attn.qkv.bias"
                       else t.shape[0])

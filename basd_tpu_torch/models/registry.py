@@ -43,6 +43,11 @@ _VIT_PRESETS: dict[str, dict] = {
                           mlp_ratio=4.0, patch_size=14, layerscale_init=1e-5),
     "dinov2_vits14": dict(embed_dim=384, depth=12, num_heads=6,
                           mlp_ratio=4.0, patch_size=14, layerscale_init=1e-5),
+    # DINOv2's giant: SwiGLU with F = 4096 (its hub's (int(D x 4 x 2/3) + 7)
+    # // 8 x 8; timm's vit_giant_patch14_dinov2)
+    "dinov2_vitg14": dict(embed_dim=1536, depth=40, num_heads=24,
+                          mlp_ratio=4.0, patch_size=14, layerscale_init=1e-5,
+                          mlp="swiglu", mlp_hidden=4096),
     "vit_small_patch16_224": dict(embed_dim=384, depth=12, num_heads=6,
                                   mlp_ratio=4.0, patch_size=16),
     "vit_base_patch16_224": dict(embed_dim=768, depth=12, num_heads=12,
@@ -90,6 +95,8 @@ def _vit_info(cfg: ViTConfig) -> dict:
         "heads_per_layer": [cfg.num_heads] * cfg.depth,
         "depth": cfg.depth,
         "mlp_ratio": cfg.mlp_ratio,
+        "mlp": cfg.mlp,
+        "mlp_hidden": cfg.hidden_dim,
         "layer_paths": [f"blocks.{i}" for i in range(cfg.depth)],
         "attn_subpath": "attn",
         "has_cls_token": cfg.use_cls_token,
@@ -160,7 +167,8 @@ def create_model(
 ) -> ModelBundle:
     """Build a model by preset name, or an unlisted one from explicit arch
     kwargs: a ViT {embed_dim, depth, num_heads, [mlp_ratio, patch_size,
-    layerscale_init, use_cls_token]}, or with ``kind='convnext'`` {depths,
+    layerscale_init, use_cls_token, mlp, mlp_hidden]} (``mlp`` 'gelu' or
+    'swiglu'), or with ``kind='convnext'`` {depths,
     dims} / ``kind='resnet'`` {stage_sizes, [width]} a CNN. Parameters are
     uninitialised; see ``init_model``. ``attention_impl`` / ``mlp_impl``
     select the ViT blocks' kernel dispatch (``layers.Block``; the

@@ -108,6 +108,24 @@ class ViTConfig:
     layerscale_init: Optional[float] = None
     norm_eps: float = 1e-6
     name: str = "vit"
+    # the blocks' MLP: 'gelu', or 'swiglu' (fc1 packed [a | g]) with its
+    # hidden width stated in ``mlp_hidden``
+    mlp: str = "gelu"
+    mlp_hidden: Optional[int] = None
+
+    def __post_init__(self):
+        if self.mlp not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown MLP kind {self.mlp!r}; known: gelu, "
+                             "swiglu")
+        if self.mlp == "swiglu" and not self.mlp_hidden:
+            raise ValueError("a SwiGLU MLP states its hidden width "
+                             "(mlp_hidden)")
+
+    @property
+    def hidden_dim(self) -> int:
+        """The MLP's hidden width F: ``mlp_hidden``, else D x ``mlp_ratio``
+        (fc1 makes 2 F outputs for SwiGLU)."""
+        return self.mlp_hidden or int(self.embed_dim * self.mlp_ratio)
 
     @property
     def num_patches(self) -> int:
@@ -121,7 +139,8 @@ class ViTConfig:
     def with_overrides(self, overrides: dict | None) -> "ViTConfig":
         if not overrides:
             return self
-        allowed = {"embed_dim", "depth", "num_heads", "mlp_ratio"}
+        allowed = {"embed_dim", "depth", "num_heads", "mlp_ratio", "mlp",
+                   "mlp_hidden"}
         unknown = set(overrides) - allowed
         if unknown:
             raise ValueError(f"unsupported arch overrides: {sorted(unknown)}")
@@ -165,7 +184,7 @@ class VisionTransformer(nn.Module):
                   layerscale_init=cfg.layerscale_init,
                   has_cls_token=cfg.use_cls_token, dtype=dtype,
                   norm_eps=cfg.norm_eps, attention_impl=attention_impl,
-                  mlp_impl=mlp_impl)
+                  mlp_impl=mlp_impl, mlp=cfg.mlp, mlp_hidden=cfg.hidden_dim)
             for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, cfg.norm_eps, dtype)
@@ -268,7 +287,7 @@ def whole_vit(module: "VisionTransformer", tp) -> "VisionTransformer":
     cfg = module.cfg
     params = {k: p.detach() for k, p in module.named_parameters()}
     full = gather_state_dict(params, tp, cfg.num_heads, cfg.embed_dim,
-                             int(cfg.embed_dim * cfg.mlp_ratio))
+                             cfg.hidden_dim)
     out = copy.deepcopy(module, memo={id(tp): None}).cpu()
     for i, blk in enumerate(out.blocks):
         prefix = f"blocks.{i}."

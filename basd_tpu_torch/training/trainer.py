@@ -454,8 +454,7 @@ class Trainer:
 
     def _student_arch(self) -> tuple[int, int, int]:
         cfg = self.student.cfg
-        return (cfg.num_heads, cfg.embed_dim,
-                int(cfg.embed_dim * cfg.mlp_ratio))
+        return cfg.num_heads, cfg.embed_dim, cfg.hidden_dim
 
     def _whole(self, tensors: dict) -> dict:
         """The student's sharded entries of ``tensors`` gathered over the

@@ -243,6 +243,9 @@ K7_VITL = "K7 ns_polar_hybrid: batched (vitl)"
 K7_VARIANTS = ("onchip", "stream", "batched")
 # the LayerNorms, which the flash path takes in every block
 LN_KERNELS = ("K5a fused_layernorm fwd", "K5b fused_layernorm bwd")
+# K2g, the SwiGLU teacher's MLP half: no train path here runs a SwiGLU
+# teacher, so it is checked and timed in the kernel phase alone
+SWIGLU_KERNELS = ("K2g fused_ln_swiglu_collect",)
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and
 # non-tensor f32 FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -431,6 +434,7 @@ def kernel_phase(torch, device):
           f"({m_rows}, {f}) x ({d}, {f})^T "
           f"ms={time_ms(torch, lambda: F.linear(h2, tw['mlp'][2]))}")
     gemm_checks(torch, rn, block_mlp)
+    k2g_check(torch, device, block_mlp, record)
     # the checks added beside the backward GEMM and K5a draw from a
     # generator of their own: the inputs of every other check stay the same
     g_new = torch.Generator(device=device).manual_seed(8)
@@ -711,6 +715,38 @@ def kernel_phase(torch, device):
 # the qkv, proj, fc1 and fc2 names of one block (models.port.shard_state_dict)
 TP_BLOCK_KEYS = ("attn.qkv.weight", "attn.qkv.bias", "attn.proj.weight",
                  "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight")
+
+
+def k2g_check(torch, device, block_mlp, record, b: int = BATCH) -> None:
+    """K2g against its plain version at the DINOv2 ViT-g/14 teacher's widths
+    (257 tokens, D 1536, F 4096), with its slab of the stack; from a
+    generator of its own, so the other checks' inputs stay the same. Its
+    bound counts fc1's 2 F and fc2's F products a row and the bytes of its
+    inputs, the (M, F) hidden state, the output and the slab."""
+    g = torch.Generator(device=device).manual_seed(21)
+    bf = torch.bfloat16
+    n, d, f = 257, 1536, 4096
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    x = rn(b, n, d).to(bf)
+    args = (x, torch.ones(b, device=device), 1.0 + 0.1 * rn(d), 0.1 * rn(d),
+            rn(2 * f, d, scale=d ** -0.5).to(bf), 0.1 * rn(2 * f),
+            rn(d, f, scale=f ** -0.5).to(bf), 0.1 * rn(d))
+    m_rows = b * n
+    buf = torch.full((2 * m_rows, d), 3.0, dtype=bf, device=device)
+    out = block_mlp.fused_ln_swiglu_collect(*args, buf, 1)
+    ref = block_mlp.swiglu_mlp_plain(*args)
+    err = check_close("K2g out", out, ref, 2 ** -5, 1.0)
+    check(torch.equal(buf[m_rows:], out.reshape(m_rows, d))
+          and bool((buf[:m_rows] == 3.0).all()),
+          "K2g: the slab differs from out, or a write fell outside it")
+    record("K2g fused_ln_swiglu_collect", err,
+           lambda: block_mlp.fused_ln_swiglu_collect(*args, buf, 1),
+           lambda: block_mlp.swiglu_mlp_plain(*args),
+           nbytes(*args, out, out) + 2 * m_rows * f,
+           2 * m_rows * d * 2 * f + 2 * m_rows * f * d, PEAK_BF16)
 
 
 def tp_shards(weights: dict, heads: int, world: int) -> list:
@@ -2181,7 +2217,8 @@ def check_dino_counts(label, trainer, counts) -> None:
         check(counts[name] > 0 and counts[name] % s_depth == 0,
               f"{label}: {name} launched {counts[name]} times, not a "
               f"multiple of the student's depth {s_depth}")
-    for name in ("K8 jacobi_eigh",) + FLASH_KERNELS + kernels.TP_KERNELS:
+    for name in (("K8 jacobi_eigh",) + FLASH_KERNELS + kernels.TP_KERNELS
+                 + SWIGLU_KERNELS):
         check(counts[name] == 0, f"{label}: launched {name}")
 
 
@@ -2722,7 +2759,7 @@ def main(argv=None) -> int:
     for name, *_ in kernels.KERNELS:
         count = counts[name]
         if (name == "K8 jacobi_eigh" or name in FLASH_KERNELS
-                or name in kernels.TP_KERNELS):
+                or name in kernels.TP_KERNELS or name in SWIGLU_KERNELS):
             check(count == 0, f"the gram path launched {name}")
         else:
             check(count > 0, f"{name} never launched on the main path")

@@ -106,6 +106,9 @@ def _wrapper_cases():
                                                           8)[1]
     k3bp = (x, mask, dout, lse_r, *ln, *attn_r, 2, 8)
     k4bp = (x, mask, dout, *ln, *mlp_r)
+    # K2g's SwiGLU MLP: fc1 (2 F, D) packed [a | g]
+    swiglu = (t(2 * f, d, dtype=bf, scale=0.2), t(2 * f),
+              t(d, f, dtype=bf, scale=0.2), t(d))
 
     def flat_bwd(grads):
         """A plain backward's (dx, 3 weight grads, bias, dln_s, dln_b) as
@@ -188,6 +191,9 @@ def _wrapper_cases():
             (x, *mlp), lambda: fused_mlp.fused_mlp_plain_fwd(x, *mlp)),
         "K11b fused_mlp bwd": (
             k11b, lambda: fused_mlp.fused_mlp_plain_bwd(*k11b)),
+        "K2g fused_ln_swiglu_collect": (
+            (x, ones, *ln, *swiglu, buf, 1),
+            lambda: block_mlp.swiglu_mlp_plain(x, ones, *ln, *swiglu)),
     }
 
 

@@ -279,6 +279,9 @@ def test_dinov2_checkpoint_matches_jax(naming, tmp_path):
                                        checkpoint_path=str(path), dtype=jnp.float32)
     bundle = registry.load_teacher("dinov2_custom", 224, device=CPU,
                                    checkpoint_path=str(path), dtype=torch.float32)
+    # the port's info also states the MLP, which the JAX package's lacks
+    mlp = {k: bundle.info.pop(k) for k in ("mlp", "mlp_hidden")}
+    assert mlp == {"mlp": "gelu", "mlp_hidden": 512}
     assert bundle.info == jbundle.info and bundle.info["num_tokens"] == 256
     np.testing.assert_allclose(bundle.module.pos_embed.detach().numpy(),
                                np.asarray(jvars["params"]["pos_embed"]),

@@ -22,6 +22,7 @@ STEP_TREE = {
     "step": [None],
     "views": ["step"],
     "teacher": ["step"],
+    "teacher_mlp": ["teacher"],
     "loss_and_grads": ["step"],
     "update": ["step"],
     "student_forward": ["loss_and_grads"],
@@ -135,12 +136,45 @@ def test_on_gives_the_step_tree_and_counts(tmp_path, backend):
         want = {"eigh.calls.xla": steps, "eigh.matrices.xla": (L + P) * steps,
                 "eigh.calls.jacobi": steps,
                 "eigh.matrices.jacobi": P * L * steps}
+    # K6's route: the plain einsum on the CPU, one mix a step
+    want["mix.calls.plain"] = steps
+    # one teacher_mlp span a teacher block a step
+    assert spans["teacher_mlp"]["calls"] == L * steps
     assert s["counters"] == want
     per = trace.per_step(s)
     assert per["steps"] == 2
     assert per["counters"]["eigh.matrices.xla"] == want[
         "eigh.matrices.xla"] / 2
     assert per["spans"]["eigh"]["calls"] == 2
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_swiglu_teacher_records_a_span_a_block_mlp(on):
+    """A tiny SwiGLU teacher's forward: one ``teacher_mlp`` span a block,
+    inside ``teacher``; nothing with the tracer off."""
+    from basd_tpu_torch.models.registry import (
+        create_model,
+        init_model,
+        teacher_extract,
+    )
+
+    bundle = create_model(
+        "tiny_swiglu", img_size=32, importance_mode="cls", collect=True,
+        arch_overrides=dict(embed_dim=64, depth=3, num_heads=2, patch_size=8,
+                            mlp="swiglu", mlp_hidden=128))
+    init_model(bundle, 0)
+    bundle.module.eval().requires_grad_(False)
+    if on:
+        trace.enable()
+    with trace.span("teacher"):
+        teacher_extract(bundle, torch.rand(2, 32, 32, 3))
+    spans = trace.summary()["spans"]
+    if not on:
+        assert spans == {}
+        return
+    assert spans["teacher"]["calls"] == 1
+    assert spans["teacher_mlp"]["calls"] == 3
+    assert spans["teacher_mlp"]["parents"] == ["teacher"]
 
 
 def test_grad_reduce_span_and_counters():
